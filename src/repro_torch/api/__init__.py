@@ -1,0 +1,36 @@
+"""`repro_torch.api` — the declarative experiment layer on PyTorch.
+
+`ExperimentSpec` (frozen, JSON round-trippable, the reference's form)
+describes one simulation cell; `Session` assembles and runs it on the
+card (or, when asked, the CPU).
+"""
+
+from repro_torch.api.policies import (
+    list_policies,
+    make_policy,
+    parse_policy,
+    register_policy,
+)
+from repro_torch.api.runners import ExecutionChoice, apply_choice, pick
+from repro_torch.api.session import Session
+from repro_torch.api.spec import (
+    SPEC_VERSION,
+    ExperimentSpec,
+    load_specs,
+    save_specs,
+)
+
+__all__ = [
+    "SPEC_VERSION",
+    "ExecutionChoice",
+    "ExperimentSpec",
+    "Session",
+    "apply_choice",
+    "pick",
+    "list_policies",
+    "load_specs",
+    "make_policy",
+    "parse_policy",
+    "register_policy",
+    "save_specs",
+]

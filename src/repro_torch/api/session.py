@@ -1,0 +1,126 @@
+"""`Session`: assemble and run one `ExperimentSpec` on one device.
+
+Port of `repro.api.session.Session` with the reference's assembly order:
+one host RNG seeded from ``spec.seed`` feeds the partition, the sampler
+and the device pool, in that order, and the simulator's own
+``default_rng(seed)`` is the policy stream — so decisions, clocks and
+gather plans match the reference bitwise for the same spec.
+
+Sessions are single-shot: the simulator they wrap is stateful, so build a
+fresh `Session` per run.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from repro_torch.api import policies as policy_registry
+from repro_torch.api.spec import ExperimentSpec
+from repro_torch.config import get_config
+from repro_torch.core.latency import sample_devices
+from repro_torch.core.profiles import model_profile
+from repro_torch.core.sfl import SFLEdgeSimulator, SimResult
+from repro_torch.data import (
+    ClientSampler,
+    make_cifar_like,
+    partition_iid,
+    partition_noniid_shards,
+)
+from repro_torch.device import disable_tf32, resolve
+from repro_torch.models import build_model
+
+
+class Session:
+    """One runnable simulation cell, assembled from an `ExperimentSpec`.
+
+    ``device=None`` runs on the card (raising without one); pass
+    ``device="cpu"`` for the plain PyTorch paths.  On the card, TF32 is
+    switched off for matmuls and convolutions process-wide, so every fp32
+    product stays full fp32.  ``init_units`` (a unit list of numpy arrays
+    or tensors, e.g. `repro_torch.convert.units_from_numpy` of the
+    reference's ``Session(spec).sim.units``) replaces the port's own
+    seeded init.
+    """
+
+    def __init__(self, spec: ExperimentSpec, device=None,
+                 init_units: Optional[list] = None):
+        spec = spec.validated()
+        self.spec = spec
+        self.device = resolve(device)
+        if self.device.type == "cuda":
+            disable_tf32()
+        self.cfg = get_config(spec.arch)
+        base_policy, _ = policy_registry.parse_policy(spec.policy)
+        if base_policy not in policy_registry.list_policies():
+            raise KeyError(
+                f"unknown policy {spec.policy!r}; "
+                f"known: {policy_registry.list_policies()}"
+            )
+
+        self.model = build_model(self.cfg)
+        rng = np.random.default_rng(spec.seed)
+        train, test, shard_labels = self._build_data(spec)
+        if spec.partition == "iid":
+            shards = partition_iid(spec.n_train, spec.n_clients, rng)
+        else:
+            shards = partition_noniid_shards(shard_labels, spec.n_clients, rng)
+        self.sampler = ClientSampler(train, shards, rng)
+        self.sfl = spec.resolved_sfl
+        self.profile = model_profile(self.cfg, seq_len=spec.seq_len)
+        self.devices = sample_devices(spec.n_clients, rng)
+        if init_units is not None:
+            from repro_torch.convert import units_from_numpy
+
+            init_units = units_from_numpy(init_units, self.device)
+        self.sim = SFLEdgeSimulator(
+            self.model,
+            self.sampler,
+            test,
+            self.devices,
+            self.sfl,
+            self.profile,
+            seed=spec.seed,
+            update_impl=spec.update_impl,
+            fault_mode=spec.fault_mode,
+            deadline_factor=spec.deadline_factor,
+            device=self.device,
+            init_units=init_units,
+        )
+        self.policy = policy_registry.make_policy(
+            spec.policy,
+            self.profile,
+            self.sfl,
+            estimate=spec.estimate,
+            seed=spec.seed,
+        )
+        self._ran = False
+
+    def _build_data(self, spec: ExperimentSpec):
+        """(train arrays, test batch, labels for non-IID sharding)."""
+        (xtr, ytr), (xte, yte) = make_cifar_like(
+            self.cfg.n_classes,
+            spec.n_train,
+            spec.n_test,
+            self.cfg.image_size,
+            seed=spec.seed,
+        )
+        train = {"images": xtr, "labels": ytr}
+        test = {"images": xte, "labels": yte}
+        return train, test, ytr
+
+    def run(self, *, verbose: bool = False) -> SimResult:
+        """Run this cell (single-shot)."""
+        if self._ran:
+            raise RuntimeError(
+                "Session already ran; sessions are single-shot — build a "
+                "fresh Session from the spec to rerun"
+            )
+        self._ran = True
+        return self.sim.run(
+            self.policy,
+            rounds=self.spec.rounds,
+            eval_every=self.spec.eval_every,
+            reconfigure_every=self.spec.reconfigure_every,
+            verbose=verbose,
+        )

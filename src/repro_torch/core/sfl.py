@@ -1,0 +1,348 @@
+"""The SFL/HASFL edge simulator in PyTorch.  Port of
+`repro.core.sfl.SFLEdgeSimulator`, scan-engine semantics.
+
+N heterogeneous clients with per-client batch b_i and cut c_i; the
+server-common sub-model is aggregated every round (Eq. 4), the
+client-specific sub-models every I rounds (Eq. 7); the wall clock
+advances by the Eq. 28-40 latency model and metrics come from a held-out
+set.  Within a round, split execution computes exactly the gradients of
+full-model execution, so the simulator computes per-client full-model
+gradients and applies HASFL's per-component update rules (DESIGN.md §2).
+
+`run()` is a segment scheduler, as the reference's scan engine: the round
+range is chopped at eval / reconfiguration boundaries, each segment's
+gather plan is pre-drawn from the authoritative host RNG, and the
+segment's rounds run as a Python loop on the device.  Per round: gather
+the padded per-client batch (`DeviceClientStore.device_batch`), one
+backward of the *sum* of the stacked per-client losses (every conv
+through the client-batched GEMM), the per-client fp32 clip factor, and
+the fused HASFL update.  The stacked parameter tensors are updated in
+place — the analogue of the reference's donated scan carry — and the
+per-round losses stay on the device until the segment's eval fetches
+them.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.config import SFLConfig, DeviceProfile
+from repro_torch.core import split as SP
+from repro_torch.core.latency import LatencyModel
+from repro_torch.core.profiles import LayerProfile
+from repro_torch.data.pipeline import DeviceClientStore
+from repro_torch.device import resolve
+from repro_torch.models.factory import Model
+from repro_torch.utils.tree import tree_leaves, tree_map
+
+
+def pow2_bucket(n: int) -> int:
+    """Round a segment's batch maximum up to the next power of two (the
+    reference's scan-engine padding, kept so gather plans and padded
+    shapes match it; the extra columns carry loss-mask zeros)."""
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+@dataclass
+class SimResult:
+    rounds: List[int] = field(default_factory=list)
+    clock: List[float] = field(default_factory=list)      # simulated seconds
+    train_loss: List[float] = field(default_factory=list)
+    test_acc: List[float] = field(default_factory=list)
+    test_loss: List[float] = field(default_factory=list)
+    b_history: List[np.ndarray] = field(default_factory=list)
+    cut_history: List[np.ndarray] = field(default_factory=list)
+
+
+def clip_scale_from_norm(norm, clip: float):
+    """min(1, clip/norm) — the clip rule."""
+    return torch.clamp(clip / torch.clamp(norm, min=1e-12), max=1.0)
+
+
+def clip_by_global_norm(grads, clip: float):
+    """Scale a gradient tree so its global L2 norm is at most ``clip``
+    (``clip=0`` disables)."""
+    if not clip:
+        return grads
+    norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for g in tree_leaves(grads)))
+    scale = clip_scale_from_norm(norm, clip)
+    return tree_map(lambda g: (g * scale).to(g.dtype), grads)
+
+
+def _with_grad(tree):
+    """Fresh autograd leaves sharing storage with ``tree``'s tensors."""
+    return tree_map(lambda a: a.detach().requires_grad_(), tree)
+
+
+class SFLEdgeSimulator:
+    """Paper-faithful edge simulation on one device.
+
+    ``device`` picks the card (default) or, when asked, the CPU; on the
+    card every conv and every update leaf runs through the hand-written
+    kernels whatever ``update_impl`` says.  On the CPU the convs take the
+    GEMM's plain version, and ``update_impl=None`` keeps the inline plain
+    update algebra (any other value: the fused op's plain version).
+    ``init_units`` (a unit list of tensors) replaces the port's own seeded
+    init — how parity tests carry the reference's weights across.
+    """
+
+    def __init__(
+        self, model: Model, sampler, test_batch: dict,
+        devices: Sequence[DeviceProfile], sfl: SFLConfig,
+        profile: LayerProfile, seed: int = 0,
+        update_impl: Optional[str] = None,
+        fault_mode: str = "soft",
+        deadline_factor: float = 2.0,
+        device=None,
+        init_units: Optional[list] = None,
+    ):
+        self.device = resolve(device)
+        self.model = model
+        self.cfg = model.cfg
+        self.sampler = sampler
+        self.test_batch = {k: torch.as_tensor(np.asarray(v)).to(self.device)
+                           for k, v in test_batch.items()}
+        self.devices = list(devices)
+        self.sfl = sfl
+        self.profile = profile
+        self.lat = LatencyModel(profile, devices, sfl)
+        self.n = len(devices)
+        self.available = np.ones(self.n, bool)
+        self.rng = np.random.default_rng(seed)
+        # Fault semantics (DESIGN.md §12): "soft" = full participation;
+        # "dropout" excludes unavailable clients; "deadline" also drops
+        # clients whose Eq. 38 phase latency exceeds deadline_factor x the
+        # cohort median, and advances the clock at the deadline.
+        if fault_mode not in ("soft", "dropout", "deadline"):
+            raise ValueError(f"unknown fault_mode {fault_mode!r}")
+        if fault_mode == "deadline" and not deadline_factor > 0:
+            raise ValueError("deadline_factor must be > 0")
+        self.fault_mode = fault_mode
+        self.deadline_factor = float(deadline_factor)
+        self._update_ops_impl = ("kernel" if self.device.type == "cuda"
+                                 else update_impl)
+
+        if init_units is None:
+            gen = torch.Generator().manual_seed(seed)
+            params = model.init(gen, self.device)
+        else:
+            params = tree_map(lambda a: a.to(self.device, torch.float32),
+                              list(init_units))
+        self.units, self.rebuild = SP.to_units(self.cfg, params)
+        self._stacked = SP.replicate_units(self.units, self.n)
+        self.store = DeviceClientStore.from_sampler(sampler, self.device)
+
+    @property
+    def client_units(self):
+        """Per-client unit lists (read-only nested tuples of views)."""
+        return tuple(tuple(units) for units in
+                     SP.unstack_unit_trees(self._stacked, self.n))
+
+    # -- single-model loss / grad / eval ------------------------------------
+    def _grad_fn(self, units, batch):
+        """((loss, aux), clipped grads) of the single-model loss at
+        ``units`` on a host ``batch`` — what the HASFL controller's online
+        G²/σ² estimate reads."""
+        params = _with_grad(self.rebuild(units))
+        batch = {k: torch.as_tensor(np.asarray(v)).to(self.device)
+                 for k, v in batch.items()}
+        loss, aux = self.model.loss(params, batch)
+        loss.backward()
+        grads = tree_map(lambda a: a.grad, params)
+        return ((loss.detach(), aux),
+                clip_by_global_norm(grads, self.sfl.clip_norm))
+
+    @torch.no_grad()
+    def _eval(self, units, batch):
+        logits, _ = self.model.apply(self.rebuild(units), batch)
+        labels = batch["labels"].long()
+        acc = (logits.argmax(-1) == labels).float().mean()
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        loss = -torch.gather(logp, 1, labels[:, None]).mean()
+        return loss, acc
+
+    # -- unit-space helpers ---------------------------------------------------
+    def _unit_cuts(self, cuts_layers: np.ndarray) -> np.ndarray:
+        return np.asarray([
+            SP.layer_cut_to_unit_cut(self.cfg, int(c))
+            for c in cuts_layers
+        ], int)
+
+    # -- the round ------------------------------------------------------------
+    def _client_grads(self, stacked, batch):
+        """Per-client (losses [N], raw grads, clip scale [N]): one backward
+        of the sum of the stacked per-client losses (client i's slice only
+        touches loss i), and the per-client fp32 global-norm clip factor
+        returned separately so the update fuses it."""
+        leaves = _with_grad(stacked)
+        losses = self.model.stacked_loss(leaves, batch)
+        losses.sum().backward()
+        grads = tree_map(lambda a: a.grad, leaves)
+        scale = None
+        if self.sfl.clip_norm:
+            norm = torch.sqrt(sum(
+                torch.sum(torch.square(g.float()),
+                          dim=tuple(range(1, g.dim())))
+                for g in tree_leaves(grads)))
+            scale = clip_scale_from_norm(norm, self.sfl.clip_norm)
+        return losses.detach(), grads, scale
+
+    def _round(self, batch, masks, do_agg: bool, part=None):
+        """One HASFL round over the stacked units; returns losses [N]."""
+        losses, grads, scale = self._client_grads(self._stacked, batch)
+        self._stacked = SP.hasfl_round_update(
+            self._stacked, grads, masks, do_agg, self.sfl.lr,
+            grad_scale=scale, impl=self._update_ops_impl,
+            participation=part)
+        return losses
+
+    def _run_segment(self, t0: int, idx, row_mask, masks, parts=None):
+        """Rounds (t0, t0 + R] on the device: the plan, mask and
+        participation go up once, the losses come back as one [R, N]
+        device tensor.  The every-I flag comes from the running counter."""
+        interval = self.sfl.agg_interval
+        idx_d = torch.as_tensor(idx).to(self.device, torch.long)
+        mask_d = torch.as_tensor(row_mask).to(self.device)
+        parts_d = None if parts is None else \
+            torch.as_tensor(parts).to(self.device)
+        losses = []
+        t = t0
+        for r in range(idx.shape[0]):
+            t += 1
+            batch = DeviceClientStore.device_batch(
+                self.store.arrays, idx_d[r], mask_d)
+            losses.append(self._round(
+                batch, masks, (t % interval) == 0,
+                None if parts_d is None else parts_d[r]))
+        return torch.stack(losses)
+
+    # -- device pool ----------------------------------------------------------
+    def set_devices(self, devices: Sequence[DeviceProfile], available=None) -> None:
+        """Inject the current device pool (size stays N)."""
+        if len(devices) != self.n:
+            raise ValueError(f"device pool must stay size {self.n}, got {len(devices)}")
+        self.devices = list(devices)
+        self.lat.set_devices(self.devices)
+        self.available = (
+            np.ones(self.n, bool) if available is None
+            else np.asarray(available, bool)
+        )
+
+    def _fault_round(self, b, cuts):
+        """(participation, t_split, t_agg) for one round under the active
+        fault mode; participation is None on the soft path."""
+        if self.fault_mode == "soft":
+            return None, self.lat.t_split(b, cuts), self.lat.t_agg(b, cuts)
+        if self.fault_mode == "dropout":
+            part = np.asarray(self.available, bool)
+            ts, ta = self.lat.masked_round(b, cuts, part)
+            return part.astype(np.float32), ts, ta
+        part, ts, ta = self.lat.deadline_round(
+            b, cuts, np.asarray(self.available, bool), self.deadline_factor)
+        return part.astype(np.float32), ts, ta
+
+    # -- main loop ------------------------------------------------------------
+    def run(
+        self, policy_fn: Callable, rounds: int, eval_every: int = 10,
+        reconfigure_every: Optional[int] = None, verbose: bool = False
+    ) -> SimResult:
+        """policy_fn(sim, rng) -> (b [N], cuts_layers [N]).
+
+        The segment scheduler: chops the round range at eval /
+        reconfiguration boundaries (the every-I stage needs no boundary),
+        pre-draws each segment's gather plan from the host RNG and runs
+        the segment on the device.  Metrics, clock accounting and policy
+        calls follow the reference's scan engine exactly.
+        """
+        reconf = reconfigure_every or self.sfl.agg_interval
+        res = SimResult()
+        clock = 0.0
+        t = 0
+        b, cuts = policy_fn(self, self.rng)
+        self._record_policy(res, b, cuts)
+        n_units_total = len(self.units)
+
+        while t < rounds:
+            nxt = min(
+                (t // eval_every + 1) * eval_every,
+                (t // reconf + 1) * reconf, rounds
+            )
+            ucuts = self._unit_cuts(np.asarray(cuts))
+            l_c_units = int(np.max(ucuts))
+            masks = SP.client_unit_mask(self.cfg, n_units_total, l_c_units)
+            b_pad = pow2_bucket(int(np.max(b)))
+            idx = self.store.segment_indices(nxt - t, b, b_pad)
+            row_mask = self.store.row_mask(b, b_pad)
+            parts = self._segment_participation(t, nxt, b, cuts)
+            seg_losses = self._run_segment(t, idx, row_mask, masks, parts)
+
+            # clock: accumulate round-by-round on host (the reference's
+            # float summation order)
+            clock = self._advance_clock(clock, t, nxt, b, cuts)
+            t = nxt
+
+            b, cuts = self._maybe_reconfigure(
+                res, policy_fn, t, reconf, rounds, b, cuts)
+            if t % eval_every == 0 or t == rounds:
+                # the eval round is the segment's last: its losses are the
+                # final row, fetched here once
+                self._record_metrics(res, t, clock, seg_losses[-1], verbose)
+        return res
+
+    def _record_policy(self, res: SimResult, b, cuts) -> None:
+        res.b_history.append(np.asarray(b).copy())
+        res.cut_history.append(np.asarray(cuts).copy())
+
+    def _maybe_reconfigure(
+        self, res: SimResult, policy_fn: Callable,
+        t: int, reconf: int, rounds: int, b, cuts
+    ):
+        """Reconfiguration (Algorithm 1 line 23)."""
+        if t % reconf == 0 and t < rounds:
+            b, cuts = policy_fn(self, self.rng)
+            self._record_policy(res, b, cuts)
+        return b, cuts
+
+    def _advance_clock(self, clock: float, t: int, nxt: int, b, cuts) -> float:
+        """Walk rounds (t, nxt] on the host wall clock (static pool: the
+        per-round latency is hoisted out of the loop)."""
+        _, t_split, t_agg = self._fault_round(b, cuts)
+        for r in range(t + 1, nxt + 1):
+            clock += t_split
+            if r % self.sfl.agg_interval == 0:
+                clock += t_agg
+        return clock
+
+    def _record_metrics(
+        self, res: SimResult, t: int, clock: float, losses, verbose: bool
+    ) -> None:
+        """Eval + metric append; the only host fetch of ``losses``."""
+        tl, ta = self._eval(self._aggregate_model(), self.test_batch)
+        mean_loss = float(np.mean(losses.cpu().numpy()))
+        res.rounds.append(t)
+        res.clock.append(clock)
+        res.train_loss.append(mean_loss)
+        res.test_loss.append(float(tl))
+        res.test_acc.append(float(ta))
+        if verbose:
+            print(
+                f"round {t:5d} clock {clock:9.1f}s "
+                f"loss {mean_loss:.4f} "
+                f"acc {float(ta):.4f}", flush=True
+            )
+
+    def _segment_participation(self, t: int, nxt: int, b, cuts):
+        """The ``[R, N]`` participation plan for rounds (t, nxt]; None on
+        the soft path."""
+        if self.fault_mode == "soft":
+            return None
+        plan = [self._fault_round(b, cuts)[0] for _ in range(t + 1, nxt + 1)]
+        return np.stack(plan)
+
+    def _aggregate_model(self):
+        """Virtual aggregated model w̄ (analysis object, Sec. IV)."""
+        return SP.mean_unit_trees(self._stacked)

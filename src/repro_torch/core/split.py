@@ -1,0 +1,144 @@
+"""Model partitioning: cut a model's parameters into client-side and
+server-side sub-models (paper Sec. III-A).  Port of `repro.core.split`,
+CNN vocabulary.
+
+A CNN is a list of cuttable units, one per conv/fc layer (exactly the
+paper's VGG-16 splitting); client-stacked units carry a leading ``N``
+axis, and the HASFL update is expressed once per unit over all clients.
+"""
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.config import ModelConfig, CNN
+from repro_torch.utils.tree import tree_map
+
+
+def _cnn_only(cfg: ModelConfig) -> None:
+    if cfg.family != CNN:
+        raise NotImplementedError(
+            f"{cfg.family!r} unit lists are not ported yet (ROADMAP: token "
+            "models); only the CNN family is")
+
+
+def to_units(cfg: ModelConfig, params) -> Tuple[list, Callable]:
+    """Returns (units, rebuild) where rebuild(units) -> params."""
+    _cnn_only(cfg)
+    return list(params), lambda us: list(us)
+
+
+def layer_cut_to_unit_cut(cfg: ModelConfig, cut_layer: int) -> int:
+    """Map a profile-granularity cut (1..L) to unit granularity."""
+    _cnn_only(cfg)
+    return cut_layer
+
+
+# ---------------------------------------------------------------------------
+# Stacked unit lists
+# ---------------------------------------------------------------------------
+
+def unstack_unit_trees(stacked: list, n: int) -> list:
+    """Per-client unit lists (views into the stacked tensors)."""
+    return [[tree_map(lambda a, i=i: a[i], u) for u in stacked]
+            for i in range(n)]
+
+
+def replicate_units(units: list, n: int) -> list:
+    """N identical copies of a unit list along a leading client axis, each
+    in its own contiguous storage (the simulator updates them in place)."""
+    return [tree_map(lambda a: a.unsqueeze(0).repeat((n,) + (1,) * a.dim()),
+                     u) for u in units]
+
+
+def mean_unit_trees(stacked: list) -> list:
+    """Client-mean of every unit — the virtual aggregated model w̄."""
+    return [tree_map(lambda a: a.mean(dim=0), u) for u in stacked]
+
+
+def client_unit_mask(cfg: ModelConfig, n_units: int, l_c_units: int):
+    """1.0 for client-specific (every-I) units, 0.0 for server-common:
+    the first ``l_c_units`` layers of a CNN."""
+    _cnn_only(cfg)
+    mask = np.zeros((n_units,), np.float32)
+    mask[:l_c_units] = 1.0
+    return mask
+
+
+def hasfl_round_update(
+    stacked: list, grads: list, masks, do_agg: bool,
+    gamma: float, grad_scale=None, impl=None, participation=None
+) -> list:
+    """One HASFL parameter update over [N, ...]-stacked units.
+
+    Applies the Eq. 4 server-common mean update, the Eq. 5-6
+    client-specific updates and the Eq. 7 every-I aggregation, folded
+    into one pass per leaf: every unit computes the per-client SGD result
+    ``spec`` once, one client mean of it, and one select.  ``masks`` ([U],
+    host) marks the client-specific units, ``do_agg`` (host bool) is the
+    every-I flag, ``grad_scale`` ([N]) the per-client clip factor and
+    ``participation`` ([N] float weights, or None for the full cohort) the
+    survivor weights of a partial round.
+
+    ``impl`` (any non-None value) routes each leaf through the fused
+    `kernels.ops.clip_sgd` — the Triton kernel on the card, which updates
+    the leaf *in place*, so the caller's ``stacked`` tensors change — and
+    ``None`` keeps the inline plain algebra below.
+    """
+    if impl is not None:
+        from repro_torch.kernels import ops as KOPS
+
+        first = stacked[0]["w"]
+        n = first.shape[0]
+        scale = grad_scale if grad_scale is not None else \
+            torch.ones(n, device=first.device)
+        new_stacked = []
+        for u, (p_u, g_u) in enumerate(zip(stacked, grads)):
+            keep_spec = bool(masks[u] > 0) and not do_agg
+            if participation is None:
+                keep_vec = torch.full((n,), keep_spec, device=first.device)
+            else:
+                keep_vec = (participation > 0) & keep_spec
+
+            def upd_k(p, g, keep_vec=keep_vec):
+                out = KOPS.clip_sgd(
+                    p.reshape(n, -1), g.reshape(n, -1).contiguous(), scale,
+                    keep_vec, participation, gamma=gamma)
+                return out.reshape(p.shape)
+
+            new_stacked.append(tree_map(upd_k, p_u, g_u))
+        return new_stacked
+
+    new_stacked = []
+    for u, (p_u, g_u) in enumerate(zip(stacked, grads)):
+        keep_spec = bool(masks[u] > 0) and not do_agg
+
+        def upd(p, g, keep_spec=keep_spec):
+            if grad_scale is not None:
+                g = g * grad_scale.reshape((-1,) + (1,) * (g.dim() - 1))
+            # Eq. 5-6: client-specific — per-client SGD
+            spec = p - gamma * g.to(p.dtype)
+            if participation is None:
+                # Eq. 4 == Eq. 7 aggregate: server-common units take the
+                # mean update every round; client-specific units take it
+                # exactly on aggregation rounds
+                if keep_spec:
+                    return spec
+                return spec.mean(dim=0, keepdim=True).expand_as(p).clone()
+            # Partial round: survivor-renormalized mean, dropped clients
+            # hold their params
+            w = participation.to(spec.dtype)
+            w_col = w.reshape((-1,) + (1,) * (spec.dim() - 1))
+            cnt = w.sum()
+            # where, not maximum: fractional weights may sum below 1
+            common = (spec * w_col).sum(dim=0) / torch.where(cnt > 0, cnt, 1.0)
+            keep = ((participation > 0) & keep_spec).reshape(
+                (-1,) + (1,) * (spec.dim() - 1))
+            use_common = (cnt > 0) & (not keep_spec)
+            fallback = torch.where(use_common, common[None].expand_as(p), p)
+            return torch.where(keep, spec, fallback)
+
+        new_stacked.append(tree_map(upd, p_u, g_u))
+    return new_stacked

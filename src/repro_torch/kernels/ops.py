@@ -1,0 +1,54 @@
+"""Device dispatch for the port's kernels.
+
+Counterpart of `repro.kernels.ops`.  Each op goes by the device of the
+tensors it is given: a CUDA tensor launches the hand-written kernel (or
+the launch raises), a CPU tensor runs the kernel's plain PyTorch version.
+There is no impl knob and no fallback on the card.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import batched_conv as BC
+from repro_torch.kernels import clip_sgd as CS
+
+
+def _on_card(t) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {t.device}")
+
+
+def batched_conv(x, w, b, *, stride: int = 1):
+    """Per-client stacked SAME conv, forward and backward through the
+    client-batched GEMM.  x: [N, B, H, W, Cin]; w: [N, kh, kw, Cin, Cout];
+    b: [N, Cout]."""
+    mm = (BC.batched_matmul_kernel if _on_card(x)
+          else BC.batched_matmul_plain)
+    return BC.BatchedConv.apply(x, w, b, stride, mm)
+
+
+def clip_sgd(p, g, scale, keep_spec, participation=None, *, gamma: float):
+    """Fused clip + SGD + aggregation select over one ``[N, D]`` leaf.
+
+    On the card ``p`` is updated in place and returned; on the CPU a new
+    tensor is returned.
+    """
+    fn = CS.clip_sgd_kernel if _on_card(p) else CS.clip_sgd_plain
+    return fn(p, g, scale, keep_spec, participation, gamma=gamma)
+
+
+KERNELS = {
+    "batched_matmul": BC.batched_matmul_kernel,
+    "clip_sgd": CS.clip_sgd_kernel,
+}
+
+
+def launch_counts() -> dict:
+    """Launches of each kernel since the last `reset_launch_counts`."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
