@@ -8,6 +8,15 @@ gather plans match the reference bitwise for the same spec.
 
 Sessions are single-shot: the simulator they wrap is stateful, so build a
 fresh `Session` per run.
+
+A spec with ``mesh`` runs on the default `torch.distributed` process
+group, one process per device.  At ``mesh.devices`` 1 (or None) with no
+group initialised, the session makes a world of one on its own device
+from an in-memory store (NCCL on the card, gloo on the CPU); for d > 1
+the caller starts d processes and calls ``init_process_group`` in each
+with an explicit address, port, world size and rank (see
+`repro_torch.mesh.launch`), and the session raises if the world size is
+not ``mesh.devices``.
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ from repro_torch.data import (
     partition_noniid_shards,
 )
 from repro_torch.device import disable_tf32, resolve
+from repro_torch.mesh import sharded as SH
 from repro_torch.models import build_model
 
 
@@ -48,6 +58,8 @@ class Session:
         spec = spec.validated()
         self.spec = spec
         self.device = resolve(device)
+        if spec.mesh is not None:
+            self.device = SH.join_group(spec.mesh, self.device)
         if self.device.type == "cuda":
             disable_tf32()
         self.cfg = get_config(spec.arch)
@@ -61,11 +73,27 @@ class Session:
         self.model = build_model(self.cfg)
         rng = np.random.default_rng(spec.seed)
         train, test, shard_labels = self._build_data(spec)
-        if spec.partition == "iid":
-            shards = partition_iid(spec.n_train, spec.n_clients, rng)
+        self._bank = None
+        if spec.mesh is not None and spec.mesh.population is not None:
+            # cohort-bank scale-out (DESIGN.md §15): the resident
+            # simulator holds only the active cohort; every slot's data
+            # pool is bound by the bank at attach/rotate time, so the
+            # static partition over the logical population is never
+            # materialized
+            from repro_torch.mesh.bank import CohortBank
+            from repro_torch.traffic.store import dummy_pool
+
+            self.sampler = ClientSampler(
+                train, [dummy_pool() for _ in range(spec.n_clients)], rng)
+            self._bank = CohortBank(spec.mesh, n_resident=spec.n_clients,
+                                    n_train=spec.n_train)
         else:
-            shards = partition_noniid_shards(shard_labels, spec.n_clients, rng)
-        self.sampler = ClientSampler(train, shards, rng)
+            if spec.partition == "iid":
+                shards = partition_iid(spec.n_train, spec.n_clients, rng)
+            else:
+                shards = partition_noniid_shards(
+                    shard_labels, spec.n_clients, rng)
+            self.sampler = ClientSampler(train, shards, rng)
         self.sfl = spec.resolved_sfl
         self.profile = model_profile(self.cfg, seq_len=spec.seq_len)
         self.devices = sample_devices(spec.n_clients, rng)
@@ -86,6 +114,8 @@ class Session:
             deadline_factor=spec.deadline_factor,
             device=self.device,
             init_units=init_units,
+            mesh=spec.mesh,
+            cohort_bank=self._bank,
         )
         self.policy = policy_registry.make_policy(
             spec.policy,

@@ -1,7 +1,7 @@
 """Declarative experiment descriptions (DESIGN.md §10).  Port of
 `repro.api.spec`: the same fields and the same JSON form, so a spec file
 written for the reference loads here.  Fields of subsystems not ported
-yet (scenario, traffic, mesh, checkpointing, non-scan engines) must keep
+yet (scenario, traffic, checkpointing, non-scan engines) must keep
 their defaults; anything else raises ``NotImplementedError``.
 
 An `ExperimentSpec` is the *complete* recipe for one simulation cell —
@@ -20,6 +20,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 from repro_torch.config import SFLConfig
+from repro_torch.mesh.spec import MeshSpec
 
 # Bumped when fields change incompatibly; `from_dict` accepts any dict
 # whose version matches and rejects unknown keys, so stale spec files
@@ -95,11 +96,12 @@ class ExperimentSpec:
     # cohort cap.  None is the synchronous path, bit-for-bit unchanged.
     traffic: Optional[object] = None
     # device-mesh scale-out (DESIGN.md §15): a `MeshSpec` shards the
-    # client axis of the scan engine's donated carry over a device mesh
-    # with hierarchical edge->cloud aggregation; `mesh.population` adds
+    # client axis of the stacked units over a process group (one process
+    # per device) with hierarchical edge->cloud aggregation;
+    # `mesh.population` adds
     # the host-side cohort bank (logical N beyond resident slots).
     # None is the single-device path, bit-for-bit unchanged.
-    mesh: Optional[object] = None
+    mesh: Optional[MeshSpec] = None
     sfl: SFLConfig = SFLConfig(lr=0.05)
 
     # -- validation ---------------------------------------------------------
@@ -156,6 +158,41 @@ class ExperimentSpec:
             )
         if not isinstance(self.sfl, SFLConfig):
             raise ValueError("sfl must be an SFLConfig")
+        if self.mesh is not None:
+            if not isinstance(self.mesh, MeshSpec):
+                raise ValueError("mesh must be a MeshSpec or None")
+            self.mesh.validated()
+            if self.resolved_engine != "scan":
+                raise ValueError(
+                    "mesh mode shards the scan carry — "
+                    "engine='scan' (or None) only")
+            if self.fault_mode != "soft":
+                raise ValueError(
+                    "mesh mode supports fault_mode='soft' only (the "
+                    "dropout/deadline participation plans are not yet "
+                    "shard-aware)")
+            if self.traffic is not None:
+                raise ValueError(
+                    "mesh and traffic modes are mutually exclusive — "
+                    "both own the slot axis")
+            if self.checkpoint_every:
+                raise ValueError(
+                    "mesh mode does not support checkpointing yet "
+                    "(sharded carry snapshots)")
+            if self.n_clients % self.mesh.n_edges != 0:
+                raise ValueError(
+                    f"n_clients {self.n_clients} must be divisible by "
+                    f"mesh.n_edges {self.mesh.n_edges}")
+            if (self.mesh.population is not None
+                    and self.mesh.population < self.n_clients):
+                raise ValueError(
+                    f"mesh.population {self.mesh.population} must be >= "
+                    f"n_clients {self.n_clients} (the resident cohort)")
+            if self.mesh.population is not None and self.scenario is not None:
+                raise ValueError(
+                    "cohort-bank runs (mesh.population) cannot ride a "
+                    "scenario preset — traces are per resident slot, not "
+                    "per logical client")
         self._check_ported()
         return self
 
@@ -167,7 +204,6 @@ class ExperimentSpec:
              f"engine={self.engine!r} (legacy/vectorized engines)"),
             (self.scenario is not None, "scenario (scenarios)"),
             (self.traffic is not None, "traffic (traffic)"),
-            (self.mesh is not None, "mesh (mesh)"),
             (bool(self.checkpoint_every), "checkpoint_every "
              "(checkpoint/resume)"),
         )
@@ -187,8 +223,54 @@ class ExperimentSpec:
         """The run's `SFLConfig` with ``n_devices`` pinned to the cohort."""
         return dataclasses.replace(self.sfl, n_devices=self.n_clients)
 
+    @property
+    def resolved_reconfigure_every(self) -> int:
+        return self.reconfigure_every or self.sfl.agg_interval
+
     def replace(self, **overrides) -> "ExperimentSpec":
         return dataclasses.replace(self, **overrides)
+
+    def grid_key(self):
+        """Hashable compatibility key for grid grouping (the reference's
+        ``Session.run_grid``; the port's grid runner is a later slice).
+
+        Cells sharing this key execute the same program on the same
+        shapes and round segmentation.  ``None`` means the cell cannot
+        be grouped (non-scan engine, or per-cell host side effects).
+        """
+        if self.resolved_engine != "scan":
+            return None
+        if self.checkpoint_every:
+            # snapshot side effects are per-cell host state
+            return None
+        if self.traffic is not None:
+            # the traffic plane mutates per-cell host state between
+            # segments — DESIGN.md §14
+            return None
+        if self.mesh is not None:
+            # refuse to stack: the sharded segment runs on one process
+            # group, and the cohort bank rotates slot bindings host-side
+            # between segments — DESIGN.md §15
+            return None
+        return (
+            self.arch,
+            self.n_clients,
+            self.n_train,
+            self.n_test,
+            self.seq_len,
+            self.resolved_sfl,
+            self.rounds,
+            self.eval_every,
+            self.resolved_reconfigure_every,
+            # different kernel impls are different executables (and
+            # different numerics) — never stack them in one grid
+            self.conv_impl,
+            self.update_impl,
+            # fault semantics change the participation plan fed to the
+            # segment — never stack different fault modes in one grid
+            self.fault_mode,
+            self.deadline_factor,
+        )
 
     # -- JSON round-trip ----------------------------------------------------
 
@@ -214,6 +296,8 @@ class ExperimentSpec:
             raise ValueError(f"unknown spec fields: {sorted(unknown)}")
         if isinstance(d.get("sfl"), dict):
             d["sfl"] = SFLConfig(**d["sfl"])
+        if isinstance(d.get("mesh"), dict):
+            d["mesh"] = MeshSpec(**d["mesh"])
         return cls(**d).validated()
 
     @classmethod

@@ -20,6 +20,13 @@ the fused HASFL update.  The stacked parameter tensors are updated in
 place — the analogue of the reference's donated scan carry — and the
 per-round losses stay on the device until the segment's eval fetches
 them.
+
+Mesh mode (``mesh=``, DESIGN.md §15) runs the same scheduler on every
+rank of a `torch.distributed` process group: each rank holds an ``N/d``
+slice of the stacked units, replicates the host plane, and combines the
+Eq. 4/7 mean across ranks (`core.split.two_tier_common`); the clock
+follows the tiered Eq. 28-39 model and an optional `mesh.CohortBank`
+rotates a logical population through the resident slots.
 """
 from __future__ import annotations
 
@@ -88,6 +95,11 @@ class SFLEdgeSimulator:
     update algebra (any other value: the fused op's plain version).
     ``init_units`` (a unit list of tensors) replaces the port's own seeded
     init — how parity tests carry the reference's weights across.
+
+    ``mesh`` (a `MeshSpec`) shards the client axis over the initialised
+    default process group (soft faults only); ``cohort_bank`` (a
+    `mesh.CohortBank`, mesh mode only) rotates its logical population
+    through the ``N`` resident slots at agg-aligned segment boundaries.
     """
 
     def __init__(
@@ -99,6 +111,8 @@ class SFLEdgeSimulator:
         deadline_factor: float = 2.0,
         device=None,
         init_units: Optional[list] = None,
+        mesh=None,
+        cohort_bank=None,
     ):
         self.device = resolve(device)
         self.model = model
@@ -113,6 +127,27 @@ class SFLEdgeSimulator:
         self.n = len(devices)
         self.available = np.ones(self.n, bool)
         self.rng = np.random.default_rng(seed)
+        # Mesh mode (DESIGN.md §15): shard the stacked client axis over a
+        # process group with two-tier Eq. 4/7 aggregation; soft faults
+        # only (the dropout/deadline planners reason over the flat
+        # barrier, not the tiered one).
+        self.mesh_spec = mesh
+        self._shard = None
+        self._group = None
+        self._edge_size = None
+        self._bank = None
+        if mesh is not None:
+            mesh.validated()
+            if fault_mode != "soft":
+                raise ValueError(
+                    "mesh mode v1 runs fault_mode='soft' — tiered "
+                    "dropout/deadline planning is not implemented")
+            if self.n % mesh.n_edges != 0:
+                raise ValueError(
+                    f"n_edges {mesh.n_edges} must divide the cohort "
+                    f"size {self.n}")
+        elif cohort_bank is not None:
+            raise ValueError("cohort_bank rides mesh mode; pass mesh=")
         # Fault semantics (DESIGN.md §12): "soft" = full participation;
         # "dropout" excludes unavailable clients; "deadline" also drops
         # clients whose Eq. 38 phase latency exceeds deadline_factor x the
@@ -133,14 +168,29 @@ class SFLEdgeSimulator:
             params = tree_map(lambda a: a.to(self.device, torch.float32),
                               list(init_units))
         self.units, self.rebuild = SP.to_units(self.cfg, params)
-        self._stacked = SP.replicate_units(self.units, self.n)
+        self._segment_fn = self._run_segment
+        self.n_local = self.n
+        if mesh is not None:
+            from repro_torch.mesh.sharded import (build_process_mesh,
+                                                  make_sharded_segment)
+
+            self._shard = build_process_mesh(mesh, self.n)
+            self._group = self._shard.group
+            self._edge_size = self.n // mesh.n_edges
+            self.n_local = self._shard.n_local
+            self._segment_fn = make_sharded_segment(self, self._shard)
+        self._stacked = SP.replicate_units(self.units, self.n_local)
         self.store = DeviceClientStore.from_sampler(sampler, self.device)
+        if cohort_bank is not None:
+            self._bank = cohort_bank
+            cohort_bank.attach(self)
 
     @property
     def client_units(self):
-        """Per-client unit lists (read-only nested tuples of views)."""
+        """Per-client unit lists (read-only nested tuples of views) of
+        this rank's clients."""
         return tuple(tuple(units) for units in
-                     SP.unstack_unit_trees(self._stacked, self.n))
+                     SP.unstack_unit_trees(self._stacked, self.n_local))
 
     # -- single-model loss / grad / eval ------------------------------------
     def _grad_fn(self, units, batch):
@@ -197,7 +247,8 @@ class SFLEdgeSimulator:
         self._stacked = SP.hasfl_round_update(
             self._stacked, grads, masks, do_agg, self.sfl.lr,
             grad_scale=scale, impl=self._update_ops_impl,
-            participation=part)
+            participation=part, group=self._group,
+            edge_size=self._edge_size)
         return losses
 
     def _run_segment(self, t0: int, idx, row_mask, masks, parts=None):
@@ -236,6 +287,12 @@ class SFLEdgeSimulator:
         """(participation, t_split, t_agg) for one round under the active
         fault mode; participation is None on the soft path."""
         if self.fault_mode == "soft":
+            if self.mesh_spec is not None and self.mesh_spec.tiered_latency:
+                ts, ta = self.lat.tiered_round(
+                    b, cuts, self.mesh_spec.n_edges,
+                    edge_flops=self.mesh_spec.edge_flops,
+                    edge_bw=self.mesh_spec.edge_bw)
+                return None, ts, ta
             return None, self.lat.t_split(b, cuts), self.lat.t_agg(b, cuts)
         if self.fault_mode == "dropout":
             part = np.asarray(self.available, bool)
@@ -278,13 +335,20 @@ class SFLEdgeSimulator:
             idx = self.store.segment_indices(nxt - t, b, b_pad)
             row_mask = self.store.row_mask(b, b_pad)
             parts = self._segment_participation(t, nxt, b, cuts)
-            seg_losses = self._run_segment(t, idx, row_mask, masks, parts)
+            seg_losses = self._segment_fn(t, idx, row_mask, masks, parts)
 
             # clock: accumulate round-by-round on host (the reference's
             # float summation order)
             clock = self._advance_clock(clock, t, nxt, b, cuts)
             t = nxt
 
+            if self._bank is not None and t < rounds \
+                    and t % self.sfl.agg_interval == 0:
+                # cohort rotation at the agg-aligned boundary: the
+                # departing cohort's state is already folded into the
+                # Eq. 7 broadcast, so the bank swaps pools/profiles and
+                # re-broadcasts the aggregate (DESIGN.md §15)
+                self._bank.rotate(self, t)
             b, cuts = self._maybe_reconfigure(
                 res, policy_fn, t, reconf, rounds, b, cuts)
             if t % eval_every == 0 or t == rounds:
@@ -344,5 +408,8 @@ class SFLEdgeSimulator:
         return np.stack(plan)
 
     def _aggregate_model(self):
-        """Virtual aggregated model w̄ (analysis object, Sec. IV)."""
+        """Virtual aggregated model w̄ (analysis object, Sec. IV); in mesh
+        mode the global client mean, the same on every rank."""
+        if self._shard is not None:
+            return self._shard.client_mean(self._stacked)
         return SP.mean_unit_trees(self._stacked)

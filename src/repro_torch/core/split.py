@@ -12,6 +12,7 @@ from typing import Callable, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.config import ModelConfig, CNN
 from repro_torch.utils.tree import tree_map
@@ -67,9 +68,35 @@ def client_unit_mask(cfg: ModelConfig, n_units: int, l_c_units: int):
     return mask
 
 
+def two_tier_common(spec, w, edge_size, group):
+    """Hierarchical Eq. 4/7 mean over a process group (DESIGN.md §15).
+
+    ``spec`` is this rank's ``[n_local, ...]`` slice of per-client SGD
+    results, ``w`` its participation weights.  Per-edge partial sums
+    reduce on the rank (each rank holds whole edges, so no edge
+    straddles ranks), their sum and the survivor count each take one
+    ``all_reduce`` over ``group`` (the cloud combine).  Equal to the flat
+    survivor-renormalized mean by linearity; floating point only
+    reassociates.  Returns ``(common, global survivor count)``, the same
+    on every rank.
+    """
+    n_local = spec.shape[0]
+    e = int(edge_size or n_local)
+    w = w.to(spec.dtype)
+    w_col = w.reshape((-1,) + (1,) * (spec.dim() - 1))
+    edge_sums = (spec * w_col).reshape(
+        (n_local // e, e) + tuple(spec.shape[1:])).sum(dim=1)
+    total = edge_sums.sum(dim=0)
+    cnt = w.sum()
+    dist.all_reduce(total, group=group)
+    dist.all_reduce(cnt, group=group)
+    return total / torch.where(cnt > 0, cnt, 1.0), cnt
+
+
 def hasfl_round_update(
     stacked: list, grads: list, masks, do_agg: bool,
-    gamma: float, grad_scale=None, impl=None, participation=None
+    gamma: float, grad_scale=None, impl=None, participation=None,
+    group=None, edge_size=None
 ) -> list:
     """One HASFL parameter update over [N, ...]-stacked units.
 
@@ -86,14 +113,23 @@ def hasfl_round_update(
     `kernels.ops.clip_sgd` — the Triton kernel on the card, which updates
     the leaf *in place*, so the caller's ``stacked`` tensors change — and
     ``None`` keeps the inline plain algebra below.
+
+    ``group`` (a `torch.distributed` process group) switches the mean to
+    the two-tier hierarchy of mesh mode: ``stacked``/``grads``/
+    ``participation`` then hold this rank's client slice, and the Eq. 4/7
+    combine goes through `two_tier_common` (per-edge partial sums of
+    ``edge_size`` clients, then the cross-rank all-reduces).  The
+    use-common flag comes from the replicated ``keep_spec`` and the
+    global count, never from a rank-local ``any(keep)``, so every rank
+    takes the same branch; the kernel receives the finished mean.
     """
+    first = stacked[0]["w"]
+    n = first.shape[0]
+    ones = torch.ones(n, device=first.device)
     if impl is not None:
         from repro_torch.kernels import ops as KOPS
 
-        first = stacked[0]["w"]
-        n = first.shape[0]
-        scale = grad_scale if grad_scale is not None else \
-            torch.ones(n, device=first.device)
+        scale = grad_scale if grad_scale is not None else ones
         new_stacked = []
         for u, (p_u, g_u) in enumerate(zip(stacked, grads)):
             keep_spec = bool(masks[u] > 0) and not do_agg
@@ -102,10 +138,19 @@ def hasfl_round_update(
             else:
                 keep_vec = (participation > 0) & keep_spec
 
-            def upd_k(p, g, keep_vec=keep_vec):
-                out = KOPS.clip_sgd(
-                    p.reshape(n, -1), g.reshape(n, -1).contiguous(), scale,
-                    keep_vec, participation, gamma=gamma)
+            def upd_k(p, g, keep_vec=keep_vec, keep_spec=keep_spec):
+                pf, gf = p.reshape(n, -1), g.reshape(n, -1).contiguous()
+                common = use_common = None
+                if group is not None:
+                    # the collective cannot run inside a kernel: combine
+                    # here, hand the kernel the finished mean
+                    spec = pf - gamma * (gf * scale.reshape(-1, 1))
+                    w = ones if participation is None else participation
+                    common, cnt = two_tier_common(spec, w, edge_size, group)
+                    use_common = (cnt > 0) & (not keep_spec)
+                out = KOPS.clip_sgd(pf, gf, scale, keep_vec, participation,
+                                    gamma=gamma, common=common,
+                                    use_common=use_common)
                 return out.reshape(p.shape)
 
             new_stacked.append(tree_map(upd_k, p_u, g_u))
@@ -120,20 +165,31 @@ def hasfl_round_update(
                 g = g * grad_scale.reshape((-1,) + (1,) * (g.dim() - 1))
             # Eq. 5-6: client-specific — per-client SGD
             spec = p - gamma * g.to(p.dtype)
+            if group is not None:
+                # two-tier combine (mesh mode): same selects as the flat
+                # paths below, only the mean is hierarchical
+                w = ones if participation is None else participation
+                common, cnt = two_tier_common(spec, w, edge_size, group)
+            elif participation is None:
+                common = None
+            else:
+                w = participation.to(spec.dtype)
+                w_col = w.reshape((-1,) + (1,) * (spec.dim() - 1))
+                cnt = w.sum()
+                # where, not maximum: fractional weights may sum below 1
+                common = (spec * w_col).sum(dim=0) / torch.where(
+                    cnt > 0, cnt, 1.0)
             if participation is None:
                 # Eq. 4 == Eq. 7 aggregate: server-common units take the
                 # mean update every round; client-specific units take it
                 # exactly on aggregation rounds
                 if keep_spec:
                     return spec
-                return spec.mean(dim=0, keepdim=True).expand_as(p).clone()
+                if common is None:
+                    common = spec.mean(dim=0)
+                return common[None].expand_as(p).clone()
             # Partial round: survivor-renormalized mean, dropped clients
             # hold their params
-            w = participation.to(spec.dtype)
-            w_col = w.reshape((-1,) + (1,) * (spec.dim() - 1))
-            cnt = w.sum()
-            # where, not maximum: fractional weights may sum below 1
-            common = (spec * w_col).sum(dim=0) / torch.where(cnt > 0, cnt, 1.0)
             keep = ((participation > 0) & keep_spec).reshape(
                 (-1,) + (1,) * (spec.dim() - 1))
             use_common = (cnt > 0) & (not keep_spec)

@@ -103,6 +103,18 @@ class DeviceClientStore:
     def n_clients(self) -> int:
         return len(self.client_indices)
 
+    def set_pool(self, slot: int, indices) -> None:
+        """Rebind one client slot's shard pool (the cohort bank's slot
+        surgery).  Only the *values* future `segment_indices` plans
+        gather change; every tensor shape is a function of (N, b_pad).
+        Pools must stay non-empty: an empty pool would make the slot's
+        gradient NaN, which poisons the weighted survivor mean even at
+        weight 0 (``0 * NaN``)."""
+        idx = np.asarray(indices)
+        if idx.size == 0:
+            raise ValueError("slot pools must be non-empty")
+        self.client_indices[int(slot)] = idx
+
     def real_counts(self, b) -> np.ndarray:
         """Per-client real (unpadded) sample count: min(b_i, |pool_i|)."""
         pools = np.asarray([len(p) for p in self.client_indices])

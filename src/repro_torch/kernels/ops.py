@@ -28,12 +28,19 @@ def batched_conv(x, w, b, *, stride: int = 1):
     return BC.BatchedConv.apply(x, w, b, stride, mm)
 
 
-def clip_sgd(p, g, scale, keep_spec, participation=None, *, gamma: float):
+def clip_sgd(p, g, scale, keep_spec, participation=None, *, gamma: float,
+             common=None, use_common=None):
     """Fused clip + SGD + aggregation select over one ``[N, D]`` leaf.
 
-    On the card ``p`` is updated in place and returned; on the CPU a new
-    tensor is returned.
+    ``common`` ([D], mesh mode) hands in the Eq. 4/7 mean precomputed by
+    `core.split.two_tier_common`, gated by the global flag
+    ``use_common``; the participation weights are then already folded
+    into it, and the external-mean kernel runs.  On the card ``p`` is
+    updated in place and returned; on the CPU a new tensor is returned.
     """
+    if common is not None:
+        fn = CS.clip_sgd_ext_kernel if _on_card(p) else CS.clip_sgd_ext_plain
+        return fn(p, g, scale, keep_spec, common, use_common, gamma=gamma)
     fn = CS.clip_sgd_kernel if _on_card(p) else CS.clip_sgd_plain
     return fn(p, g, scale, keep_spec, participation, gamma=gamma)
 
@@ -41,6 +48,7 @@ def clip_sgd(p, g, scale, keep_spec, participation=None, *, gamma: float):
 KERNELS = {
     "batched_matmul": BC.batched_matmul_kernel,
     "clip_sgd": CS.clip_sgd_kernel,
+    "clip_sgd_ext": CS.clip_sgd_ext_kernel,
 }
 
 

@@ -8,6 +8,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.batched_conv import same_geometry
 from repro_torch.kernels.clip_sgd import clip_sgd_plain as clip_sgd_ref  # noqa: F401
+from repro_torch.kernels.clip_sgd import clip_sgd_ext_plain as clip_sgd_ext_ref  # noqa: F401
 
 
 def batched_conv_ref(x, w, b, *, stride: int = 1):

@@ -88,3 +88,30 @@ def test_chip_smoke_refuses_to_run_without_card_or_checkout(tmp_path):
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_port_sources_cover_mesh_and_traffic():
+    """The per-source import check above reaches every module of the
+    mesh and traffic slices."""
+    covered = {str(p.relative_to(SRC)) for p in _port_sources()
+               if p.is_relative_to(SRC)}
+    for name in ("__init__", "spec", "topology", "sharded", "bank", "launch"):
+        assert f"repro_torch/mesh/{name}.py" in covered, name
+    for name in ("__init__", "store"):
+        assert f"repro_torch/traffic/{name}.py" in covered, name
+
+
+def test_mesh_session_without_device_raises_without_a_card():
+    """``Session(spec_with_mesh)`` asks for the card and raises without
+    one: no CPU fallback, and no process group is made first."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.api import ExperimentSpec, Session
+    from repro_torch.mesh import MeshSpec
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the session would run on it")
+    had_group = dist.is_initialized()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Session(ExperimentSpec(n_clients=4, mesh=MeshSpec(n_edges=2)))
+    assert dist.is_initialized() == had_group

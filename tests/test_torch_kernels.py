@@ -135,7 +135,11 @@ def test_cpu_tensors_take_the_plain_versions():
     p = torch.zeros((2, 5))
     TOPS.clip_sgd(p, torch.ones_like(p), torch.ones(2),
                   torch.ones(2, dtype=torch.bool), gamma=0.1)
-    assert TOPS.launch_counts() == {"batched_matmul": 0, "clip_sgd": 0}
+    TOPS.clip_sgd(p, torch.ones_like(p), torch.ones(2),
+                  torch.zeros(2, dtype=torch.bool), gamma=0.1,
+                  common=torch.ones(5), use_common=True)
+    assert TOPS.launch_counts() == {"batched_matmul": 0, "clip_sgd": 0,
+                                    "clip_sgd_ext": 0}
 
 
 def test_kernel_launchers_refuse_cpu_tensors():
@@ -145,3 +149,7 @@ def test_kernel_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         TCS.clip_sgd_kernel(torch.zeros((2, 3)), torch.zeros((2, 3)),
                             torch.ones(2), torch.ones(2), gamma=0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        TCS.clip_sgd_ext_kernel(torch.zeros((2, 3)), torch.zeros((2, 3)),
+                                torch.ones(2), torch.ones(2), torch.zeros(3),
+                                True, gamma=0.1)

@@ -8,8 +8,8 @@ dependencies are installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 Tolerances: the GEMM matches `torch.einsum` within fp32 rounding of sums
-taken in another order (1e-5 relative); the conv and the update take the
-reference's own bars (2e-5 forward, 2e-4 gradients, 2e-6 update).  The
+taken in another order (1e-5 relative); the conv and both updates take
+the reference's own bars (2e-5 forward, 2e-4 gradients, 2e-6 update).  The
 case lists are shared with the CPU parity tests in `test_torch_kernels.py`.
 """
 import numpy as np
@@ -123,3 +123,41 @@ def test_clip_sgd_kernel_matches_plain(part, keep_spec):
     got = TCS.clip_sgd_kernel(p.clone(), g, scale, keep, w, gamma=GAMMA)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=2e-6, atol=2e-6)
+
+
+EXT_KEEPS = ("all", "none", "mixed")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_common", [True, False], ids=["u1", "u0"])
+@pytest.mark.parametrize("keep", EXT_KEEPS)
+@pytest.mark.parametrize("d", [1, 300, 4099])
+@pytest.mark.parametrize("n", [1, 3, 16])
+def test_clip_sgd_ext_kernel_matches_plain(n, d, keep, use_common):
+    """Kernel 3 (the external-mean update of mesh mode) against its plain
+    version: N_local 1, 3, 16; D = 1 and ragged D; every (u, keep)
+    combination; updated in place with one counted launch."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(n * 7919 + d)
+    p = torch.randn((n, d), device="cuda", generator=gen)
+    g = torch.randn((n, d), device="cuda", generator=gen)
+    scale = torch.rand(n, device="cuda", generator=gen)
+    common = torch.randn(d, device="cuda", generator=gen)
+    keep_vec = {"all": torch.ones(n, dtype=torch.bool, device="cuda"),
+                "none": torch.zeros(n, dtype=torch.bool, device="cuda"),
+                "mixed": torch.arange(n, device="cuda") % 2 == 0}[keep]
+    u = torch.tensor(use_common, device="cuda")
+    want = TCS.clip_sgd_ext_plain(p, g, scale, keep_vec, common, u,
+                                  gamma=GAMMA)
+    target = p.clone()
+    before = TCS.clip_sgd_ext_kernel.launches
+    got = TOPS.clip_sgd(target, g, scale, keep_vec, None, gamma=GAMMA,
+                        common=common, use_common=u)
+    torch.cuda.synchronize()
+    assert TCS.clip_sgd_ext_kernel.launches == before + 1
+    assert got.data_ptr() == target.data_ptr()          # in place
+    np.testing.assert_allclose(target.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-6, atol=2e-6)
+    if keep == "none" and not use_common:
+        np.testing.assert_array_equal(target.cpu().numpy(),
+                                      p.cpu().numpy())   # holds params

@@ -139,7 +139,7 @@ def test_spec_json_round_trips_from_reference():
 
 @pytest.mark.parametrize("field,value", [
     ("scenario", "outage"), ("engine", "vectorized"), ("checkpoint_every", 2),
-    ("traffic", {"n_users": 10}), ("mesh", {"n_edges": 2}),
+    ("traffic", {"n_users": 10}), ("engine", "legacy"),
 ])
 def test_unported_spec_fields_raise(field, value):
     kw = {field: value}
