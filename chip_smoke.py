@@ -39,6 +39,29 @@ nothing of the reference package.  Phases, each printing one JSON line:
    flat session, both on the card from the same weights: decisions,
    clocks and gather plans bitwise equal, losses and parameters within
    1e-4.
+8. ``serve``: the token-model serving path, `repro_torch.launch.serve.serve`
+   for qwen3-1.7b at full width (28 layers, d 2048, vocab 151936, bf16)
+   with the port's seeded init: 8 prompts of 512 tokens, a cache of 544,
+   prefill and 32 greedy decode steps; counters zeroed and read around
+   it: flash attention 28 and RMSNorm 113 launches per forward, 33
+   forwards.  Prefill ms, decode ms per step, tokens/s, peak memory.
+9. ``serve_ssm``: the same traffic on xlstm-350m at full width (24 layers,
+   bf16): 20 mLSTM-scan launches (prefill only), 49 RMSNorms per forward.
+10. ``serve_cross``: the card with its kernels against the CPU with the
+   plain versions, on the same fp32 weights (TF32 off): qwen3 cut to 2
+   layers and xlstm to one period of 6, full width otherwise; 2 prompts of
+   64 tokens, then 8 decode steps teacher-forced with the CPU's greedy
+   tokens.  Prefill and decode logits within 1e-4 for qwen3 and 2e-4 for
+   xlstm (rtol = atol; see ``SERVE_CROSS``), greedy ids equal.
+
+The ``kernels`` phase also holds the token-model kernels against their
+plain versions on the card — flash attention (the reference's cases,
+the decode form with ``sk_valid``, qwen3's prefill and decode shapes),
+RMSNorm (the reference's cases, every norm shape of both serve phases)
+and the mLSTM scan (the reference's cases, xlstm-350m's prefill shape) —
+at the reference's bars, timed beside their bound, their plain version
+and the library yardstick (``F.scaled_dot_product_attention``,
+``F.rms_norm``; the mLSTM scan has none).
 
 Then the per-kernel summary line ``{"kernels": [...]}``, the raw
 ``nvidia-smi`` line, and, last, ``{"ok": true, "device": {...}}``.  Any
@@ -56,8 +79,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published peaks (NVIDIA data sheet): fp32 on the CUDA cores
-# (no tensor cores, no TF32) and HBM3 bandwidth.
+# (no tensor cores, no TF32), bf16 on the tensor cores (dense), and HBM3
+# bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 VGG16 = dict(channels=(64, 64, 128, 128, 256, 256, 256,
@@ -75,6 +100,33 @@ CONV_GRAD_TOL = 2e-4
 CLIP_TOL = 2e-6
 CROSS_TOL = 1e-4
 MESH_SLOTS = 16       # resident clients of the mesh phase (N_local at d=1)
+
+# the reference's own token-kernel cases (tests/test_kernels.py) and bars
+FLASH_CASES = [  # (b, sq, sk, hq, hkv, hd, causal, window, dtype)
+    (1, 128, 128, 4, 2, 64, True, 0, "float32"),
+    (2, 64, 256, 8, 8, 32, True, 0, "float32"),
+    (1, 96, 96, 4, 1, 128, True, 32, "float32"),
+    (1, 128, 128, 2, 2, 64, False, 0, "float32"),
+    (1, 200, 200, 3, 1, 64, True, 0, "float32"),
+    (1, 128, 128, 4, 2, 64, True, 0, "bfloat16"),
+    (2, 32, 512, 4, 4, 64, True, 128, "bfloat16"),
+]
+MLSTM_CASES = [(1, 64, 2, 32, "float32"), (2, 100, 2, 32, "float32"),
+               (1, 96, 4, 64, "float32"), (1, 64, 2, 32, "bfloat16")]
+RMSNORM_CASES = [((4, 128), "float32"), ((3, 50, 96), "float32"),
+                 ((2, 17, 256), "bfloat16"), ((1, 1, 512), "bfloat16")]
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+MLSTM_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+RMSNORM_TOL = 2e-2
+SERVE = dict(batch=8, prompt=512, gen=32, seed=0)     # serve, serve_ssm
+SERVE_CROSS = dict(batch=2, prompt=64, gen=8, seed=1,
+                   layers={"qwen3-1.7b": 2, "xlstm-350m": 6},
+                   # fp32 logits, rtol = atol.  1e-4 is the CPU parity
+                   # tests' bar; xlstm takes the reference's own fp32 bar
+                   # for the mLSTM recurrence (2e-4): its den = |n . q|
+                   # cancels, so fp32 sums taken in another order move its
+                   # logits by ~1e-4 even where no kernel runs (decode)
+                   tol={"qwen3-1.7b": 1e-4, "xlstm-350m": 2e-4})
 
 
 class CheckFailed(Exception):
@@ -152,7 +204,8 @@ def phase_build():
     from repro_torch.kernels import ops
 
     t0 = time.perf_counter()
-    build.build(["batched_matmul"])
+    sources = ["batched_matmul", "flash_attention", "rmsnorm", "mlstm_scan"]
+    build.build(sources)
     t_nvcc = time.perf_counter() - t0
     # first Triton compiles of the updates (the N=8 flat and the
     # N_local=16 external-mean specializations)
@@ -166,9 +219,10 @@ def phase_build():
                  use_common=True)
     torch.cuda.synchronize()
     t_all = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in
-             build.BUILD_LOGS.get("batched_matmul", "").splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = {name: [ln.strip() for ln in
+                    build.BUILD_LOGS.get(name, "").splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name in sources}
     emit({"phase": "build", "seconds": round(t_all, 3),
           "nvcc_seconds": round(t_nvcc, 3), "ptxas": ptxas})
 
@@ -366,6 +420,205 @@ def _clip_ext_checks(detail):
     return tot
 
 
+def _dtype(name):
+    import torch
+
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+def _compare(got, want, tol, what):
+    """Max |got - want|; fails the check unless every element is within
+    ``tol * (1 + |want|)`` (the reference's rtol = atol = tol bar)."""
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    bad = float((diff - tol * (1 + want.float().abs())).max()) \
+        if diff.numel() else -1.0
+    check(bad <= 0, f"{what}: max|kernel-plain| {err} over the bar {tol}")
+    return err
+
+
+def _add(tot, row, count=1):
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms", "flops",
+                "bytes"):
+        if row.get(key) is not None:
+            tot[key] = tot.get(key, 0.0) + count * row[key]
+    tot["max_abs_err"] = max(tot.get("max_abs_err", 0.0), row["max_abs_err"])
+
+
+def _bound(flops, nbytes, peak_flops):
+    return max(flops / peak_flops, nbytes / PEAK_BYTES) * 1e3
+
+
+def _flash_pairs(sq, sk, causal, window, sk_valid):
+    """Query-key pairs the masks leave, per (batch, head)."""
+    total = 0
+    for i in range(sq):
+        hi = min(sk_valid, i + 1) if causal else sk_valid
+        lo = max(0, i - window + 1) if window else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def _flash_checks(detail):
+    """Kernel 4 against its plain version: the reference's cases, the
+    decode form, and qwen3-1.7b's prefill and decode shapes, timed."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    worst = 0.0
+    shapes = FLASH_CASES + [
+        # qwen3 prefill, one attention layer: 8 x 512 tokens
+        (8, 512, 512, 16, 8, 128, True, 0, "bfloat16", None, "prefill"),
+        # qwen3's first decode step against the 544-slot cache
+        (8, 1, 544, 16, 8, 128, False, 0, "bfloat16", 513, "decode"),
+        # the decode form at fp32 (serve_cross), slots past pos unused
+        (2, 1, 72, 16, 8, 128, False, 0, "float32", 65, None),
+    ]
+    rows = {}
+    for case in shapes:
+        b, sq, sk, hq, hkv, hd, causal, window, dt = case[:9]
+        sk_valid, role = (case[9], case[10]) if len(case) > 9 else (None,
+                                                                   None)
+        q = torch.randn((b, sq, hq, hd), device="cuda", generator=gen).to(
+            _dtype(dt))
+        k, v = (torch.randn((b, sk, hkv, hd), device="cuda",
+                            generator=gen).to(_dtype(dt)) for _ in range(2))
+        kw = dict(causal=causal, window=window, sk_valid=sk_valid)
+        got = FA.flash_attention_kernel(q, k, v, **kw)
+        want = FA.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = _compare(got, want, FLASH_TOL[dt], f"flash {case}")
+        worst = max(worst, err)
+        if role is None:
+            continue
+        nv = sk if sk_valid is None else sk_valid
+        itemsize = q.element_size()
+        flops = 4.0 * b * hq * hd * _flash_pairs(sq, sk, causal, window, nv)
+        nbytes = itemsize * (2.0 * b * sq * hq * hd + 2.0 * b * nv * hkv * hd)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k[:, :nv], v[:, :nv]))
+        rows[role] = dict(
+            shape=list(case[:9]), sk_valid=nv, max_abs_err=err,
+            ms=time_ms(lambda: FA.flash_attention_kernel(q, k, v, **kw)),
+            plain_ms=time_ms(lambda: FA.flash_attention_plain(q, k, v, **kw)),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)),
+            bound_ms=_bound(flops, nbytes, PEAK_BF16_FLOPS),
+            bound_by="operations" if flops / PEAK_BF16_FLOPS
+            >= nbytes / PEAK_BYTES else "bytes", flops=flops, bytes=nbytes)
+        del q, k, v, got, want
+    detail["flash_attention"] = rows
+    return rows, worst
+
+
+def _qwen3_norm_shapes(tokens):
+    """(shape, count) of every RMSNorm one qwen3-1.7b forward runs over
+    ``tokens`` = (batch, positions): attention and FFN pre-norms, the
+    per-head q and k norms (28 layers each), the final norm on the last
+    position."""
+    b, s = tokens
+    return [((b, s, 2048), 56), ((b, s, 16, 128), 28), ((b, s, 8, 128), 28),
+            ((b, 1, 2048), 1)]
+
+
+def _xlstm_norm_shapes(tokens):
+    b, s = tokens
+    return [((b, s, 1024), 24), ((b, s, 2048), 20), ((b, s, 1024), 4),
+            ((b, 1, 1024), 1)]
+
+
+def _rmsnorm_checks(detail):
+    """Kernel 5 against its plain version: the reference's cases and
+    every norm shape of the two serve phases (prefill and decode); the
+    totals are one qwen3-1.7b prefill forward's 113 norms."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as RN
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    worst = 0.0
+    b, s = SERVE["batch"], SERVE["prompt"]
+    timed = {"prefill": _qwen3_norm_shapes((b, s)),
+             "decode": _qwen3_norm_shapes((b, 1))}
+    others = [(sh, dt) for sh, dt in RMSNORM_CASES] + [
+        (sh, "bfloat16") for sh, _ in _xlstm_norm_shapes((b, s))
+        + _xlstm_norm_shapes((b, 1))] + [((2, 64, 2048), "float32"),
+                                         ((2, 64, 16, 128), "float32")]
+    for shape, dt in others:
+        x = torch.randn(shape, device="cuda", generator=gen).to(_dtype(dt))
+        sc = torch.rand(shape[-1], device="cuda", generator=gen)
+        err = _compare(RN.rmsnorm_kernel(x, sc), RN.rmsnorm_plain(x, sc),
+                       RMSNORM_TOL, f"rmsnorm {shape} {dt}")
+        worst = max(worst, err)
+    totals = {}
+    for role, shapes in timed.items():
+        tot = {}
+        for shape, count in shapes:
+            x = torch.randn(shape, device="cuda", generator=gen).to(
+                torch.bfloat16)
+            sc = torch.rand(shape[-1], device="cuda", generator=gen)
+            err = _compare(RN.rmsnorm_kernel(x, sc), RN.rmsnorm_plain(x, sc),
+                           RMSNORM_TOL, f"rmsnorm {shape}")
+            worst = max(worst, err)
+            d = shape[-1]
+            rows_ = x.numel() // d
+            nbytes = 2.0 * rows_ * d * x.element_size() + 4.0 * d
+            flops = 4.0 * rows_ * d
+            sc_lib = sc.to(x.dtype)
+            _add(tot, dict(
+                max_abs_err=err,
+                ms=time_ms(lambda: RN.rmsnorm_kernel(x, sc)),
+                plain_ms=time_ms(lambda: RN.rmsnorm_plain(x, sc)),
+                library_ms=time_ms(lambda: F.rms_norm(x, (d,), sc_lib,
+                                                      1e-5)),
+                bound_ms=_bound(flops, nbytes, PEAK_FP32_FLOPS),
+                flops=flops, bytes=nbytes), count)
+        tot["calls"] = sum(n for _, n in shapes)
+        totals[role] = tot
+    detail["rmsnorm"] = totals
+    return totals, worst
+
+
+def _mlstm_checks(detail):
+    """Kernel 6 against its plain version: the reference's cases and
+    xlstm-350m's prefill shape (8 x 512 tokens, 4 heads of 512), timed."""
+    import torch
+    from repro_torch.kernels import mlstm_scan as MS
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    worst = 0.0
+    row = None
+    for b, s, h, hd, dt in MLSTM_CASES + [
+            (SERVE["batch"], SERVE["prompt"], 4, 512, "bfloat16"),
+            (2, 64, 4, 512, "float32")]:
+        q, k, v = (torch.randn((b, s, h, hd), device="cuda",
+                               generator=gen).to(_dtype(dt))
+                   for _ in range(3))
+        ig, fg = (torch.randn((b, s, h), device="cuda", generator=gen)
+                  for _ in range(2))
+        err = _compare(MS.mlstm_scan_kernel(q, k, v, ig, fg),
+                       MS.mlstm_scan_plain(q, k, v, ig, fg), MLSTM_TOL[dt],
+                       f"mlstm {(b, s, h, hd, dt)}")
+        worst = max(worst, err)
+        if (b, s, dt) == (SERVE["batch"], SERVE["prompt"], "bfloat16"):
+            # per step and (b, h): C update 4·hd², C·q 2·hd², n 4·hd, fp32
+            flops = (6.0 * hd * hd + 4.0 * hd) * b * s * h
+            nbytes = 4.0 * b * s * h * hd * q.element_size() + 8.0 * b * s * h
+            row = dict(shape=[b, s, h, hd, dt], max_abs_err=err,
+                       ms=time_ms(lambda: MS.mlstm_scan_kernel(q, k, v, ig,
+                                                               fg)),
+                       plain_ms=time_ms(lambda: MS.mlstm_scan_plain(
+                           q, k, v, ig, fg), reps=2),
+                       library_ms=None,
+                       bound_ms=_bound(flops, nbytes, PEAK_FP32_FLOPS),
+                       bound_by="operations" if flops / PEAK_FP32_FLOPS
+                       >= nbytes / PEAK_BYTES else "bytes",
+                       flops=flops, bytes=nbytes)
+    detail["mlstm_scan"] = row
+    return row, worst
+
+
 def phase_kernels(detail):
     from repro_torch.device import disable_tf32
 
@@ -374,6 +627,19 @@ def phase_kernels(detail):
     conv_err = _conv_checks()
     clip = _clip_checks(detail)
     ext = _clip_ext_checks(detail)
+    flash, flash_err = _flash_checks(detail)
+    norms, norm_err = _rmsnorm_checks(detail)
+    mlstm, mlstm_err = _mlstm_checks(detail)
+    # the summary rows: one prefill forward's calls of each kernel
+    n_layers = 28
+    flash_row = {k: (v * n_layers if k in ("ms", "plain_ms", "library_ms",
+                                           "bound_ms") else v)
+                 for k, v in flash["prefill"].items()}
+    flash_row["max_abs_err"] = flash_err
+    norm_row = dict(norms["prefill"], max_abs_err=norm_err)
+    mlstm_row = {k: (v * 20 if k in ("ms", "plain_ms", "bound_ms") else v)
+                 for k, v in mlstm.items()}
+    mlstm_row["max_abs_err"] = mlstm_err
     emit({"phase": "kernels",
           "batched_matmul": {k: gemm[k] for k in (
               "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")},
@@ -382,9 +648,21 @@ def phase_kernels(detail):
               "ms", "plain_ms", "bound_ms", "max_abs_err")},
           "clip_sgd_ext": {k: ext[k] for k in (
               "ms", "plain_ms", "bound_ms", "max_abs_err")},
+          "flash_attention": {role: {k: r[k] for k in (
+              "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+              "max_abs_err")} for role, r in flash.items()},
+          "rmsnorm": {role: {k: r[k] for k in (
+              "calls", "ms", "plain_ms", "library_ms", "bound_ms")}
+              for role, r in norms.items()},
+          "mlstm_scan": {k: mlstm[k] for k in (
+              "ms", "plain_ms", "bound_ms", "max_abs_err")},
+          "max_abs_err": {"flash_attention": flash_err, "rmsnorm": norm_err,
+                          "mlstm_scan": mlstm_err},
           "note": "ms = one VGG-16 round's shapes summed: GEMM and flat "
-                  "update at N=8 (b=64), external-mean update at N=16"})
-    return gemm, clip, ext
+                  "update at N=8 (b=64), external-mean update at N=16; "
+                  "flash and mlstm per call at the serve shapes, rmsnorm "
+                  "one qwen3-1.7b forward's norms summed"})
+    return gemm, clip, ext, flash_row, norm_row, mlstm_row
 
 
 def phase_train():
@@ -605,6 +883,151 @@ def phase_mesh_cross():
           f"mesh_cross: parameters differ by {param_err}")
 
 
+def _expected_launches(cfg, forwards: int) -> dict:
+    """Launches of the token kernels in one ``serve`` run of ``forwards``
+    forwards (one prefill, then decode steps): flash attention once per
+    attention block and forward; RMSNorm once per norm and forward (block
+    pre-norms, qwen3's q/k norms, xLSTM's inner norms, the final norm);
+    the mLSTM scan once per mLSTM block, in prefill only."""
+    from repro_torch.models.transformer import layer_program
+
+    program, repeats = layer_program(cfg)
+    kinds = [k for layer in program for k in layer] * repeats
+    per_norm = {"attn": 1 + 2 * cfg.qk_norm, "ffn": 1, "mlstm": 2,
+                "slstm": 2}
+    return {"flash_attention": kinds.count("attn") * forwards,
+            "rmsnorm": (sum(per_norm[k] for k in kinds) + 1) * forwards,
+            "mlstm_scan": kinds.count("mlstm")}
+
+
+def phase_serve(arch: str, name: str):
+    """`launch.serve.serve` at full width on the card (bf16, the port's
+    seeded init), with the launch counters zeroed just before and read
+    just after."""
+    import numpy as np
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch)
+    b, s, n_gen = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    params = build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(SERVE["seed"]), "cuda")
+    prompts = np.random.default_rng(SERVE["seed"]).integers(
+        0, cfg.vocab_size, (b, s))
+    serve(cfg, params, prompts[:2, :16], 2)      # warm-up (library handles)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = serve(cfg, params, prompts, n_gen)
+    launches = ops.launch_counts()
+    expected = _expected_launches(cfg, n_gen + 1)
+    out = {"phase": name, "arch": arch, "dtype": cfg.dtype,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab_size": cfg.vocab_size, "batch": b, "prompt": s,
+           "gen": n_gen, "cache_len": s + n_gen,
+           "prefill_ms": res.prefill_s * 1e3,
+           "decode_ms_per_step": res.decode_s * 1e3 / n_gen,
+           "tokens_per_s": res.tokens_per_s,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "launches": launches, "expected_launches": expected,
+           "sample": res.tokens[0][:16].tolist(),
+           "logits_finite": bool(np.isfinite(res.logits).all())}
+    emit(out)
+    check(res.tokens.shape == (b, n_gen + 1), f"{name}: tokens "
+          f"{res.tokens.shape}")
+    check(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all(),
+          f"{name}: token ids out of range")
+    check(out["logits_finite"], f"{name}: non-finite logits")
+    for kernel, want in expected.items():
+        check(launches[kernel] == want, f"{name}: {launches[kernel]} "
+              f"{kernel} launches, expected {want}")
+    for kernel in ("batched_matmul", "clip_sgd", "clip_sgd_ext"):
+        check(launches[kernel] == 0, f"{name}: {kernel} launched")
+    return out
+
+
+def _forced(model, params, prompts, steps: int, feed=None):
+    """Prefill, then ``steps`` decode steps, each fed ``feed[:, i]`` (or
+    the greedy token when ``feed`` is None); returns the fp32 logits
+    [B, steps + 1, V] and the greedy ids [B, steps + 1]."""
+    import numpy as np
+    import torch
+
+    dev = params["embed"].device
+    b, s = prompts.shape
+    logits, cache = model.prefill(
+        params, {"tokens": torch.as_tensor(prompts, device=dev)},
+        cache_len=s + steps)
+    outs = [logits[:, 0].float().cpu().numpy()]
+    for i in range(steps):
+        tok = outs[-1].argmax(-1) if feed is None else feed[:, i]
+        logits, cache = model.decode_step(params, cache, {
+            "tokens": torch.as_tensor(tok[:, None], device=dev),
+            "positions": torch.full((b,), s + i, dtype=torch.int32)})
+        outs.append(logits[:, 0].float().cpu().numpy())
+    logits = np.stack(outs, axis=1)
+    return logits, logits.argmax(-1)
+
+
+def phase_serve_cross():
+    """The card (kernels) against the CPU (plain versions) on the same fp32
+    weights, qwen3 and xlstm at full width cut in depth."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.device import disable_tf32
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import tree_map
+
+    disable_tf32()
+    c = SERVE_CROSS
+    out = {"phase": "serve_cross"}
+    for arch, layers in c["layers"].items():
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                                  dtype="float32")
+        model = build_model(cfg)
+        on_card = model.init(
+            torch.Generator(device="cuda").manual_seed(c["seed"]), "cuda")
+        on_cpu = tree_map(lambda t: t.cpu(), on_card)
+        prompts = np.random.default_rng(c["seed"]).integers(
+            0, cfg.vocab_size, (c["batch"], c["prompt"]))
+        ops.reset_launch_counts()
+        cpu_logits, cpu_ids = _forced(model, on_cpu, prompts, c["gen"])
+        check(sum(ops.launch_counts().values()) == 0,
+              f"serve_cross {arch}: a kernel launched on the CPU run")
+        card_logits, card_ids = _forced(model, on_card, prompts, c["gen"],
+                                        feed=cpu_ids)
+        diff = np.abs(card_logits - cpu_logits)
+        out[arch] = {"n_layers": layers,
+                     "prefill_err": float(diff[:, 0].max()),
+                     "decode_err": float(diff[:, 1:].max()),
+                     "max_abs_logit": float(np.abs(cpu_logits).max()),
+                     "tol": c["tol"][arch],
+                     "over_bar": float((diff - c["tol"][arch] * (
+                         1 + np.abs(cpu_logits))).max()),
+                     "ids_equal": bool((card_ids == cpu_ids).all()),
+                     "launches": ops.launch_counts()}
+    emit(out)
+    for arch, res in out.items():
+        if arch == "phase":
+            continue
+        check(res["over_bar"] <= 0, f"serve_cross {arch}: logits differ by "
+              f"{max(res['prefill_err'], res['decode_err'])}")
+        check(res["ids_equal"], f"serve_cross {arch}: greedy ids")
+        kernels = ["rmsnorm"] + (["flash_attention"] if arch == "qwen3-1.7b"
+                                 else ["mlstm_scan"])
+        for kernel in kernels:
+            check(res["launches"][kernel] > 0,
+                  f"serve_cross {arch}: {kernel} never launched on the card")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -623,10 +1046,11 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
 
+    t_start = time.perf_counter()
     smi = phase_gpu()
     phase_build()
     detail = {"gpu": smi}
-    gemm, clip, ext = phase_kernels(detail)
+    gemm, clip, ext, flash, norm, mlstm = phase_kernels(detail)
     train = phase_train()
     mesh = phase_mesh()
     phase_cross_device()
@@ -634,6 +1058,9 @@ def main(argv=None) -> int:
     import torch.distributed as dist
 
     dist.destroy_process_group()      # the mesh phases' world of one
+    serve = phase_serve("qwen3-1.7b", "serve")
+    serve_ssm = phase_serve("xlstm-350m", "serve_ssm")
+    phase_serve_cross()
 
     launches = train["launches"]
     kernels = [
@@ -658,14 +1085,39 @@ def main(argv=None) -> int:
          "max_abs_err": ext["max_abs_err"], "ms": ext["ms"],
          "plain_ms": ext["plain_ms"], "bound_ms": ext["bound_ms"],
          "bound_by": "bytes", "library_ms": None},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:31",
+         "launches": serve["launches"]["flash_attention"],
+         "max_abs_err": flash["max_abs_err"], "ms": flash["ms"],
+         "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
+         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"]},
+        {"name": "rmsnorm", "route": "cuda",
+         "source": "src/repro_torch/csrc/rmsnorm.cu",
+         "replaces": "src/repro/kernels/rmsnorm.py:11",
+         "launches": serve["launches"]["rmsnorm"],
+         "max_abs_err": norm["max_abs_err"], "ms": norm["ms"],
+         "plain_ms": norm["plain_ms"], "bound_ms": norm["bound_ms"],
+         "bound_by": "bytes", "library_ms": norm["library_ms"]},
+        {"name": "mlstm_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/mlstm_scan.cu",
+         "replaces": "src/repro/kernels/mlstm_scan.py:24",
+         "launches": serve_ssm["launches"]["mlstm_scan"],
+         "max_abs_err": mlstm["max_abs_err"], "ms": mlstm["ms"],
+         "plain_ms": mlstm["plain_ms"], "bound_ms": mlstm["bound_ms"],
+         "bound_by": mlstm["bound_by"], "library_ms": None},
     ]
     detail["kernels"] = kernels
     detail["train"] = train
     detail["mesh"] = mesh
+    detail["serve"] = serve
+    detail["serve_ssm"] = serve_ssm
+    detail["seconds"] = time.perf_counter() - t_start
     path = Path(args.detail)
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(detail, indent=1))
 
+    emit({"phase": "total", "seconds": detail["seconds"]})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

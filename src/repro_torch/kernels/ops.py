@@ -9,6 +9,9 @@ from __future__ import annotations
 
 from repro_torch.kernels import batched_conv as BC
 from repro_torch.kernels import clip_sgd as CS
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import mlstm_scan as MS
+from repro_torch.kernels import rmsnorm as RN
 
 
 def _on_card(t) -> bool:
@@ -45,10 +48,35 @@ def clip_sgd(p, g, scale, keep_spec, participation=None, *, gamma: float,
     return fn(p, g, scale, keep_spec, participation, gamma=gamma)
 
 
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    sk_valid=None):
+    """GQA attention, q ``[B, Sq, Hq, hd]`` against k, v ``[B, Sk, Hkv,
+    hd]``; keys at or past ``sk_valid`` (default ``Sk``) are masked."""
+    fn = FA.flash_attention_kernel if _on_card(q) \
+        else FA.flash_attention_plain
+    return fn(q, k, v, causal=causal, window=window, sk_valid=sk_valid)
+
+
+def rmsnorm(x, scale, eps: float = 1e-5):
+    """``x · rsqrt(mean(x²) + eps) · scale`` over the last axis."""
+    fn = RN.rmsnorm_kernel if _on_card(x) else RN.rmsnorm_plain
+    return fn(x, scale, eps)
+
+
+def mlstm_scan(q, k, v, i_gate, f_gate):
+    """The mLSTM recurrence from an empty state; q, k, v ``[B, S, H, hd]``,
+    gate pre-activations ``[B, S, H]``."""
+    fn = MS.mlstm_scan_kernel if _on_card(q) else MS.mlstm_scan_plain
+    return fn(q, k, v, i_gate, f_gate)
+
+
 KERNELS = {
     "batched_matmul": BC.batched_matmul_kernel,
     "clip_sgd": CS.clip_sgd_kernel,
     "clip_sgd_ext": CS.clip_sgd_ext_kernel,
+    "flash_attention": FA.flash_attention_kernel,
+    "rmsnorm": RN.rmsnorm_kernel,
+    "mlstm_scan": MS.mlstm_scan_kernel,
 }
 
 

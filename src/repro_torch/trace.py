@@ -1,6 +1,7 @@
-"""Where one training run's time goes on the card.
+"""Where one training run's (or one serving run's) time goes on the card.
 
     PYTHONPATH=src python3 -m repro_torch.trace [--rounds 6] [--mesh] [--out DIR]
+    PYTHONPATH=src python3 -m repro_torch.trace --serve [--arch xlstm-350m]
 
 Runs the main path of ``chip_smoke.py``'s ``train`` phase (VGG-16 at full
 width, N=8, the HASFL controller) — or, with ``--mesh``, its ``mesh``
@@ -13,8 +14,17 @@ G²/σ² estimate), in eval and (``--mesh``) in cohort rotations, the
 device-busy milliseconds (the union of
 the kernel and memcpy intervals the profiler saw on the card) by kernel
 name, and the device's busy and idle shares of the wall time.  The Chrome
-trace goes to ``DIR/trace.json`` (default ``build/trace``).  Needs a card;
-there is no CPU mode.
+trace goes to ``DIR/trace.json`` (default ``build/trace``).
+
+With ``--serve`` it traces ``chip_smoke.py``'s ``serve`` phase instead
+(``--arch``, default qwen3-1.7b, at full width in its own dtype; 8 prompts
+of 512 tokens, then 32 greedy decode steps): after a short warm-up and
+one untraced run (its prefill and per-step decode times are reported),
+the prefill and the decode loop are each traced on their own, and
+the JSON line gives each one's wall milliseconds, device-busy
+milliseconds by kernel name, busy and idle shares, and the launches of
+the port's kernels (traces ``DIR/prefill.json`` and ``DIR/decode.json``).
+Needs a card; there is no CPU mode.
 """
 from __future__ import annotations
 
@@ -71,21 +81,117 @@ def _busy_us(intervals) -> float:
     return total
 
 
+def _smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def _device_times(prof):
+    """(busy ms, top-15 ms by kernel name, event count) of a profile."""
+    from torch.autograd import DeviceType
+
+    by_name, intervals = defaultdict(float), []
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        tr = ev.time_range
+        intervals.append((tr.start, tr.end))
+        by_name[ev.name] += tr.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    return _busy_us(intervals) / 1e3, dict(top), len(intervals)
+
+
+def _traced(fn, path: Path) -> dict:
+    """Run ``fn`` under the profiler; wall and device-busy numbers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    prof.export_chrome_trace(str(path))
+    busy_ms, top, n = _device_times(prof)
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / (wall * 1e3),
+            "device_idle_share": 1 - busy_ms / (wall * 1e3),
+            "device_ms_by_kernel": top, "n_device_events": n,
+            "launches": {k: v for k, v in ops.launch_counts().items() if v}}
+
+
+# the traffic of chip_smoke.py's serve phases
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_SEED = 8, 512, 32, 0
+
+
+def trace_serve(arch: str, out_dir: Path) -> dict:
+    """The ``serve`` phase's traffic, prefill and decode traced apart."""
+    import numpy as np
+
+    from repro_torch.config import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model
+
+    batch, prompt, gen = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    params = model.init(
+        torch.Generator(device="cuda").manual_seed(SERVE_SEED), "cuda")
+    prompts = torch.as_tensor(np.random.default_rng(SERVE_SEED).integers(
+        0, cfg.vocab_size, (batch, prompt)), device="cuda")
+    serve(cfg, params, prompts[:2, :16].cpu().numpy(), 2)    # warm-up
+    untraced = serve(cfg, params, prompts.cpu().numpy(), gen)
+    state = {}
+
+    def prefill():
+        state["logits"], state["cache"] = model.prefill(
+            params, {"tokens": prompts}, cache_len=prompt + gen)
+
+    def decode():
+        tok = state["logits"][:, 0].argmax(dim=-1)
+        cache = state["cache"]
+        for i in range(gen):
+            logits, cache = model.decode_step(params, cache, {
+                "tokens": tok[:, None],
+                "positions": torch.full((batch,), prompt + i,
+                                        dtype=torch.int32)})
+            tok = logits[:, 0].argmax(dim=-1)
+
+    return {"gpu": _smi(), "spec": "serve", "arch": arch, "dtype": cfg.dtype,
+            "batch": batch, "prompt": prompt, "gen": gen,
+            "untraced_prefill_ms": untraced.prefill_s * 1e3,
+            "untraced_decode_ms_per_step": untraced.decode_s * 1e3 / gen,
+            "prefill": _traced(prefill, out_dir / "prefill.json"),
+            "decode": _traced(decode, out_dir / "decode.json")}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=6)
     ap.add_argument("--mesh", action="store_true",
                     help="trace the mesh phase instead of the flat one")
+    ap.add_argument("--serve", action="store_true",
+                    help="trace the serving path (prefill + decode)")
+    ap.add_argument("--arch", default="qwen3-1.7b",
+                    help="the token model of --serve")
     ap.add_argument("--out", default="build/trace")
     args = ap.parse_args(argv)
+    out_dir = Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    if args.serve:
+        report = trace_serve(args.arch, out_dir)
+        print(json.dumps(report), flush=True)
+        return report
     make_spec = mesh_spec if args.mesh else train_spec
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = _smi()
     Session(make_spec(3)).run()                       # warm the builds
 
     sess = Session(make_spec(args.rounds))
@@ -103,29 +209,19 @@ def main(argv=None) -> dict:
         sess.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_name, intervals = defaultdict(float), []
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        tr = ev.time_range
-        intervals.append((tr.start, tr.end))
-        by_name[ev.name] += tr.elapsed_us() / 1e3
-    busy_ms = _busy_us(intervals) / 1e3
-    out_dir = Path(args.out)
-    out_dir.mkdir(parents=True, exist_ok=True)
+    busy_ms, top, n_events = _device_times(prof)
     prof.export_chrome_trace(str(out_dir / "trace.json"))
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     report = {
         "gpu": smi, "spec": "mesh" if args.mesh else "train",
         "rounds": args.rounds, "wall_s": wall,
         "policy_s": host["policy_s"], "eval_s": host["eval_s"],
         "rotate_s": host["rotate_s"],
-        "device_busy_ms": busy_ms if intervals else None,
-        "device_busy_share": busy_ms / (wall * 1e3) if intervals else None,
-        "device_idle_share": 1 - busy_ms / (wall * 1e3) if intervals
+        "device_busy_ms": busy_ms if n_events else None,
+        "device_busy_share": busy_ms / (wall * 1e3) if n_events else None,
+        "device_idle_share": 1 - busy_ms / (wall * 1e3) if n_events
         else None,
-        "device_ms_by_kernel": {k: v for k, v in top},
-        "n_device_events": len(intervals),
+        "device_ms_by_kernel": top,
+        "n_device_events": n_events,
     }
     print(json.dumps(report), flush=True)
     return report

@@ -101,6 +101,91 @@ def test_port_sources_cover_mesh_and_traffic():
         assert f"repro_torch/traffic/{name}.py" in covered, name
 
 
+def test_port_sources_cover_the_serving_slice():
+    """The per-source import check reaches every module of the token-model
+    serving path: the launcher, the models and the three kernels."""
+    covered = {str(p.relative_to(SRC)) for p in _port_sources()
+               if p.is_relative_to(SRC)}
+    for name in ("__init__", "serve"):
+        assert f"repro_torch/launch/{name}.py" in covered, name
+    for name in ("layers", "attention", "transformer", "ssm", "factory"):
+        assert f"repro_torch/models/{name}.py" in covered, name
+    for name in ("flash_attention", "rmsnorm", "mlstm_scan", "ops", "ref"):
+        assert f"repro_torch/kernels/{name}.py" in covered, name
+    for name in ("qwen3_1_7b", "smollm_135m", "xlstm_350m", "input_shapes"):
+        assert f"repro_torch/configs/{name}.py" in covered, name
+
+
+_SERVE = r"""
+import sys
+import numpy as np
+import torch
+from repro_torch.config import get_config, reduced
+from repro_torch.launch.serve import serve
+from repro_torch.models import build_model
+for arch in ("qwen3-1.7b", "xlstm-350m"):
+    cfg = reduced(get_config(arch))
+    params = build_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 6))
+    res = serve(cfg, params, toks, 3, device="cpu")
+    assert res.tokens.shape == (2, 4), res.tokens.shape
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro."))
+assert not bad, bad
+print("isolated")
+"""
+
+
+def test_port_serve_imports_no_jax_and_no_reference():
+    out = subprocess.run([sys.executable, "-c", _SERVE], env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "isolated" in out.stdout
+
+
+def test_serve_cli_without_device_raises_without_a_card():
+    import torch
+    from repro_torch.launch import serve as SV
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the CLI would run on it")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SV.main(["--batch", "1", "--prompt-len", "4", "--gen", "1"])
+
+
+@pytest.mark.parametrize("case", ["window", "wrapped", "positions-differ"])
+def test_card_decode_attention_raises_on_unsupported_caches(case,
+                                                            monkeypatch):
+    """On the card, decode attention runs the flash kernel with
+    ``sk_valid = kv_len`` only for an in-order, unwrapped, windowless cache
+    with one position for the batch; any other cache raises
+    `NotImplementedError` before a kernel is reached (no plain fallback).
+    The card is faked: the dispatch's device check says "card" for CPU
+    tensors, and the kernel itself is replaced by a trap."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as A
+
+    monkeypatch.setattr(ops, "_on_card", lambda t: True)
+
+    def trap(*a, **k):
+        raise AssertionError("the kernel was reached")
+
+    monkeypatch.setattr(ops, "flash_attention", trap)
+    q = torch.zeros((2, 1, 4, 32))
+    kc = torch.zeros((2, 8, 2, 32))
+    k_pos = torch.arange(8).repeat(2, 1)
+    kw = {"window": dict(window=4, kv_len=6),
+          "wrapped": dict(window=0, kv_len=9),
+          "positions-differ": dict(window=0, kv_len=None)}[case]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        A.decode_attention(q, kc, kc, k_pos, torch.tensor([5, 5]), **kw)
+    monkeypatch.setattr(ops, "flash_attention", lambda *a, **k: "kernel")
+    assert A.decode_attention(q, kc, kc, k_pos, torch.tensor([5, 5]),
+                              kv_len=6) == "kernel"
+
+
 def test_mesh_session_without_device_raises_without_a_card():
     """``Session(spec_with_mesh)`` asks for the card and raises without
     one: no CPU fallback, and no process group is made first."""

@@ -8,7 +8,9 @@ do.  Tolerances are the reference's own bars (`tests/test_kernels.py`):
 2e-5 for the conv forward, 2e-4 for its gradients, 2e-6 for the fused
 update — fp32 throughout, the two sides differing only in summation order.
 The cases are shared with `test_torch_kernels_cuda.py` (kernel vs plain
-on the card).
+on the card).  The token-model kernels (flash attention, RMSNorm, the
+mLSTM scan) take the reference's own cases and bars: 2e-5 fp32 / 2e-2
+bf16, 2e-2, and 2e-4 fp32 / 3e-2 bf16.
 """
 import jax
 import jax.numpy as jnp
@@ -18,11 +20,22 @@ import torch
 
 from repro.kernels import ops as ROPS
 from repro.kernels import ref as RREF
+from repro.kernels.flash_attention import flash_attention as r_flash
+from repro.kernels.mlstm_scan import mlstm_scan as r_mlstm
+from repro.kernels.rmsnorm import rmsnorm as r_rmsnorm
+from repro.models import attention as RATT
+from repro.models.attention import decode_attention as r_decode_attention
 from repro_torch.kernels import batched_conv as TBC
 from repro_torch.kernels import clip_sgd as TCS
+from repro_torch.kernels import flash_attention as TFA
+from repro_torch.kernels import mlstm_scan as TMS
 from repro_torch.kernels import ops as TOPS
 from repro_torch.kernels import ref as TREF
-from test_torch_kernels_cuda import CONV_CASES, GAMMA, clip_cases
+from repro_torch.kernels import rmsnorm as TRN
+from repro_torch.models import attention as TATT
+from test_torch_kernels_cuda import (CONV_CASES, DECODE_CASES, FLASH_CASES,
+                                     FLASH_TOL, GAMMA, MLSTM_CASES, MLSTM_TOL,
+                                     RMSNORM_CASES, RMSNORM_TOL, clip_cases)
 
 FWD_TOL = dict(rtol=2e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -138,8 +151,13 @@ def test_cpu_tensors_take_the_plain_versions():
     TOPS.clip_sgd(p, torch.ones_like(p), torch.ones(2),
                   torch.zeros(2, dtype=torch.bool), gamma=0.1,
                   common=torch.ones(5), use_common=True)
-    assert TOPS.launch_counts() == {"batched_matmul": 0, "clip_sgd": 0,
-                                    "clip_sgd_ext": 0}
+    q = torch.zeros((1, 4, 2, 32))
+    TOPS.flash_attention(q, q, q, causal=True)
+    TOPS.rmsnorm(q, torch.ones(32))
+    TOPS.mlstm_scan(q, q, q, torch.zeros((1, 4, 2)), torch.zeros((1, 4, 2)))
+    assert TOPS.launch_counts() == {
+        "batched_matmul": 0, "clip_sgd": 0, "clip_sgd_ext": 0,
+        "flash_attention": 0, "rmsnorm": 0, "mlstm_scan": 0}
 
 
 def test_kernel_launchers_refuse_cpu_tensors():
@@ -153,3 +171,112 @@ def test_kernel_launchers_refuse_cpu_tensors():
         TCS.clip_sgd_ext_kernel(torch.zeros((2, 3)), torch.zeros((2, 3)),
                                 torch.ones(2), torch.ones(2), torch.zeros(3),
                                 True, gamma=0.1)
+    q = torch.zeros((1, 4, 2, 32))
+    with pytest.raises(ValueError, match="CUDA"):
+        TFA.flash_attention_kernel(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        TRN.rmsnorm_kernel(q, torch.ones(32))
+    with pytest.raises(ValueError, match="CUDA"):
+        TMS.mlstm_scan_kernel(q, q, q, torch.zeros((1, 4, 2)),
+                              torch.zeros((1, 4, 2)))
+
+
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _both(a, dtype):
+    """One numpy array as a JAX array and a torch tensor of ``dtype``
+    (bf16 rounding done once, on the JAX side, and carried over)."""
+    j = jnp.asarray(a, JDT[dtype])
+    t = torch.from_numpy(np.array(j, np.float32)).to(TDT[dtype])
+    return j, t
+
+
+def _assert_close(t, j, tol):
+    np.testing.assert_allclose(t.float().numpy(), np.asarray(j, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,hd,causal,window,dtype",
+                         FLASH_CASES)
+def test_flash_attention_matches_reference_kernel(b, sq, sk, hq, hkv, hd,
+                                                  causal, window, dtype):
+    rng = np.random.default_rng(0)
+    (qj, qt), (kj, kt), (vj, vt) = (
+        _both(rng.standard_normal(shape), dtype)
+        for shape in ((b, sq, hq, hd), (b, sk, hkv, hd), (b, sk, hkv, hd)))
+    ref = r_flash(qj, kj, vj, causal=causal, window=window, block_q=64,
+                  block_k=64, interpret=True)
+    out = TOPS.flash_attention(qt, kt, vt, causal=causal, window=window)
+    assert out.dtype == qt.dtype
+    _assert_close(out, ref, FLASH_TOL[dtype])
+    # the port's oracle (its naive attention) against the reference's
+    _assert_close(TREF.flash_attention_ref(qt, kt, vt, causal=causal,
+                                           window=window),
+                  RREF.flash_attention_ref(qj, kj, vj, causal=causal,
+                                           window=window), FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,hd,causal,window,dtype",
+                         FLASH_CASES)
+def test_blockwise_attention_matches_reference(b, sq, sk, hq, hkv, hd,
+                                               causal, window, dtype):
+    """The port's plain blockwise (online-softmax) attention against the
+    reference's, in KV blocks of 64 (ragged last block included)."""
+    rng = np.random.default_rng(3)
+    (qj, qt), (kj, kt), (vj, vt) = (
+        _both(rng.standard_normal(shape), dtype)
+        for shape in ((b, sq, hq, hd), (b, sk, hkv, hd), (b, sk, hkv, hd)))
+    ref = RATT.blockwise_attention(qj, kj, vj, causal=causal, window=window,
+                                   block_kv=64)
+    out = TATT.blockwise_attention(qt, kt, vt, causal=causal, window=window,
+                                   block_kv=64)
+    _assert_close(out, ref, FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,c,hq,hkv,hd,pos", DECODE_CASES)
+def test_flash_decode_form_matches_reference_decode_attention(
+        b, c, hq, hkv, hd, pos, dtype):
+    """The card's decode route, ``flash_attention(causal=False,
+    sk_valid=pos+1)``, against the reference's ``decode_attention`` on a
+    cache whose slots past ``pos`` are empty (-1) and hold garbage K/V.
+    The reference rounds the probabilities to bf16 before the PV product
+    and the kernel keeps them fp32, so bf16 takes the bf16 bar."""
+    rng = np.random.default_rng(11)
+    (qj, qt), (kj, kt), (vj, vt) = (
+        _both(rng.standard_normal(shape), dtype)
+        for shape in ((b, 1, hq, hd), (b, c, hkv, hd), (b, c, hkv, hd)))
+    k_pos = np.where(np.arange(c) <= pos, np.arange(c), -1)
+    k_pos = np.broadcast_to(k_pos, (b, c)).astype(np.int32)
+    ref = r_decode_attention(qj, kj, vj, jnp.asarray(k_pos),
+                             jnp.full((b,), pos, jnp.int32))
+    out = TOPS.flash_attention(qt, kt, vt, causal=False, sk_valid=pos + 1)
+    _assert_close(out, ref, FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("shape,dtype", RMSNORM_CASES)
+def test_rmsnorm_matches_reference_kernel(shape, dtype):
+    rng = np.random.default_rng(2)
+    xj, xt = _both(rng.standard_normal(shape), dtype)
+    sc = rng.random(shape[-1]).astype(np.float32)
+    ref = r_rmsnorm(xj, jnp.asarray(sc), interpret=True)
+    out = TOPS.rmsnorm(xt, torch.from_numpy(sc))
+    assert out.dtype == xt.dtype
+    _assert_close(out, ref, RMSNORM_TOL)
+
+
+@pytest.mark.parametrize("b,s,h,hd,dtype", MLSTM_CASES)
+def test_mlstm_scan_matches_reference_kernel(b, s, h, hd, dtype):
+    rng = np.random.default_rng(1)
+    (qj, qt), (kj, kt), (vj, vt) = (
+        _both(rng.standard_normal((b, s, h, hd)), dtype) for _ in range(3))
+    ig, fg = (rng.standard_normal((b, s, h)).astype(np.float32)
+              for _ in range(2))
+    ref = r_mlstm(qj, kj, vj, jnp.asarray(ig), jnp.asarray(fg), chunk=32,
+                  interpret=True)
+    out = TOPS.mlstm_scan(qt, kt, vt, torch.from_numpy(ig),
+                          torch.from_numpy(fg))
+    assert out.dtype == qt.dtype
+    _assert_close(out, ref, MLSTM_TOL[dtype])

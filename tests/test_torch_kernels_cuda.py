@@ -9,8 +9,10 @@ dependencies are installed:
 
 Tolerances: the GEMM matches `torch.einsum` within fp32 rounding of sums
 taken in another order (1e-5 relative); the conv and both updates take
-the reference's own bars (2e-5 forward, 2e-4 gradients, 2e-6 update).  The
-case lists are shared with the CPU parity tests in `test_torch_kernels.py`.
+the reference's own bars (2e-5 forward, 2e-4 gradients, 2e-6 update), as
+do the token-model kernels (flash attention 2e-5 fp32 / 2e-2 bf16,
+RMSNorm 2e-2, mLSTM scan 2e-4 fp32 / 3e-2 bf16).  The case lists are
+shared with the CPU parity tests in `test_torch_kernels.py`.
 """
 import numpy as np
 import pytest
@@ -18,7 +20,10 @@ import torch
 
 from repro_torch.kernels import batched_conv as TBC
 from repro_torch.kernels import clip_sgd as TCS
+from repro_torch.kernels import flash_attention as TFA
+from repro_torch.kernels import mlstm_scan as TMS
 from repro_torch.kernels import ops as TOPS
+from repro_torch.kernels import rmsnorm as TRN
 
 CONV_CASES = [
     # (n, b, h, w, cin, cout, stride) — the reference's CONV_CASES: N=1,
@@ -35,6 +40,38 @@ GEMM_CASES = [
     (1, 5, 3, 7, False), (8, 1000, 27, 64, False), (3, 130, 577, 65, True),
     (2, 64, 4096, 64, True), (4, 257, 100, 129, False),
 ]
+
+
+# the reference's own kernel cases (tests/test_kernels.py), dtypes by name
+FLASH_CASES = [
+    # (b, sq, sk, hq, hkv, hd, causal, window, dtype)
+    (1, 128, 128, 4, 2, 64, True, 0, "float32"),
+    (2, 64, 256, 8, 8, 32, True, 0, "float32"),
+    (1, 96, 96, 4, 1, 128, True, 32, "float32"),
+    (1, 128, 128, 2, 2, 64, False, 0, "float32"),
+    (1, 200, 200, 3, 1, 64, True, 0, "float32"),     # ragged tiles
+    (1, 128, 128, 4, 2, 64, True, 0, "bfloat16"),
+    (2, 32, 512, 4, 4, 64, True, 128, "bfloat16"),
+]
+MLSTM_CASES = [
+    # (b, s, h, hd, dtype)
+    (1, 64, 2, 32, "float32"),
+    (2, 100, 2, 32, "float32"),
+    (1, 96, 4, 64, "float32"),
+    (1, 64, 2, 32, "bfloat16"),
+]
+RMSNORM_CASES = [
+    ((4, 128), "float32"), ((3, 50, 96), "float32"),
+    ((2, 17, 256), "bfloat16"), ((1, 1, 512), "bfloat16"),
+]
+# the decode form: (b, cache, hq, hkv, hd, pos) — one query token at
+# position ``pos`` against a cache whose slots past ``pos`` are empty
+DECODE_CASES = [(2, 16, 4, 2, 32, 9), (3, 40, 6, 3, 64, 0),
+                (1, 33, 2, 1, 128, 32)]
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+MLSTM_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+RMSNORM_TOL = 2e-2
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def clip_cases():
@@ -161,3 +198,114 @@ def test_clip_sgd_ext_kernel_matches_plain(n, d, keep, use_common):
     if keep == "none" and not use_common:
         np.testing.assert_array_equal(target.cpu().numpy(),
                                       p.cpu().numpy())   # holds params
+
+
+def _randn(gen, shape, dtype, device="cuda"):
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,hd,causal,window,dtype",
+                         FLASH_CASES + [
+                             # qwen3-1.7b prefill at full width
+                             (8, 512, 512, 16, 8, 128, True, 0, "bfloat16")])
+def test_flash_attention_kernel_matches_plain(b, sq, sk, hq, hkv, hd, causal,
+                                              window, dtype):
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dt = DTYPES[dtype]
+    q = _randn(gen, (b, sq, hq, hd), dt)
+    k, v = (_randn(gen, (b, sk, hkv, hd), dt) for _ in range(2))
+    before = TFA.flash_attention_kernel.launches
+    got = TOPS.flash_attention(q, k, v, causal=causal, window=window)
+    want = TFA.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert TFA.flash_attention_kernel.launches == before + 1
+    assert got.dtype == dt and got.shape == q.shape
+    _close(got, want, FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,c,hq,hkv,hd,pos", DECODE_CASES + [
+    (8, 544, 16, 8, 128, 512)])   # qwen3-1.7b's first decode step
+def test_flash_attention_decode_form_matches_plain(b, c, hq, hkv, hd, pos,
+                                                   dtype):
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dt = DTYPES[dtype]
+    q = _randn(gen, (b, 1, hq, hd), dt)
+    k, v = (_randn(gen, (b, c, hkv, hd), dt) for _ in range(2))
+    got = TFA.flash_attention_kernel(q, k, v, causal=False, sk_valid=pos + 1)
+    want = TFA.flash_attention_plain(q, k, v, causal=False, sk_valid=pos + 1)
+    _close(got, want, FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", RMSNORM_CASES + [
+    ((8, 512, 2048), "bfloat16"), ((8, 512, 16, 128), "bfloat16"),
+    ((8, 1, 2048), "float32"), ((5, 1000), "float32")])
+def test_rmsnorm_kernel_matches_plain(shape, dtype):
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = _randn(gen, shape, DTYPES[dtype])
+    scale = torch.rand(shape[-1], generator=gen, device="cuda")
+    before = TRN.rmsnorm_kernel.launches
+    got = TOPS.rmsnorm(x, scale)
+    want = TRN.rmsnorm_plain(x, scale)
+    torch.cuda.synchronize()
+    assert TRN.rmsnorm_kernel.launches == before + 1
+    assert got.dtype == x.dtype
+    _close(got, want, RMSNORM_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hd,dtype", MLSTM_CASES + [
+    (8, 512, 4, 512, "bfloat16")])   # xlstm-350m prefill at full width
+def test_mlstm_scan_kernel_matches_plain(b, s, h, hd, dtype):
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dt = DTYPES[dtype]
+    q, k, v = (_randn(gen, (b, s, h, hd), dt) for _ in range(3))
+    ig, fg = (torch.randn((b, s, h), generator=gen, device="cuda")
+              for _ in range(2))
+    before = TMS.mlstm_scan_kernel.launches
+    got = TOPS.mlstm_scan(q, k, v, ig, fg)
+    want = TMS.mlstm_scan_plain(q, k, v, ig, fg)
+    torch.cuda.synchronize()
+    assert TMS.mlstm_scan_kernel.launches == before + 1
+    _close(got, want, MLSTM_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_token_kernels_refuse_wrong_types_and_shapes():
+    _need_card()
+    f32 = torch.zeros((1, 4, 2, 32), device="cuda")
+    bf = f32.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="fp32 or"):
+        TFA.flash_attention_kernel(f32, bf, bf)
+    with pytest.raises(ValueError, match="hd"):
+        TFA.flash_attention_kernel(*(torch.zeros((1, 4, 2, 48),
+                                                 device="cuda"),) * 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros((1, 2, 4, 32), device="cuda").transpose(1, 2)
+        TFA.flash_attention_kernel(t, t, t)
+    with pytest.raises(ValueError, match="sk_valid"):
+        TFA.flash_attention_kernel(f32, f32, f32, sk_valid=5)
+    with pytest.raises(ValueError, match="aligned"):
+        off = torch.zeros(1 + 4 * 2 * 32, device="cuda")[1:].view(1, 4, 2, 32)
+        TFA.flash_attention_kernel(f32, off, off)
+    with pytest.raises(ValueError, match="scale"):
+        TRN.rmsnorm_kernel(f32, torch.ones(16, device="cuda"))
+    with pytest.raises(ValueError, match="fp32"):
+        TRN.rmsnorm_kernel(f32.half(), torch.ones(32, device="cuda"))
+    gates = torch.zeros((1, 4, 2), device="cuda")
+    with pytest.raises(ValueError, match="gates"):
+        TMS.mlstm_scan_kernel(bf, bf, bf, gates.to(torch.bfloat16), gates)
+    with pytest.raises(ValueError, match="shapes"):
+        TMS.mlstm_scan_kernel(f32, f32, f32, gates[:, :3], gates)
