@@ -41,26 +41,33 @@ nothing of the reference package.  Phases, each printing one JSON line:
    1e-4.
 8. ``serve``: the token-model serving path, `repro_torch.launch.serve.serve`
    for qwen3-1.7b at full width (28 layers, d 2048, vocab 151936, bf16)
-   with the port's seeded init: 8 prompts of 512 tokens, a cache of 544,
-   prefill and 32 greedy decode steps; counters zeroed and read around
-   it: flash attention 28 and RMSNorm 113 launches per forward, 33
+   with the port's seeded init and `launch.serve.FULL_WIDTH_TRAFFIC`
+   (8 prompts of 512 tokens, a cache of 544, prefill and 32 greedy
+   decode steps), run twice: the first warms up at the same shapes, the
+   second is reported, its counters zeroed just before and read just
+   after: flash attention 28 and RMSNorm 113 launches per forward, 33
    forwards.  Prefill ms, decode ms per step, tokens/s, peak memory.
-9. ``serve_ssm``: the same traffic on xlstm-350m at full width (24 layers,
-   bf16): 20 mLSTM-scan launches (prefill only), 49 RMSNorms per forward.
+9. ``serve_ssm``: the same on xlstm-350m at full width (24 layers, bf16):
+   20 mLSTM-scan launches (prefill only), 49 RMSNorms per forward.
 10. ``serve_cross``: the card with its kernels against the CPU with the
    plain versions, on the same fp32 weights (TF32 off): qwen3 cut to 2
    layers and xlstm to one period of 6, full width otherwise; 2 prompts of
    64 tokens, then 8 decode steps teacher-forced with the CPU's greedy
    tokens.  Prefill and decode logits within 1e-4 for qwen3 and 2e-4 for
-   xlstm (rtol = atol; see ``SERVE_CROSS``), greedy ids equal.
+   xlstm (rtol = atol; see ``SERVE_CROSS``), greedy ids equal.  For xlstm
+   the phase also reports the same card run with the mLSTM scan's plain
+   version in place of the kernel, against the CPU and against the
+   kernel run: the witness of xlstm's bar.
 
 The ``kernels`` phase also holds the token-model kernels against their
 plain versions on the card — flash attention (the reference's cases,
 the decode form with ``sk_valid``, qwen3's prefill and decode shapes),
-RMSNorm (the reference's cases, every norm shape of both serve phases)
-and the mLSTM scan (the reference's cases, xlstm-350m's prefill shape) —
-at the reference's bars, timed beside their bound, their plain version
-and the library yardstick (``F.scaled_dot_product_attention``,
+RMSNorm (the reference's cases, every norm shape of the serve phases and
+of ``serve_cross``) and the mLSTM scan (the reference's cases, xlstm-350m's
+prefill shape) — at the reference's bars.  Each is timed as one forward's
+calls back to back in one CUDA-event span (``calls`` of them: 28 flash,
+113 RMSNorms in qwen3's order, 20 scans), beside its bound, its plain
+version and the library yardstick (``F.scaled_dot_product_attention``,
 ``F.rms_norm``; the mLSTM scan has none).
 
 Then the per-kernel summary line ``{"kernels": [...]}``, the raw
@@ -118,14 +125,14 @@ RMSNORM_CASES = [((4, 128), "float32"), ((3, 50, 96), "float32"),
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 MLSTM_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
 RMSNORM_TOL = 2e-2
-SERVE = dict(batch=8, prompt=512, gen=32, seed=0)     # serve, serve_ssm
 SERVE_CROSS = dict(batch=2, prompt=64, gen=8, seed=1,
                    layers={"qwen3-1.7b": 2, "xlstm-350m": 6},
                    # fp32 logits, rtol = atol.  1e-4 is the CPU parity
                    # tests' bar; xlstm takes the reference's own fp32 bar
                    # for the mLSTM recurrence (2e-4): its den = |n . q|
                    # cancels, so fp32 sums taken in another order move its
-                   # logits by ~1e-4 even where no kernel runs (decode)
+                   # logits by ~1e-4, with the scan's plain version on the
+                   # card too (the phase's witness)
                    tol={"qwen3-1.7b": 1e-4, "xlstm-350m": 2e-4})
 
 
@@ -437,14 +444,6 @@ def _compare(got, want, tol, what):
     return err
 
 
-def _add(tot, row, count=1):
-    for key in ("ms", "plain_ms", "library_ms", "bound_ms", "flops",
-                "bytes"):
-        if row.get(key) is not None:
-            tot[key] = tot.get(key, 0.0) + count * row[key]
-    tot["max_abs_err"] = max(tot.get("max_abs_err", 0.0), row["max_abs_err"])
-
-
 def _bound(flops, nbytes, peak_flops):
     return max(flops / peak_flops, nbytes / PEAK_BYTES) * 1e3
 
@@ -459,22 +458,69 @@ def _flash_pairs(sq, sk, causal, window, sk_valid):
     return total
 
 
+def _traffic():
+    from repro_torch.launch.serve import FULL_WIDTH_TRAFFIC
+
+    return FULL_WIDTH_TRAFFIC
+
+
+def _blocks(cfg):
+    """Block kinds of one forward of ``cfg``, in order."""
+    from repro_torch.models.transformer import layer_program
+
+    program, repeats = layer_program(cfg)
+    return [kind for layer in program * repeats for kind in layer]
+
+
+def _norm_calls(cfg, b, s):
+    """Input shapes of the RMSNorms one forward of ``cfg`` over ``b`` x
+    ``s`` tokens runs, in order: per attention block the pre-norm and,
+    with qk-norm, the per-head q and k norms; per FFN block its pre-norm;
+    per mLSTM block its input norm and the norm of h over its 2·d inner
+    width; per sLSTM block its input norm and the norm of h over d; then
+    the final norm on the last position."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    qk = [(b, s, cfg.n_heads, hd), (b, s, cfg.n_kv_heads, hd)] \
+        if cfg.qk_norm else []
+    per_block = {"attn": [(b, s, d)] + qk, "ffn": [(b, s, d)],
+                 "mlstm": [(b, s, d), (b, s, 2 * d)],
+                 "slstm": [(b, s, d), (b, s, d)]}
+    return [sh for kind in _blocks(cfg) for sh in per_block[kind]] \
+        + [(b, 1, d)]
+
+
+def _span(fn, calls: int):
+    """``fn`` called ``calls`` times back to back, timed as one unit."""
+    def run():
+        for _ in range(calls):
+            fn()
+    return run
+
+
 def _flash_checks(detail):
     """Kernel 4 against its plain version: the reference's cases, the
-    decode form, and qwen3-1.7b's prefill and decode shapes, timed."""
+    decode form, and qwen3-1.7b's prefill and decode shapes, each of these
+    timed as one forward's calls (one per attention block)."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.config import get_config
     from repro_torch.kernels import flash_attention as FA
 
+    cfg = get_config("qwen3-1.7b")
+    tf = _traffic()
+    b, s, n = tf["batch"], tf["prompt"], tf["prompt"] + tf["gen"]
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+    calls = _blocks(cfg).count("attn")
     gen = torch.Generator(device="cuda").manual_seed(21)
     worst = 0.0
     shapes = FLASH_CASES + [
-        # qwen3 prefill, one attention layer: 8 x 512 tokens
-        (8, 512, 512, 16, 8, 128, True, 0, "bfloat16", None, "prefill"),
-        # qwen3's first decode step against the 544-slot cache
-        (8, 1, 544, 16, 8, 128, False, 0, "bfloat16", 513, "decode"),
+        # qwen3 prefill, one attention layer
+        (b, s, s, *heads, True, 0, cfg.dtype, None, "prefill"),
+        # qwen3's first decode step against the cache
+        (b, 1, n, *heads, False, 0, cfg.dtype, s + 1, "decode"),
         # the decode form at fp32 (serve_cross), slots past pos unused
-        (2, 1, 72, 16, 8, 128, False, 0, "float32", 65, None),
+        (SERVE_CROSS["batch"], 1, SERVE_CROSS["prompt"] + SERVE_CROSS["gen"],
+         *heads, False, 0, "float32", SERVE_CROSS["prompt"] + 1, None),
     ]
     rows = {}
     for case in shapes:
@@ -499,99 +545,99 @@ def _flash_checks(detail):
         nbytes = itemsize * (2.0 * b * sq * hq * hd + 2.0 * b * nv * hkv * hd)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k[:, :nv], v[:, :nv]))
         rows[role] = dict(
-            shape=list(case[:9]), sk_valid=nv, max_abs_err=err,
-            ms=time_ms(lambda: FA.flash_attention_kernel(q, k, v, **kw)),
-            plain_ms=time_ms(lambda: FA.flash_attention_plain(q, k, v, **kw)),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=True)),
-            bound_ms=_bound(flops, nbytes, PEAK_BF16_FLOPS),
+            shape=list(case[:9]), sk_valid=nv, calls=calls, max_abs_err=err,
+            ms=time_ms(_span(lambda: FA.flash_attention_kernel(
+                q, k, v, **kw), calls)),
+            plain_ms=time_ms(_span(lambda: FA.flash_attention_plain(
+                q, k, v, **kw), calls)),
+            library_ms=time_ms(_span(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True), calls)),
+            bound_ms=calls * _bound(flops, nbytes, PEAK_BF16_FLOPS),
             bound_by="operations" if flops / PEAK_BF16_FLOPS
-            >= nbytes / PEAK_BYTES else "bytes", flops=flops, bytes=nbytes)
+            >= nbytes / PEAK_BYTES else "bytes", flops=calls * flops,
+            bytes=calls * nbytes)
         del q, k, v, got, want
     detail["flash_attention"] = rows
     return rows, worst
 
 
-def _qwen3_norm_shapes(tokens):
-    """(shape, count) of every RMSNorm one qwen3-1.7b forward runs over
-    ``tokens`` = (batch, positions): attention and FFN pre-norms, the
-    per-head q and k norms (28 layers each), the final norm on the last
-    position."""
-    b, s = tokens
-    return [((b, s, 2048), 56), ((b, s, 16, 128), 28), ((b, s, 8, 128), 28),
-            ((b, 1, 2048), 1)]
-
-
-def _xlstm_norm_shapes(tokens):
-    b, s = tokens
-    return [((b, s, 1024), 24), ((b, s, 2048), 20), ((b, s, 1024), 4),
-            ((b, 1, 1024), 1)]
-
-
 def _rmsnorm_checks(detail):
     """Kernel 5 against its plain version: the reference's cases and
-    every norm shape of the two serve phases (prefill and decode); the
-    totals are one qwen3-1.7b prefill forward's 113 norms."""
+    every norm shape of the serve phases (bf16) and of serve_cross (fp32);
+    then one qwen3-1.7b forward's norms, in order, timed as one unit, for
+    prefill and for a decode step."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.config import get_config
     from repro_torch.kernels import rmsnorm as RN
 
     gen = torch.Generator(device="cuda").manual_seed(22)
-    worst = 0.0
-    b, s = SERVE["batch"], SERVE["prompt"]
-    timed = {"prefill": _qwen3_norm_shapes((b, s)),
-             "decode": _qwen3_norm_shapes((b, 1))}
-    others = [(sh, dt) for sh, dt in RMSNORM_CASES] + [
-        (sh, "bfloat16") for sh, _ in _xlstm_norm_shapes((b, s))
-        + _xlstm_norm_shapes((b, 1))] + [((2, 64, 2048), "float32"),
-                                         ((2, 64, 16, 128), "float32")]
-    for shape, dt in others:
+    qwen, xlstm = get_config("qwen3-1.7b"), get_config("xlstm-350m")
+    tf, c = _traffic(), SERVE_CROSS
+    b, s = tf["batch"], tf["prompt"]
+    served = {sh: "bfloat16" for cfg in (qwen, xlstm) for n in (s, 1)
+              for sh in _norm_calls(cfg, b, n)}
+    crossed = {sh: "float32" for cfg in (qwen, xlstm)
+               for n in (c["prompt"], 1)
+               for sh in _norm_calls(cfg, c["batch"], n)}
+    inputs, worst = {}, 0.0
+    for shape, dt in RMSNORM_CASES + list(served.items()) \
+            + list(crossed.items()):
         x = torch.randn(shape, device="cuda", generator=gen).to(_dtype(dt))
         sc = torch.rand(shape[-1], device="cuda", generator=gen)
-        err = _compare(RN.rmsnorm_kernel(x, sc), RN.rmsnorm_plain(x, sc),
-                       RMSNORM_TOL, f"rmsnorm {shape} {dt}")
+        err = _compare(RN.rmsnorm_kernel(x, sc, qwen.norm_eps),
+                       RN.rmsnorm_plain(x, sc, qwen.norm_eps), RMSNORM_TOL,
+                       f"rmsnorm {shape} {dt}")
         worst = max(worst, err)
+        if (shape, dt) in served.items():
+            inputs[shape] = (x, sc, sc.to(x.dtype))
     totals = {}
-    for role, shapes in timed.items():
-        tot = {}
-        for shape, count in shapes:
-            x = torch.randn(shape, device="cuda", generator=gen).to(
-                torch.bfloat16)
-            sc = torch.rand(shape[-1], device="cuda", generator=gen)
-            err = _compare(RN.rmsnorm_kernel(x, sc), RN.rmsnorm_plain(x, sc),
-                           RMSNORM_TOL, f"rmsnorm {shape}")
-            worst = max(worst, err)
-            d = shape[-1]
-            rows_ = x.numel() // d
-            nbytes = 2.0 * rows_ * d * x.element_size() + 4.0 * d
-            flops = 4.0 * rows_ * d
-            sc_lib = sc.to(x.dtype)
-            _add(tot, dict(
-                max_abs_err=err,
-                ms=time_ms(lambda: RN.rmsnorm_kernel(x, sc)),
-                plain_ms=time_ms(lambda: RN.rmsnorm_plain(x, sc)),
-                library_ms=time_ms(lambda: F.rms_norm(x, (d,), sc_lib,
-                                                      1e-5)),
-                bound_ms=_bound(flops, nbytes, PEAK_FP32_FLOPS),
-                flops=flops, bytes=nbytes), count)
-        tot["calls"] = sum(n for _, n in shapes)
-        totals[role] = tot
+    for role, n in (("prefill", s), ("decode", 1)):
+        seq = [inputs[sh] for sh in _norm_calls(qwen, b, n)]
+
+        def run(fn, seq=seq):
+            return lambda: [fn(x, sc, sl) for x, sc, sl in seq]
+
+        bound = flops = nbytes = 0.0
+        for x, _, _ in seq:
+            d, rows_ = x.shape[-1], x.numel() // x.shape[-1]
+            by = 2.0 * rows_ * d * x.element_size() + 4.0 * d
+            fl = 4.0 * rows_ * d
+            bound += _bound(fl, by, PEAK_FP32_FLOPS)
+            flops += fl
+            nbytes += by
+        eps = qwen.norm_eps
+        totals[role] = dict(
+            calls=len(seq),
+            ms=time_ms(run(lambda x, sc, sl: RN.rmsnorm_kernel(x, sc, eps))),
+            plain_ms=time_ms(run(
+                lambda x, sc, sl: RN.rmsnorm_plain(x, sc, eps))),
+            library_ms=time_ms(run(lambda x, sc, sl: F.rms_norm(
+                x, (x.shape[-1],), sl, eps))),
+            bound_ms=bound, flops=flops, bytes=nbytes)
     detail["rmsnorm"] = totals
     return totals, worst
 
 
 def _mlstm_checks(detail):
     """Kernel 6 against its plain version: the reference's cases and
-    xlstm-350m's prefill shape (8 x 512 tokens, 4 heads of 512), timed."""
+    xlstm-350m's prefill shape (4 heads of 512), the latter timed as one
+    prefill's calls (one per mLSTM block)."""
     import torch
+    from repro_torch.config import get_config
     from repro_torch.kernels import mlstm_scan as MS
 
+    cfg = get_config("xlstm-350m")
+    tf = _traffic()
+    h, hd = cfg.n_heads, 2 * cfg.d_model // cfg.n_heads
+    calls = _blocks(cfg).count("mlstm")
+    served = (tf["batch"], tf["prompt"], h, hd, cfg.dtype)
     gen = torch.Generator(device="cuda").manual_seed(23)
     worst = 0.0
     row = None
     for b, s, h, hd, dt in MLSTM_CASES + [
-            (SERVE["batch"], SERVE["prompt"], 4, 512, "bfloat16"),
-            (2, 64, 4, 512, "float32")]:
+            served, (SERVE_CROSS["batch"], SERVE_CROSS["prompt"], h, hd,
+                     "float32")]:
         q, k, v = (torch.randn((b, s, h, hd), device="cuda",
                                generator=gen).to(_dtype(dt))
                    for _ in range(3))
@@ -601,15 +647,19 @@ def _mlstm_checks(detail):
                        MS.mlstm_scan_plain(q, k, v, ig, fg), MLSTM_TOL[dt],
                        f"mlstm {(b, s, h, hd, dt)}")
         worst = max(worst, err)
-        if (b, s, dt) == (SERVE["batch"], SERVE["prompt"], "bfloat16"):
-            # per step and (b, h): C update 4·hd², C·q 2·hd², n 4·hd, fp32
-            flops = (6.0 * hd * hd + 4.0 * hd) * b * s * h
-            nbytes = 4.0 * b * s * h * hd * q.element_size() + 8.0 * b * s * h
-            row = dict(shape=[b, s, h, hd, dt], max_abs_err=err,
-                       ms=time_ms(lambda: MS.mlstm_scan_kernel(q, k, v, ig,
-                                                               fg)),
-                       plain_ms=time_ms(lambda: MS.mlstm_scan_plain(
-                           q, k, v, ig, fg), reps=2),
+        if (b, s, h, hd, dt) == served:
+            # per step and (b, h), fp32: C's update a multiply and an FMA
+            # per element (i·v once per row), C·q an FMA per element; n
+            # and n·q the same per column
+            flops = calls * (5.0 * hd * hd + 5.0 * hd) * b * s * h
+            nbytes = calls * (4.0 * b * s * h * hd * q.element_size()
+                              + 8.0 * b * s * h)
+            row = dict(shape=[b, s, h, hd, dt], calls=calls,
+                       max_abs_err=err,
+                       ms=time_ms(_span(lambda: MS.mlstm_scan_kernel(
+                           q, k, v, ig, fg), calls)),
+                       plain_ms=time_ms(_span(lambda: MS.mlstm_scan_plain(
+                           q, k, v, ig, fg), calls), reps=1),
                        library_ms=None,
                        bound_ms=_bound(flops, nbytes, PEAK_FP32_FLOPS),
                        bound_by="operations" if flops / PEAK_FP32_FLOPS
@@ -630,16 +680,6 @@ def phase_kernels(detail):
     flash, flash_err = _flash_checks(detail)
     norms, norm_err = _rmsnorm_checks(detail)
     mlstm, mlstm_err = _mlstm_checks(detail)
-    # the summary rows: one prefill forward's calls of each kernel
-    n_layers = 28
-    flash_row = {k: (v * n_layers if k in ("ms", "plain_ms", "library_ms",
-                                           "bound_ms") else v)
-                 for k, v in flash["prefill"].items()}
-    flash_row["max_abs_err"] = flash_err
-    norm_row = dict(norms["prefill"], max_abs_err=norm_err)
-    mlstm_row = {k: (v * 20 if k in ("ms", "plain_ms", "bound_ms") else v)
-                 for k, v in mlstm.items()}
-    mlstm_row["max_abs_err"] = mlstm_err
     emit({"phase": "kernels",
           "batched_matmul": {k: gemm[k] for k in (
               "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")},
@@ -649,20 +689,22 @@ def phase_kernels(detail):
           "clip_sgd_ext": {k: ext[k] for k in (
               "ms", "plain_ms", "bound_ms", "max_abs_err")},
           "flash_attention": {role: {k: r[k] for k in (
-              "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+              "calls", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
               "max_abs_err")} for role, r in flash.items()},
           "rmsnorm": {role: {k: r[k] for k in (
               "calls", "ms", "plain_ms", "library_ms", "bound_ms")}
               for role, r in norms.items()},
           "mlstm_scan": {k: mlstm[k] for k in (
-              "ms", "plain_ms", "bound_ms", "max_abs_err")},
+              "calls", "ms", "plain_ms", "bound_ms", "max_abs_err")},
           "max_abs_err": {"flash_attention": flash_err, "rmsnorm": norm_err,
                           "mlstm_scan": mlstm_err},
           "note": "ms = one VGG-16 round's shapes summed: GEMM and flat "
                   "update at N=8 (b=64), external-mean update at N=16; "
-                  "flash and mlstm per call at the serve shapes, rmsnorm "
-                  "one qwen3-1.7b forward's norms summed"})
-    return gemm, clip, ext, flash_row, norm_row, mlstm_row
+                  "flash, rmsnorm and mlstm_scan: one forward's calls "
+                  "(calls) timed as one unit, at the serve shapes"})
+    return (gemm, clip, ext, dict(flash["prefill"], max_abs_err=flash_err),
+            dict(norms["prefill"], max_abs_err=norm_err),
+            dict(mlstm, max_abs_err=mlstm_err))
 
 
 def phase_train():
@@ -886,38 +928,31 @@ def phase_mesh_cross():
 def _expected_launches(cfg, forwards: int) -> dict:
     """Launches of the token kernels in one ``serve`` run of ``forwards``
     forwards (one prefill, then decode steps): flash attention once per
-    attention block and forward; RMSNorm once per norm and forward (block
-    pre-norms, qwen3's q/k norms, xLSTM's inner norms, the final norm);
-    the mLSTM scan once per mLSTM block, in prefill only."""
-    from repro_torch.models.transformer import layer_program
-
-    program, repeats = layer_program(cfg)
-    kinds = [k for layer in program for k in layer] * repeats
-    per_norm = {"attn": 1 + 2 * cfg.qk_norm, "ffn": 1, "mlstm": 2,
-                "slstm": 2}
+    attention block and forward; RMSNorm once per norm and forward
+    (`_norm_calls`); the mLSTM scan once per mLSTM block, in prefill
+    only."""
+    kinds = _blocks(cfg)
     return {"flash_attention": kinds.count("attn") * forwards,
-            "rmsnorm": (sum(per_norm[k] for k in kinds) + 1) * forwards,
+            "rmsnorm": len(_norm_calls(cfg, 1, 1)) * forwards,
             "mlstm_scan": kinds.count("mlstm")}
 
 
 def phase_serve(arch: str, name: str):
     """`launch.serve.serve` at full width on the card (bf16, the port's
-    seeded init), with the launch counters zeroed just before and read
-    just after."""
+    seeded init): a first run at the same traffic warms the library
+    handles and the allocator, the second is reported, with the launch
+    counters zeroed just before it and read just after."""
     import numpy as np
     import torch
     from repro_torch.config import get_config
     from repro_torch.kernels import ops
-    from repro_torch.launch.serve import serve
-    from repro_torch.models import build_model
+    from repro_torch.launch.serve import seeded_inputs, serve
 
     cfg = get_config(arch)
-    b, s, n_gen = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
-    params = build_model(cfg).init(
-        torch.Generator(device="cuda").manual_seed(SERVE["seed"]), "cuda")
-    prompts = np.random.default_rng(SERVE["seed"]).integers(
-        0, cfg.vocab_size, (b, s))
-    serve(cfg, params, prompts[:2, :16], 2)      # warm-up (library handles)
+    tf = _traffic()
+    b, s, n_gen = tf["batch"], tf["prompt"], tf["gen"]
+    params, prompts = seeded_inputs(cfg, b, s, tf["seed"], "cuda")
+    serve(cfg, params, prompts, n_gen)                # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -972,15 +1007,30 @@ def _forced(model, params, prompts, steps: int, feed=None):
     return logits, logits.argmax(-1)
 
 
+def _errors(logits, ref, tol):
+    """Max |logits - ref| in prefill (step 0) and decode, and how far the
+    worst element lies over the bar ``tol * (1 + |ref|)``."""
+    import numpy as np
+
+    diff = np.abs(logits - ref)
+    return {"prefill_err": float(diff[:, 0].max()),
+            "decode_err": float(diff[:, 1:].max()),
+            "over_bar": float((diff - tol * (1 + np.abs(ref))).max())}
+
+
 def phase_serve_cross():
     """The card (kernels) against the CPU (plain versions) on the same fp32
-    weights, qwen3 and xlstm at full width cut in depth."""
+    weights, qwen3 and xlstm at full width cut in depth.  For xlstm also
+    the witness of its bar: the same card run with the mLSTM scan's plain
+    version in place of kernel 6, against the CPU and against the kernel
+    run."""
     import dataclasses
 
     import numpy as np
     import torch
     from repro_torch.config import get_config
     from repro_torch.device import disable_tf32
+    from repro_torch.kernels import mlstm_scan as MS
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.utils.tree import tree_map
@@ -1003,16 +1053,23 @@ def phase_serve_cross():
               f"serve_cross {arch}: a kernel launched on the CPU run")
         card_logits, card_ids = _forced(model, on_card, prompts, c["gen"],
                                         feed=cpu_ids)
-        diff = np.abs(card_logits - cpu_logits)
-        out[arch] = {"n_layers": layers,
-                     "prefill_err": float(diff[:, 0].max()),
-                     "decode_err": float(diff[:, 1:].max()),
-                     "max_abs_logit": float(np.abs(cpu_logits).max()),
-                     "tol": c["tol"][arch],
-                     "over_bar": float((diff - c["tol"][arch] * (
-                         1 + np.abs(cpu_logits))).max()),
-                     "ids_equal": bool((card_ids == cpu_ids).all()),
-                     "launches": ops.launch_counts()}
+        tol = c["tol"][arch]
+        res = {"n_layers": layers, **_errors(card_logits, cpu_logits, tol),
+               "max_abs_logit": float(np.abs(cpu_logits).max()),
+               "tol": tol, "ids_equal": bool((card_ids == cpu_ids).all()),
+               "launches": ops.launch_counts()}
+        if "mlstm" in _blocks(cfg):
+            kernel_scan = ops.mlstm_scan
+            ops.mlstm_scan = MS.mlstm_scan_plain
+            try:
+                plain_logits, _ = _forced(model, on_card, prompts, c["gen"],
+                                          feed=cpu_ids)
+            finally:
+                ops.mlstm_scan = kernel_scan
+            res["plain_scan_on_card"] = {
+                "vs_cpu": _errors(plain_logits, cpu_logits, tol),
+                "vs_kernel": _errors(card_logits, plain_logits, tol)}
+        out[arch] = res
     emit(out)
     for arch, res in out.items():
         if arch == "phase":
@@ -1089,6 +1146,7 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:31",
          "launches": serve["launches"]["flash_attention"],
+         "calls": flash["calls"],
          "max_abs_err": flash["max_abs_err"], "ms": flash["ms"],
          "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
          "bound_by": flash["bound_by"], "library_ms": flash["library_ms"]},
@@ -1096,6 +1154,7 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm.py:11",
          "launches": serve["launches"]["rmsnorm"],
+         "calls": norm["calls"],
          "max_abs_err": norm["max_abs_err"], "ms": norm["ms"],
          "plain_ms": norm["plain_ms"], "bound_ms": norm["bound_ms"],
          "bound_by": "bytes", "library_ms": norm["library_ms"]},
@@ -1103,6 +1162,7 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/csrc/mlstm_scan.cu",
          "replaces": "src/repro/kernels/mlstm_scan.py:24",
          "launches": serve_ssm["launches"]["mlstm_scan"],
+         "calls": mlstm["calls"],
          "max_abs_err": mlstm["max_abs_err"], "ms": mlstm["ms"],
          "plain_ms": mlstm["plain_ms"], "bound_ms": mlstm["bound_ms"],
          "bound_by": mlstm["bound_by"], "library_ms": None},

@@ -10,8 +10,10 @@
 //   h_t = (C q_t) / max(|n . q_t|, exp(-m'))
 //
 // What bounds it on the card: neither bytes nor flops, but the sequential
-// chain of S steps; per step each (b, h) does ~4 hd^2 flops on a state it
-// must keep on chip.  At xlstm-350m's hd = 512 the state C is 1 MiB of
+// chain of S steps.  Per step each (b, h) needs 5 hd^2 + 5 hd flops on a
+// state it must keep on chip: with ig * v_t[r] taken once per row, each
+// element of C costs a multiply and an FMA and C q_t an FMA; n and n . q_t
+// the same per column.  At xlstm-350m's hd = 512 the state C is 1 MiB of
 // fp32 per (b, h): it fits neither one SM's shared memory (227 KB) nor its
 // registers.
 //
@@ -122,10 +124,11 @@ mlstm_scan_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float den = fmaxf(fabsf(warp_sum(nq)), expf(-m_new));
 #pragma unroll
     for (int r = 0; r < RW; ++r) {
+      const float iv = i_g * cur.v[r];
       float num = 0.f;
 #pragma unroll
       for (int c = 0; c < COLS; ++c) {
-        cst[r][c] = f_g * cst[r][c] + i_g * (cur.v[r] * cur.k[c]);
+        cst[r][c] = fmaf(f_g, cst[r][c], iv * cur.k[c]);
         num = fmaf(cst[r][c], cur.q[c], num);
       }
       num = warp_sum(num);

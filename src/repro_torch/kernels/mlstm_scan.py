@@ -13,8 +13,10 @@ only ``den = max(|n · q_t|, exp(-m))`` is shared, so the kernel splits the
 rows of C across warps (4 rows each, in registers), and every warp keeps
 its own n and m and walks all S steps; k is scaled by ``1/sqrt(hd)`` in
 fp32 after the load, as on the TPU.  What bounds it is the sequential
-chain of S steps (per step ~4·hd² flops per (b, h) on a state that never
-leaves the chip), not bytes or peak flops.
+chain of S steps (per step 5·hd² + 5·hd flops per (b, h) on a state that
+never leaves the chip: a multiply and an FMA per element of C, with
+``i·v`` taken once per row, and an FMA per element for ``C·q``), not bytes
+or peak flops.
 
 `mlstm_scan_plain` is the plain PyTorch version (CPU tensors and tests):
 the sequential recurrence of the reference's `repro.models.ssm.mlstm_scan_ref`

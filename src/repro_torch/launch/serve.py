@@ -18,8 +18,14 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.device import resolve
+
+# The full-width serving traffic of ``chip_smoke.py``'s serve phases and of
+# ``python -m repro_torch.trace --serve``: ``batch`` prompts of ``prompt``
+# ids drawn with ``seed`` (`seeded_inputs`), then ``gen`` greedy steps.
+FULL_WIDTH_TRAFFIC = dict(batch=8, prompt=512, gen=32, seed=0)
 
 
 @dataclass
@@ -36,6 +42,19 @@ class ServeResult:
         return steps * self.tokens.shape[0] / self.decode_s
 
 
+def seeded_inputs(cfg, batch: int, prompt: int, seed: int, device):
+    """The port's init of ``cfg`` from ``seed`` (a `torch.Generator` on
+    ``device``) and ``batch`` prompts of ``prompt`` ids from
+    ``numpy.random.default_rng(seed)``."""
+    from repro_torch.models import build_model
+
+    params = build_model(cfg).init(
+        torch.Generator(device=device).manual_seed(seed), device)
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, prompt))
+    return params, prompts
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -44,7 +63,8 @@ def _sync(device: torch.device) -> None:
 def serve(cfg, params, tokens, gen: int, device=None) -> ServeResult:
     """Prefill ``tokens`` ([B, S] ids), then ``gen`` greedy decode steps
     against a cache of ``S + gen`` positions, with ``params`` already on
-    ``device``."""
+    ``device``.  The two stages run in the profiler spans ``serve.prefill``
+    and ``serve.decode``, each ending in a device sync."""
     from repro_torch.models import build_model
 
     device = resolve(device)
@@ -53,20 +73,23 @@ def serve(cfg, params, tokens, gen: int, device=None) -> ServeResult:
     b, s = toks.shape
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": toks}, cache_len=s + gen)
-    _sync(device)
+    with record_function("serve.prefill"):
+        logits, cache = model.prefill(params, {"tokens": toks},
+                                      cache_len=s + gen)
+        _sync(device)
     t_prefill = time.perf_counter() - t0
 
     tok = logits[:, 0].argmax(dim=-1)
     out = [tok]
     t0 = time.perf_counter()
-    for i in range(gen):
-        step = {"tokens": tok[:, None],
-                "positions": torch.full((b,), s + i, dtype=torch.int32)}
-        logits, cache = model.decode_step(params, cache, step)
-        tok = logits[:, 0].argmax(dim=-1)
-        out.append(tok)
-    _sync(device)
+    with record_function("serve.decode"):
+        for i in range(gen):
+            step = {"tokens": tok[:, None],
+                    "positions": torch.full((b,), s + i, dtype=torch.int32)}
+            logits, cache = model.decode_step(params, cache, step)
+            tok = logits[:, 0].argmax(dim=-1)
+            out.append(tok)
+        _sync(device)
     t_decode = time.perf_counter() - t0
     return ServeResult(torch.stack(out, dim=1).cpu().numpy(), t_prefill,
                        t_decode, logits[:, 0].float().cpu().numpy())
@@ -85,18 +108,13 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from repro_torch.config import get_config, reduced
-    from repro_torch.models import build_model
 
     device = resolve(args.device)
     cfg = reduced(get_config(args.arch)) if args.reduce \
         else get_config(args.arch)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = build_model(cfg).init(gen, device)
-
-    rng = np.random.default_rng(args.seed)
     b, s = args.batch, args.prompt_len
-    res = serve(cfg, params, rng.integers(0, cfg.vocab_size, (b, s)),
-                args.gen, device)
+    params, prompts = seeded_inputs(cfg, b, s, args.seed, device)
+    res = serve(cfg, params, prompts, args.gen, device)
     print(f"prefill[{b}x{s}] {res.prefill_s*1e3:.1f} ms")
     print(f"decode {args.gen} steps: {res.decode_s*1e3:.1f} ms "
           f"({res.tokens_per_s:.1f} tok/s aggregate)")

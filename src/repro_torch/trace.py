@@ -17,14 +17,14 @@ name, and the device's busy and idle shares of the wall time.  The Chrome
 trace goes to ``DIR/trace.json`` (default ``build/trace``).
 
 With ``--serve`` it traces ``chip_smoke.py``'s ``serve`` phase instead
-(``--arch``, default qwen3-1.7b, at full width in its own dtype; 8 prompts
-of 512 tokens, then 32 greedy decode steps): after a short warm-up and
-one untraced run (its prefill and per-step decode times are reported),
-the prefill and the decode loop are each traced on their own, and
-the JSON line gives each one's wall milliseconds, device-busy
-milliseconds by kernel name, busy and idle shares, and the launches of
-the port's kernels (traces ``DIR/prefill.json`` and ``DIR/decode.json``).
-Needs a card; there is no CPU mode.
+(``--arch``, default qwen3-1.7b, at full width in its own dtype, with
+`launch.serve.FULL_WIDTH_TRAFFIC`): after a warm-up run and an untraced
+run (its prefill and per-step decode times are reported), one
+`launch.serve.serve` runs under the profiler, and the JSON line gives,
+for each of its spans ``serve.prefill`` and ``serve.decode``, the wall
+milliseconds, device-busy milliseconds by kernel name and busy and idle
+shares, and the launches of the port's kernels (trace
+``DIR/serve.json``).  Needs a card; there is no CPU mode.
 """
 from __future__ import annotations
 
@@ -88,14 +88,18 @@ def _smi() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def _device_times(prof):
-    """(busy ms, top-15 ms by kernel name, event count) of a profile."""
+def _cuda_events(prof, skip=()):
+    """The profile's device events, less the annotations named ``skip``."""
     from torch.autograd import DeviceType
 
+    return [ev for ev in prof.events()
+            if ev.device_type == DeviceType.CUDA and ev.name not in skip]
+
+
+def _device_times(events):
+    """(busy ms, top-15 ms by kernel name, event count) of device events."""
     by_name, intervals = defaultdict(float), []
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
-            continue
+    for ev in events:
         tr = ev.time_range
         intervals.append((tr.start, tr.end))
         by_name[ev.name] += tr.elapsed_us() / 1e3
@@ -103,72 +107,54 @@ def _device_times(prof):
     return _busy_us(intervals) / 1e3, dict(top), len(intervals)
 
 
-def _traced(fn, path: Path) -> dict:
-    """Run ``fn`` under the profiler; wall and device-busy numbers."""
+SERVE_SPANS = ("serve.prefill", "serve.decode")
+
+
+def trace_serve(arch: str, out_dir: Path) -> dict:
+    """The ``serve`` phase's traffic: a warm-up run, an untraced run, then
+    one `serve` under the profiler, split by its prefill and decode
+    spans."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.config import get_config
     from repro_torch.kernels import ops
+    from repro_torch.launch.serve import (FULL_WIDTH_TRAFFIC, seeded_inputs,
+                                          serve)
 
+    t = FULL_WIDTH_TRAFFIC
+    cfg = get_config(arch)
+    params, prompts = seeded_inputs(cfg, t["batch"], t["prompt"], t["seed"],
+                                    "cuda")
+    serve(cfg, params, prompts, t["gen"])                 # warm-up
+    untraced = serve(cfg, params, prompts, t["gen"])
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    prof.export_chrome_trace(str(path))
-    busy_ms, top, n = _device_times(prof)
-    return {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
-            "device_busy_share": busy_ms / (wall * 1e3),
-            "device_idle_share": 1 - busy_ms / (wall * 1e3),
-            "device_ms_by_kernel": top, "n_device_events": n,
-            "launches": {k: v for k, v in ops.launch_counts().items() if v}}
-
-
-# the traffic of chip_smoke.py's serve phases
-SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_SEED = 8, 512, 32, 0
-
-
-def trace_serve(arch: str, out_dir: Path) -> dict:
-    """The ``serve`` phase's traffic, prefill and decode traced apart."""
-    import numpy as np
-
-    from repro_torch.config import get_config
-    from repro_torch.launch.serve import serve
-    from repro_torch.models import build_model
-
-    batch, prompt, gen = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
-    cfg = get_config(arch)
-    model = build_model(cfg)
-    params = model.init(
-        torch.Generator(device="cuda").manual_seed(SERVE_SEED), "cuda")
-    prompts = torch.as_tensor(np.random.default_rng(SERVE_SEED).integers(
-        0, cfg.vocab_size, (batch, prompt)), device="cuda")
-    serve(cfg, params, prompts[:2, :16].cpu().numpy(), 2)    # warm-up
-    untraced = serve(cfg, params, prompts.cpu().numpy(), gen)
-    state = {}
-
-    def prefill():
-        state["logits"], state["cache"] = model.prefill(
-            params, {"tokens": prompts}, cache_len=prompt + gen)
-
-    def decode():
-        tok = state["logits"][:, 0].argmax(dim=-1)
-        cache = state["cache"]
-        for i in range(gen):
-            logits, cache = model.decode_step(params, cache, {
-                "tokens": tok[:, None],
-                "positions": torch.full((batch,), prompt + i,
-                                        dtype=torch.int32)})
-            tok = logits[:, 0].argmax(dim=-1)
-
-    return {"gpu": _smi(), "spec": "serve", "arch": arch, "dtype": cfg.dtype,
-            "batch": batch, "prompt": prompt, "gen": gen,
-            "untraced_prefill_ms": untraced.prefill_s * 1e3,
-            "untraced_decode_ms_per_step": untraced.decode_s * 1e3 / gen,
-            "prefill": _traced(prefill, out_dir / "prefill.json"),
-            "decode": _traced(decode, out_dir / "decode.json")}
+        serve(cfg, params, prompts, t["gen"])
+    prof.export_chrome_trace(str(out_dir / "serve.json"))
+    spans = {ev.name: ev.time_range for ev in prof.events()
+             if ev.device_type == DeviceType.CPU and ev.name in SERVE_SPANS}
+    device = _cuda_events(prof, skip=SERVE_SPANS)
+    report = {"gpu": _smi(), "spec": "serve", "arch": arch,
+              "dtype": cfg.dtype, **t,
+              "untraced_prefill_ms": untraced.prefill_s * 1e3,
+              "untraced_decode_ms_per_step":
+                  untraced.decode_s * 1e3 / t["gen"],
+              "launches": {k: v for k, v in ops.launch_counts().items()
+                           if v}}
+    for name in SERVE_SPANS:
+        tr = spans[name]
+        busy_ms, top, n = _device_times(
+            ev for ev in device if tr.start <= ev.time_range.start < tr.end)
+        wall_ms = tr.elapsed_us() / 1e3
+        report[name.split(".")[1]] = {
+            "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / wall_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms,
+            "device_ms_by_kernel": top, "n_device_events": n}
+    return report
 
 
 def main(argv=None) -> dict:
@@ -209,7 +195,7 @@ def main(argv=None) -> dict:
         sess.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy_ms, top, n_events = _device_times(prof)
+    busy_ms, top, n_events = _device_times(_cuda_events(prof))
     prof.export_chrome_trace(str(out_dir / "trace.json"))
     report = {
         "gpu": smi, "spec": "mesh" if args.mesh else "train",

@@ -149,6 +149,30 @@ def test_serve_greedy_tokens_match_reference_loop(arch):
     assert res.prefill_s > 0 and res.decode_s > 0
 
 
+def test_serve_runs_prefill_and_decode_in_profiler_spans():
+    """`serve` wraps its prefill and its decode loop in the spans that
+    `repro_torch.trace --serve` splits the profile by, one each, in order,
+    each covering its stage's matmuls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.trace import SERVE_SPANS
+
+    _, tcfg = _cfgs("qwen3-1.7b", "float32")
+    runs = _runs("qwen3-1.7b", "float32")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        serve(tcfg, runs["tp"], runs["toks"], GEN, device="cpu")
+    events = [ev for ev in prof.events() if ev.device_type == DeviceType.CPU]
+    spans = [ev for ev in events if ev.name in SERVE_SPANS]
+    assert [ev.name for ev in spans] == list(SERVE_SPANS)
+    prefill, decode = (ev.time_range for ev in spans)
+    assert prefill.end <= decode.start
+    mms = [ev.time_range.start for ev in events if ev.name == "aten::mm"]
+    for tr in (prefill, decode):
+        assert any(tr.start <= t < tr.end for t in mms)
+    assert all(prefill.start <= t < decode.end for t in mms)
+
+
 def test_xlstm_decode_after_prefill_starts_from_empty_state():
     """The reference's prefill leaves the mLSTM/sLSTM caches as initialized
     (`transformer.py` stack_prefill), so decode after prefill starts those
