@@ -46,7 +46,9 @@ nothing of the reference package.  Phases, each printing one JSON line:
    decode steps), run twice: the first warms up at the same shapes, the
    second is reported, its counters zeroed just before and read just
    after: flash attention 28 and RMSNorm 113 launches per forward, 33
-   forwards.  Prefill ms, decode ms per step, tokens/s, peak memory.
+   forwards, the prefill's 28 flash launches all on the tensor-core path
+   and every decode step's 28 on the split-KV path.  Prefill ms, decode
+   ms per step, tokens/s, peak memory.
 9. ``serve_ssm``: the same on xlstm-350m at full width (24 layers, bf16):
    20 mLSTM-scan launches (prefill only), 49 RMSNorms per forward.
 10. ``serve_cross``: the card with its kernels against the CPU with the
@@ -59,9 +61,12 @@ nothing of the reference package.  Phases, each printing one JSON line:
    version in place of the kernel, against the CPU and against the
    kernel run: the witness of xlstm's bar.
 
-The ``kernels`` phase also holds the token-model kernels against their
+The GEMM's split-K (conv1.dW, conv2.dW) must repeat bitwise.  The
+``kernels`` phase also holds the token-model kernels against their
 plain versions on the card — flash attention (the reference's cases,
-the decode form with ``sk_valid``, qwen3's prefill and decode shapes),
+the tensor-core prefill at hd 64 and 32, off its 128-row tile and with a
+window and ``sk_valid``, the split-KV decode at ``sk_valid`` 1 and at
+qwen3's decode shape, bitwise repeatable there, each call on its path),
 RMSNorm (the reference's cases, every norm shape of the serve phases and
 of ``serve_cross``) and the mLSTM scan (the reference's cases, xlstm-350m's
 prefill shape) — at the reference's bars.  Each is timed as one forward's
@@ -205,6 +210,19 @@ def phase_gpu():
     return out
 
 
+def _ptxas_lines(log: str):
+    """ptxas's per-kernel report: each entry's (demangled where short)
+    name, then its registers / shared memory and spill lines."""
+    keep = []
+    for ln in log.splitlines():
+        ln = ln.strip()
+        if "Compiling entry function" in ln:
+            keep.append(ln.split("'")[1] if "'" in ln else ln)
+        elif "registers" in ln or "spill" in ln:
+            keep.append(ln.replace("ptxas info    : ", ""))
+    return keep
+
+
 def phase_build():
     import torch
     from repro_torch.kernels import build
@@ -226,9 +244,7 @@ def phase_build():
                  use_common=True)
     torch.cuda.synchronize()
     t_all = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in
-                    build.BUILD_LOGS.get(name, "").splitlines()
-                    if "registers" in ln or "spill" in ln]
+    ptxas = {name: _ptxas_lines(build.BUILD_LOGS.get(name, ""))
              for name in sources}
     emit({"phase": "build", "seconds": round(t_all, 3),
           "nvcc_seconds": round(t_nvcc, 3), "ptxas": ptxas})
@@ -243,6 +259,7 @@ def _gemm_checks(detail):
                max_abs_err=0.0, flops=0.0, bytes=0.0)
     rows = []
     n = 8
+    sms = torch.cuda.get_device_properties("cuda").multi_processor_count
     for name, kind, m, k, c in vgg16_gemm_shapes(n):
         if kind == "dW":
             # patchesᵀ as a transposed view, as the main path passes it
@@ -253,6 +270,12 @@ def _gemm_checks(detail):
         b = torch.randn((n, k, c), device="cuda", generator=gen)
         out = BC.batched_matmul_kernel(a, b)
         ref = BC.batched_matmul_plain(a, b)
+        splits = BC.gemm_splits(n, m, k, c, sms)[0]
+        if name in ("conv1.dW", "conv2.dW"):
+            # split-K reduces its partials in a fixed order
+            check(splits > 1 and torch.equal(out, BC.batched_matmul_kernel(
+                a, b)), f"GEMM {name}: split-K ({splits} splits) not "
+                "bitwise repeatable")
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
         scale = float(ref.abs().max())
@@ -262,7 +285,8 @@ def _gemm_checks(detail):
         flops = 2.0 * n * m * k * c
         nbytes = 4.0 * n * (m * k + k * c + m * c)
         bound = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3
-        row = dict(name=name, shape=[n, m, k, c], max_abs_err=err,
+        row = dict(name=name, shape=[n, m, k, c], splits=splits,
+                   max_abs_err=err,
                    ms=time_ms(lambda: BC.batched_matmul_kernel(a, b)),
                    plain_ms=time_ms(lambda: BC.batched_matmul_plain(a, b)),
                    library_ms=time_ms(lambda: torch.bmm(a, b)),
@@ -497,10 +521,24 @@ def _span(fn, calls: int):
     return run
 
 
+def _flash_path(q, sq):
+    """The kernel `flash_attention_kernel` must take for these inputs."""
+    import torch
+
+    if sq == 1:
+        return "split_kv"
+    return "tc" if q.dtype == torch.bfloat16 else "fp32"
+
+
 def _flash_checks(detail):
     """Kernel 4 against its plain version: the reference's cases, the
-    decode form, and qwen3-1.7b's prefill and decode shapes, each of these
-    timed as one forward's calls (one per attention block)."""
+    decode form, the new paths' edges (bf16 prefill at hd 64 and 32 and
+    with folded rows off the 128-row tile, window with sk_valid, decode at
+    sk_valid = 1 against 544 slots, so most splits are empty), and
+    qwen3-1.7b's prefill and decode shapes, each of these timed as one
+    forward's calls (one per attention block).  Every call must take its
+    path (tensor-core, split-KV or fp32); the split-KV decode at qwen3's
+    shape must be bitwise repeatable."""
     import torch
     import torch.nn.functional as F
     from repro_torch.config import get_config
@@ -514,10 +552,19 @@ def _flash_checks(detail):
     gen = torch.Generator(device="cuda").manual_seed(21)
     worst = 0.0
     shapes = FLASH_CASES + [
+        # bf16 prefill at hd 64 and 32; folded rows 231 and 300, off the
+        # 128-row tile; a window with sk_valid
+        (1, 128, 128, 4, 2, 64, True, 0, "bfloat16", None, None),
+        (1, 128, 128, 4, 2, 32, True, 0, "bfloat16", None, None),
+        (1, 77, 77, 3, 1, 128, True, 0, "bfloat16", None, None),
+        (2, 100, 100, 6, 2, 64, True, 0, "bfloat16", None, None),
+        (2, 150, 300, 4, 2, 128, True, 40, "bfloat16", 120, None),
         # qwen3 prefill, one attention layer
         (b, s, s, *heads, True, 0, cfg.dtype, None, "prefill"),
         # qwen3's first decode step against the cache
         (b, 1, n, *heads, False, 0, cfg.dtype, s + 1, "decode"),
+        # one valid key of 544: every split but the first is empty
+        (b, 1, n, *heads, False, 0, cfg.dtype, 1, None),
         # the decode form at fp32 (serve_cross), slots past pos unused
         (SERVE_CROSS["batch"], 1, SERVE_CROSS["prompt"] + SERVE_CROSS["gen"],
          *heads, False, 0, "float32", SERVE_CROSS["prompt"] + 1, None),
@@ -532,11 +579,19 @@ def _flash_checks(detail):
         k, v = (torch.randn((b, sk, hkv, hd), device="cuda",
                             generator=gen).to(_dtype(dt)) for _ in range(2))
         kw = dict(causal=causal, window=window, sk_valid=sk_valid)
+        before = FA.path_launches()
         got = FA.flash_attention_kernel(q, k, v, **kw)
+        after = FA.path_launches()
         want = FA.flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
+        path = _flash_path(q, sq)
+        check(after[path] == before[path] + 1,
+              f"flash {case}: not launched on the {path} path")
         err = _compare(got, want, FLASH_TOL[dt], f"flash {case}")
         worst = max(worst, err)
+        if role == "decode":
+            check(torch.equal(got, FA.flash_attention_kernel(q, k, v, **kw)),
+                  "flash decode: split-KV not bitwise repeatable")
         if role is None:
             continue
         nv = sk if sk_valid is None else sk_valid
@@ -545,7 +600,8 @@ def _flash_checks(detail):
         nbytes = itemsize * (2.0 * b * sq * hq * hd + 2.0 * b * nv * hkv * hd)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k[:, :nv], v[:, :nv]))
         rows[role] = dict(
-            shape=list(case[:9]), sk_valid=nv, calls=calls, max_abs_err=err,
+            shape=list(case[:9]), sk_valid=nv, calls=calls, path=path,
+            max_abs_err=err,
             ms=time_ms(_span(lambda: FA.flash_attention_kernel(
                 q, k, v, **kw), calls)),
             plain_ms=time_ms(_span(lambda: FA.flash_attention_plain(
@@ -702,7 +758,7 @@ def phase_kernels(detail):
                   "update at N=8 (b=64), external-mean update at N=16; "
                   "flash, rmsnorm and mlstm_scan: one forward's calls "
                   "(calls) timed as one unit, at the serve shapes"})
-    return (gemm, clip, ext, dict(flash["prefill"], max_abs_err=flash_err),
+    return (gemm, clip, ext, dict(flash, max_abs_err=flash_err),
             dict(norms["prefill"], max_abs_err=norm_err),
             dict(mlstm, max_abs_err=mlstm_err))
 
@@ -937,6 +993,16 @@ def _expected_launches(cfg, forwards: int) -> dict:
             "mlstm_scan": kinds.count("mlstm")}
 
 
+def _expected_paths(cfg, n_gen: int) -> dict:
+    """Flash attention's launches per kernel in one ``serve`` run: the
+    prefill's on the tensor-core path (bf16; fp32 takes the CUDA-core
+    kernel), every decode step's on the split-KV path."""
+    attn = _blocks(cfg).count("attn")
+    paths = {"tc": 0, "split_kv": attn * n_gen, "fp32": 0}
+    paths["tc" if cfg.dtype == "bfloat16" else "fp32"] += attn
+    return paths
+
+
 def phase_serve(arch: str, name: str):
     """`launch.serve.serve` at full width on the card (bf16, the port's
     seeded init): a first run at the same traffic warms the library
@@ -945,6 +1011,7 @@ def phase_serve(arch: str, name: str):
     import numpy as np
     import torch
     from repro_torch.config import get_config
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import seeded_inputs, serve
 
@@ -958,7 +1025,9 @@ def phase_serve(arch: str, name: str):
     ops.reset_launch_counts()
     res = serve(cfg, params, prompts, n_gen)
     launches = ops.launch_counts()
+    paths = FA.path_launches()
     expected = _expected_launches(cfg, n_gen + 1)
+    expected_paths = _expected_paths(cfg, n_gen)
     out = {"phase": name, "arch": arch, "dtype": cfg.dtype,
            "n_layers": cfg.n_layers, "d_model": cfg.d_model,
            "vocab_size": cfg.vocab_size, "batch": b, "prompt": s,
@@ -968,6 +1037,7 @@ def phase_serve(arch: str, name: str):
            "tokens_per_s": res.tokens_per_s,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "launches": launches, "expected_launches": expected,
+           "flash_paths": paths, "expected_flash_paths": expected_paths,
            "sample": res.tokens[0][:16].tolist(),
            "logits_finite": bool(np.isfinite(res.logits).all())}
     emit(out)
@@ -979,6 +1049,9 @@ def phase_serve(arch: str, name: str):
     for kernel, want in expected.items():
         check(launches[kernel] == want, f"{name}: {launches[kernel]} "
               f"{kernel} launches, expected {want}")
+    for path, want in expected_paths.items():
+        check(paths[path] == want, f"{name}: {paths[path]} flash launches "
+              f"on the {path} path, expected {want}")
     for kernel in ("batched_matmul", "clip_sgd", "clip_sgd_ext"):
         check(launches[kernel] == 0, f"{name}: {kernel} launched")
     return out
@@ -1146,10 +1219,15 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:31",
          "launches": serve["launches"]["flash_attention"],
-         "calls": flash["calls"],
-         "max_abs_err": flash["max_abs_err"], "ms": flash["ms"],
-         "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
-         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"]},
+         "launches_by_path": serve["flash_paths"],
+         "calls": flash["prefill"]["calls"],
+         "max_abs_err": flash["max_abs_err"], "ms": flash["prefill"]["ms"],
+         "plain_ms": flash["prefill"]["plain_ms"],
+         "bound_ms": flash["prefill"]["bound_ms"],
+         "bound_by": flash["prefill"]["bound_by"],
+         "library_ms": flash["prefill"]["library_ms"],
+         "decode": {k: flash["decode"][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
         {"name": "rmsnorm", "route": "cuda",
          "source": "src/repro_torch/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm.py:11",

@@ -5,43 +5,67 @@
 // src/repro/kernels/flash_attention.py: online-softmax attention over
 // q [B, Sq, Hq, hd] and k, v [B, Sk, Hkv, hd], every attention block of the
 // dense token models in prefill (Sq = Sk = prompt) and in decode (Sq = 1
-// against the KV cache, sk_valid = position + 1).
+// against the KV cache, sk_valid = position + 1).  Three kernels share the
+// contract (GQA folded into a block's rows, row = position * G +
+// head-in-group, so K/V is never copied per head; masked scores -1e30
+// before the row max; KV tiles wholly masked are skipped; the output is
+// acc / max(l, 1e-30) in q's type; hd in {32, 64, 128}):
 //
-// What bounds it on the card: at prefill, operations (4 * B * Hq * Sq * Sk
-// * hd flops, half of them under a causal mask); at decode, memory (the
-// K/V cache is read once).  This first version does its products on the
-// CUDA cores in fp32; wgmma/TMA and a split over the KV axis for decode
-// are later work.
-//
-// Design:
-// - K/V tiles move from device memory in 16-byte vectors (so q, k, v must
-//   sit at 16-byte aligned addresses), every load of a thread issued before
-//   the previous tile's barrier, so the copy overlaps the other warps' work.
-// - The TPU walked the KV tiles as its sequential third grid axis with
-//   (m, l, acc) in VMEM scratch.  Blocks here run in no order, so one
-//   block owns (batch b, kv head hk, a tile of BQ = 16 query rows) and
-//   loops over the KV tiles itself; (m, l, acc) stay in registers.
-// - GQA: the G = Hq / Hkv query heads of kv head hk are folded into the
-//   block's rows, row r = position * G + head-in-group, so one K/V tile in
-//   shared memory serves the whole group and no K/V is copied per head.
-// - 4 warps, each owning 4 rows.  Scores: lane j takes key j of the
-//   32-key tile (K rows padded by 4 floats, so the float4 reads of 32
-//   lanes hit distinct banks; the query row is a broadcast read).  The
-//   online softmax reduces each row over the warp with xor shuffles.  PV:
-//   lane l accumulates dims l, l + 32, ... of each row, with p of key j
-//   broadcast from lane j by a shuffle.
-// - Masks as on the TPU: a masked score is -1e30 before the row max, and
-//   the output is acc / max(l, 1e-30).  KV tiles wholly masked for every
-//   row of the block (above the causal diagonal, below the window, at or
-//   past sk_valid) are skipped: there p = 0 and the correction is 1.
-// q, k, v are fp32 or bf16 (all one type); math is fp32; out has q's type.
+// 1. `tc::flash_tc_kernel`, bf16 with Sq > 1 (prefill).  Bound: operations
+//    on the tensor cores (4 * B * Hq * pairs * hd flops at 989 TFLOP/s; at
+//    qwen3's prefill shape the bytes, 0.421 ms for 28 calls, are the larger
+//    bound).  A block owns (b, kv head, 128 folded rows): two warpgroups of
+//    64 rows each.  The Q tile is copied once into shared memory; K/V tiles
+//    of 64 keys go through a 4-stage ring filled by cp.async (16 bytes a
+//    thread, zero-fill past the valid keys), two tiles ahead.  Every tile
+//    sits in shared memory as column blocks of [rows][64 bf16] with the
+//    128-byte swizzle that the wgmma descriptors name.  S = Q K^T is
+//    `wgmma` m64n64k16 with both operands K-major in shared memory (K is
+//    stored [.., hd]).  The online softmax runs on the fp32 accumulator
+//    fragments: masks per element from 32-bit bounds of the row, the row
+//    max and sum as trees and then over the 4 threads of a row by
+//    shuffles, p = 2^(s * scale * log2e - m) by one FFMA and one ex2.  P is
+//    rounded to bf16 in registers and becomes the A operand of O += P V
+//    (`wgmma` m64n{hd}k16, A from registers, V as the MN-major B operand
+//    through the transpose bit, so V is not transposed anywhere).  Per
+//    tile, S_t and then P_{t-1} V_{t-1} are issued together; the softmax
+//    of S_t starts once S_t lands, and P is packed once the PV product has
+//    landed (ptxas schedules the exponentials after that wait too).  No
+//    wgmma sits under a branch (ptxas would serialize it).
+//    Numerics: bf16 x bf16 products are exact in fp32; P's rounding to
+//    bf16 for the PV product (about 2^-9 relative) is the one departure
+//    from the TPU kernel, which kept P in fp32; l sums the unrounded p.
+//    Row tiles are launched heaviest first (latest positions under a
+//    causal mask).  hd = 32 is held padded to 64 in shared memory.  What
+//    holds it above its bound on the H100 (PERF.md): with 8 warps on an SM,
+//    the load path alone (cp.async, barriers, stores) and the math alone
+//    each take longer than a library call takes for both.
+// 2. `dec::flash_decode_split_kernel` + `dec::flash_decode_combine_kernel`,
+//    Sq == 1 (decode), fp32 or bf16.  Bound: bytes (the valid cache rows
+//    are read once).  One (b, kv head) has too few keys for one block to
+//    keep the memory busy, so the valid keys [0, sk_valid) are cut into
+//    `splits` chunks of whole 32-key tiles (chosen by the wrapper so that
+//    the grid fills the card at least twice); each block streams its chunk
+//    through a 4-stage cp.async ring, computes the scores and the online
+//    softmax of the G query rows on the CUDA cores in fp32 (P stays fp32),
+//    and writes its unnormalised (m, l, acc) to an fp32 workspace; the
+//    combine kernel merges the splits in a fixed order (no atomics, so
+//    repeated calls are bitwise equal).  A split or warp that sees no valid
+//    key keeps m = -1e30, l = 0, acc = 0 and adds exactly 0.
+// 3. `flash_fwd_kernel`, fp32 with Sq > 1 (the fp32 parity paths), on the
+//    CUDA cores: fp32 products have no tensor-core form without TF32, which
+//    the port's fp32 parity rule excludes.  A block owns (b, kv head, 16
+//    folded rows) and loops over 32-key tiles moved in 16-byte vectors;
+//    4 warps of 4 rows, lane j scoring key j, the PV sum by shuffles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
+// the CUDA-core kernel (3)
 constexpr int NW = 4;           // warps per block
 constexpr int RW = 4;           // query rows per warp
 constexpr int BQ = NW * RW;     // query rows per block
@@ -57,7 +81,7 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// 16 bytes of T (8 bf16 or 4 fp32) from a 16-byte aligned address, as fp32
+// 16 bytes of T (4 fp32) from a 16-byte aligned address, as fp32
 template <typename T>
 struct Vec;
 template <>
@@ -66,20 +90,6 @@ struct Vec<float> {
   __device__ __forceinline__ static void load(const float* p, float* out) {
     const float4 r = *reinterpret_cast<const float4*>(p);
     out[0] = r.x, out[1] = r.y, out[2] = r.z, out[3] = r.w;
-  }
-};
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
-                                              float* out) {
-    const uint4 r = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x, out[2 * i + 1] = f.y;
-    }
   }
 };
 
@@ -284,27 +294,840 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* out,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// Shared helpers of the tensor-core and split-KV kernels
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte cp.async of `bytes` (0 or 16) valid bytes, the rest zero-filled
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src,
+                                     int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+namespace tc {
+
+constexpr int WG = 2;             // consumer warpgroups per block
+constexpr int THREADS = 128 * WG;
+constexpr int ROWS = 64 * WG;     // GQA-folded query rows per block
+constexpr int KT = 64;            // keys per K/V tile
+constexpr int STAGES = 4;         // K/V ring depth
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// orders the compiler's uses of wgmma accumulators around the async ops
+template <int N>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// keeps a register A operand live (unmoved) until its wgmma has landed
+template <int N>
+__device__ __forceinline__ void fence_regs_u32(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+// 2^x, flushing subnormals (the row max makes every argument <= 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+// generic-proxy writes (cp.async) made visible to wgmma's async proxy
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// byte offset of 16-byte chunk c (0 .. hd/8 - 1) of row r in a tile of
+// `rows` rows held as column blocks of [rows][64 bf16] (128-byte rows),
+// each swizzled in 1024-byte atoms of 8 rows (chunk c ^ (r % 8))
+__device__ __forceinline__ uint32_t sw_off(int r, int c, int rows) {
+  return static_cast<uint32_t>((c >> 3) * rows * 128 + r * 128 +
+                               (((c & 7) ^ (r & 7)) << 4));
+}
+
+// shared-memory matrix descriptor, 128-byte swizzle
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64]^T-stored: A and B in shared memory,
+// both K-major (128B swizzle); scale_d = 0 overwrites D
+__device__ __forceinline__ void wgmma_ss_m64n64(float* d, uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64]: A in registers (bf16 pairs), B in
+// shared memory MN-major (128B swizzle, the transpose bit set)
+__device__ __forceinline__ void wgmma_rs_m64n64_mn(float* d, const uint32_t* a,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] B[16 x 128]: A in registers (bf16 pairs), B in
+// shared memory MN-major (128B swizzle, the transpose bit set)
+__device__ __forceinline__ void wgmma_rs_m64n128_mn(float* d, const uint32_t* a,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v,
+                __nv_bfloat16* __restrict__ out, int64_t sq, int64_t sk,
+                int64_t hq, int64_t hkv, int causal, int64_t window,
+                int64_t sk_valid, float scale_log2, int64_t row_tiles) {
+  constexpr int HDP = HD < 64 ? 64 : HD;  // head dim as held in shared memory
+  constexpr int CPR = HDP / 8;            // 16-byte chunks per row
+  constexpr uint32_t Q_BYTES = ROWS * HDP * 2;
+  constexpr uint32_t KV_BYTES = KT * HDP * 2;
+  constexpr int NO = HDP / 2;             // O accumulators per thread
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t qs = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t ks = qs + Q_BYTES;                  // STAGES K tiles
+  const uint32_t vs = ks + STAGES * KV_BYTES;        // STAGES V tiles
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int64_t b = blockIdx.z, hk = blockIdx.y;
+  const int64_t group = hq / hkv, rows = sq * group;
+  // heaviest row tiles (latest positions under a causal mask) first
+  const int64_t r0 = (row_tiles - 1 - blockIdx.x) * ROWS;
+
+  // KV range that some row of this block can see
+  const int64_t q_lo = r0 / group;
+  const int64_t q_hi = ((r0 + ROWS < rows ? r0 + ROWS : rows) - 1) / group;
+  const int64_t kv_valid = sk_valid < sk ? sk_valid : sk;
+  int64_t kv_end = kv_valid;
+  if (causal && q_hi + 1 < kv_end) kv_end = q_hi + 1;
+  int64_t kv_begin = 0;
+  if (window && q_lo - window + 1 > 0) kv_begin = (q_lo - window + 1) / KT * KT;
+  const int n_tiles =
+      kv_end > kv_begin ? static_cast<int>((kv_end - kv_begin + KT - 1) / KT)
+                        : 0;
+
+  if (n_tiles == 0) {  // no visible key: acc = 0, l = 0, the rows are 0
+    for (int e = tid; e < ROWS * HD; e += THREADS) {
+      const int64_t r = r0 + e / HD;
+      if (r >= rows) continue;
+      const int64_t pos = r / group, head = hk * group + r % group;
+      out[((b * sq + pos) * hq + head) * HD + e % HD] = __float2bfloat16(0.f);
+    }
+    return;
+  }
+
+  // Q tile: row i is folded row r0 + i (zero past the last row / past hd)
+#pragma unroll
+  for (int it = 0; it < ROWS * CPR / THREADS; ++it) {
+    const int e = tid + it * THREADS;
+    const int i = e / CPR, c = e % CPR;
+    const int64_t r = r0 + i;
+    const __nv_bfloat16* src = q;
+    int bytes = 0;
+    if (r < rows && c * 8 < HD) {
+      const int64_t pos = r / group, head = hk * group + r % group;
+      src = q + ((b * sq + pos) * hq + head) * HD + c * 8;
+      bytes = 16;
+    }
+    cp16(qs + sw_off(i, c, ROWS), src, bytes);
+  }
+  auto load_kv = [&](int tile) {
+    const uint32_t st = static_cast<uint32_t>(tile % STAGES) * KV_BYTES;
+    const int64_t k0 = kv_begin + static_cast<int64_t>(tile) * KT;
+#pragma unroll
+    for (int it = 0; it < KT * CPR / THREADS; ++it) {
+      const int e = tid + it * THREADS;
+      const int j = e / CPR, c = e % CPR;
+      const int64_t kp = k0 + j;
+      int64_t off = 0;
+      int bytes = 0;
+      if (kp < kv_end && c * 8 < HD) {
+        off = ((b * sk + kp) * hkv + hk) * HD + c * 8;
+        bytes = 16;
+      }
+      const uint32_t o = sw_off(j, c, KT);
+      cp16(ks + st + o, k + off, bytes);
+      cp16(vs + st + o, v + off, bytes);
+    }
+  };
+  // group t holds tile t (group 0 also Q): tiles 0 .. STAGES-3 go now;
+  // iteration t refills the stage of tile t - 2 with tile t + STAGES - 2
+  // (tile t - 1's V is still being read by its PV product then)
+#pragma unroll
+  for (int t = 0; t < STAGES - 2; ++t) {
+    if (t < n_tiles) load_kv(t);
+    cp_commit();
+  }
+
+  // this thread's rows in the accumulator fragments: ra and ra + 8
+  const int64_t ra = r0 + 64 * wg + 16 * warp + lane / 4, rb = ra + 8;
+  const int64_t pa = ra / group, pb = rb / group;
+  const int quad = lane % 4;
+  float o[NO], s[32];
+  uint32_t p[16];  // P (bf16 pairs) of the tile in the PV product
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) p[i] = 0u;
+  float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;
+  const uint32_t q_wg = qs + wg * 64 * 128;  // this warpgroup's 64 rows
+
+  // O += P V over one V tile: 16 keys a step, V MN-major (8-key groups
+  // 1024 bytes apart, 64-dim column blocks KT * 128 bytes apart)
+  auto issue_pv = [&](int tile) {
+    const uint32_t vt = vs + static_cast<uint32_t>(tile % STAGES) * KV_BYTES;
+    fence_regs_u32<16>(p);  // P and O settled before this wgmma stage
+    fence_regs<NO>(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      const uint64_t db = sw128_desc(vt + kk * 2048, KT * 128, 1024);
+      if (HDP == 128)
+        wgmma_rs_m64n128_mn(o, p + 4 * kk, db);
+      else
+        wgmma_rs_m64n64_mn(o, p + 4 * kk, db);
+    }
+    wgmma_commit();
+  };
+
+  // the stage holding `tile` is in for every thread; refill tile - 2's
+  auto wait_tile = [&](int tile) {
+    cp_wait<STAGES - 3>();  // group `tile` has landed (this thread's part)
+    fence_proxy_async();
+    __syncthreads();  // ... everyone's; tile - 2 is wholly consumed
+    if (tile + STAGES - 2 < n_tiles) load_kv(tile + STAGES - 2);
+    cp_commit();
+  };
+  // S = Q K^T over hd (K-major operands; 16 columns = 32 bytes a step)
+  auto issue_s = [&](int tile) {
+    const uint32_t kt = ks + static_cast<uint32_t>(tile % STAGES) * KV_BYTES;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    fence_regs<32>(s);
+    fence_regs<NO>(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t cb = kk / 4, col = (kk % 4) * 32;
+      const uint64_t da = sw128_desc(q_wg + cb * ROWS * 128 + col, 16, 1024);
+      const uint64_t db = sw128_desc(kt + cb * KT * 128 + col, 16, 1024);
+      wgmma_ss_m64n64(s, da, db, kk > 0 ? 1 : 0);
+    }
+    wgmma_commit();
+  };
+  // the S fragment is P's A fragment: p[2j] = row ra, p[2j+1] = row rb of
+  // key block j; packed once the previous PV product has landed
+  auto pack_p = [&]() {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      p[2 * j] = pack_bf16(s[4 * j], s[4 * j + 1]);
+      p[2 * j + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+    }
+  };
+  float c_a, c_b;
+  // keys row ra (rb) may see, as offsets from a tile's first key and this
+  // thread's first column (2 * quad): [lo, hi), 32-bit
+  const int64_t hi_a64 = causal && pa + 1 < kv_valid ? pa + 1 : kv_valid;
+  const int64_t hi_b64 = causal && pb + 1 < kv_valid ? pb + 1 : kv_valid;
+  const int hi_a = static_cast<int>(hi_a64 - kv_begin) - 2 * quad;
+  const int hi_b = static_cast<int>(hi_b64 - kv_begin) - 2 * quad;
+  const int lo_a = window ? static_cast<int>(pa - window + 1 - kv_begin) -
+                                2 * quad
+                          : INT_MIN / 2;
+  const int lo_b = window ? static_cast<int>(pb - window + 1 - kv_begin) -
+                                2 * quad
+                          : INT_MIN / 2;
+  // mask, online softmax of rows ra, rb on the raw scores: the max on raw
+  // scores (scale > 0), p = 2^(s * scale·log2e - m) by one FFMA and one
+  // ex2 each; the new p (fp32) into s, O's rescale factors into c_a, c_b
+  auto softmax = [&](int tile) {
+    const int t0 = tile * KT;
+    const int64_t k0 = kv_begin + t0;
+    const bool full = k0 + KT <= kv_valid &&
+                      (!causal || k0 + KT - 1 <= q_lo) &&
+                      (!window || k0 > q_hi - window);
+    if (!full) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int c = t0 + 8 * (i / 4) + (i % 2);
+        const bool ok = (i % 4) < 2 ? c < hi_a && c >= lo_a
+                                    : c < hi_b && c >= lo_b;
+        if (!ok) s[i] = NEG_INF;
+      }
+    }
+    // row maxima (and below, sums) as trees over the thread's 16 values
+    // of each row, then over the 4 threads of the row
+    float ta[8], tb[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      ta[j] = fmaxf(s[4 * j], s[4 * j + 1]);
+      tb[j] = fmaxf(s[4 * j + 2], s[4 * j + 3]);
+    }
+#pragma unroll
+    for (int w = 4; w > 0; w >>= 1)
+#pragma unroll
+      for (int j = 0; j < w; ++j) {
+        ta[j] = fmaxf(ta[j], ta[j + w]);
+        tb[j] = fmaxf(tb[j], tb[j + w]);
+      }
+    float mx_a = ta[0], mx_b = tb[0];
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+    }
+    const float mn_a = fmaxf(m_a, mx_a * scale_log2);
+    const float mn_b = fmaxf(m_b, mx_b * scale_log2);
+    c_a = ex2(m_a - mn_a);
+    c_b = ex2(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float e0 = ex2(fmaf(s[4 * j], scale_log2, -mn_a));
+      const float e1 = ex2(fmaf(s[4 * j + 1], scale_log2, -mn_a));
+      const float e2 = ex2(fmaf(s[4 * j + 2], scale_log2, -mn_b));
+      const float e3 = ex2(fmaf(s[4 * j + 3], scale_log2, -mn_b));
+      ta[j] = e0 + e1;
+      tb[j] = e2 + e3;
+      s[4 * j] = e0, s[4 * j + 1] = e1, s[4 * j + 2] = e2, s[4 * j + 3] = e3;
+    }
+#pragma unroll
+    for (int w = 4; w > 0; w >>= 1)
+#pragma unroll
+      for (int j = 0; j < w; ++j) {
+        ta[j] += ta[j + w];
+        tb[j] += tb[j + w];
+      }
+    l_a = l_a * c_a + ta[0];
+    l_b = l_b * c_b + tb[0];
+  };
+
+  // Tile 0 alone, then per tile t: S_t = Q K_t^T is issued, then
+  // O += P_{t-1} V_{t-1}; the softmax of S_t runs while that PV product is
+  // in flight, and O is rescaled once it lands.  Every wgmma sits on a path
+  // all threads take (a wgmma under a branch is serialized by ptxas).
+  wait_tile(0);
+  issue_s(0);
+  wgmma_wait<0>();
+  fence_regs<32>(s);
+  softmax(0);  // O is zero: no rescale
+  pack_p();
+  for (int tile = 1; tile < n_tiles; ++tile) {
+    wait_tile(tile);
+    issue_s(tile);
+    issue_pv(tile - 1);
+    wgmma_wait<1>();  // S has landed; the PV product may still run
+    fence_regs<32>(s);
+    softmax(tile);
+    wgmma_wait<0>();  // the PV product of tile - 1 has landed
+    fence_regs<NO>(o);
+    fence_regs_u32<16>(p);
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] *= (i % 4) < 2 ? c_a : c_b;
+    pack_p();
+  }
+  issue_pv(n_tiles - 1);
+  wgmma_wait<0>();
+  fence_regs<NO>(o);
+  fence_regs_u32<16>(p);
+  cp_wait<0>();
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
+  const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int64_t r = h ? rb : ra;
+    if (r >= rows) continue;
+    const float inv = h ? inv_b : inv_a;
+    const int64_t pos = r / group, head = hk * group + r % group;
+    __nv_bfloat16* orow = out + ((b * sq + pos) * hq + head) * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const uint32_t pk =
+          pack_bf16(o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * quad) = pk;
+    }
+  }
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* out, int64_t b,
+           int64_t sq, int64_t sk, int64_t hq, int64_t hkv, int causal,
+           int64_t window, int64_t sk_valid, float scale,
+           cudaStream_t stream) {
+  constexpr int HDP = HD < 64 ? 64 : HD;
+  constexpr int SMEM = 1024 + ROWS * HDP * 2 + 2 * STAGES * KT * HDP * 2;
+  static bool smem_set = false;  // the attribute holds for the process
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set = true;
+  }
+  const int64_t tiles = (sq * (hq / hkv) + ROWS - 1) / ROWS;
+  if (tiles > 2147483647LL || hkv > 65535 || b > 65535)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(hkv),
+                  static_cast<unsigned>(b));
+  flash_tc_kernel<HD><<<grid, THREADS, SMEM, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      sq, sk, hq, hkv, causal, window, sk_valid,
+      scale * 1.4426950408889634f, tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
+namespace dec {
+
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int KT = 32;      // keys per tile, 8 per warp
+constexpr int STAGES = 4;   // cp.async ring depth
+
+// N consecutive elements of T (N * sizeof(T) bytes, as aligned) as fp32
+template <int N, typename T>
+__device__ __forceinline__ void load_f32(const T* p, float* o) {
+  constexpr int BYTES = N * static_cast<int>(sizeof(T));
+  if constexpr (BYTES == 16) {
+    const uint4 r = *reinterpret_cast<const uint4*>(p);
+    const T* e = reinterpret_cast<const T*>(&r);
+#pragma unroll
+    for (int i = 0; i < N; ++i) o[i] = to_f32(e[i]);
+  } else if constexpr (BYTES == 8) {
+    const uint2 r = *reinterpret_cast<const uint2*>(p);
+    const T* e = reinterpret_cast<const T*>(&r);
+#pragma unroll
+    for (int i = 0; i < N; ++i) o[i] = to_f32(e[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) o[i] = to_f32(p[i]);
+  }
+}
+
+template <typename T, int HD>
+constexpr int ring_bytes() {
+  return 2 * STAGES * KT * HD * static_cast<int>(sizeof(T));
+}
+template <int HD, int GR>
+constexpr int merge_bytes() {
+  return WARPS * GR * (HD + 2) * 4;
+}
+
+// grid (splits, hkv * ceil(G / GR), b): split s of (b, kv head) covers the
+// valid keys [s * chunk, min(kv_end, (s + 1) * chunk)) for GR of the G
+// query rows; writes (m, l) and acc (fp32, log2 domain) per (b, head, s)
+template <typename T, int HD, int GR>
+__global__ void __launch_bounds__(THREADS)
+flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, float* __restrict__ ws_ml,
+                          float* __restrict__ ws_acc, int64_t sk, int64_t hq,
+                          int64_t hkv, int64_t kv_end, int64_t chunk,
+                          int64_t splits, float scale_log2) {
+  constexpr int DPL = HD / 32;                  // dims per lane
+  constexpr int VEC = 16 / static_cast<int>(sizeof(T));
+  constexpr int CPR = HD / VEC;                 // 16-byte chunks per key
+  constexpr int TILE = KT * HD;                 // elements per K (V) tile
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw);
+  T* vs = ks + STAGES * TILE;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int64_t s = blockIdx.x, b = blockIdx.z;
+  const int64_t group = hq / hkv, groups = (group + GR - 1) / GR;
+  const int64_t hk = blockIdx.y / groups, g0 = (blockIdx.y % groups) * GR;
+  const int64_t k_lo = s * chunk;
+  const int64_t k_hi = kv_end < k_lo + chunk ? kv_end : k_lo + chunk;
+  const int n_tiles =
+      k_hi > k_lo ? static_cast<int>((k_hi - k_lo + KT - 1) / KT) : 0;
+
+  auto issue = [&](int tile) {
+    const int st = tile % STAGES;
+    const int64_t k0 = k_lo + static_cast<int64_t>(tile) * KT;
+#pragma unroll
+    for (int it = 0; it < KT * CPR / THREADS; ++it) {
+      const int e = tid + it * THREADS;
+      const int j = e / CPR, c = e % CPR;
+      const int64_t kp = k0 + j;
+      int64_t off = 0;
+      int bytes = 0;
+      if (kp < k_hi) {
+        off = ((b * sk + kp) * hkv + hk) * HD + c * VEC;
+        bytes = 16;
+      }
+      const int at = st * TILE + j * HD + c * VEC;
+      cp16(smem_u32(ks + at), k + off, bytes);
+      cp16(smem_u32(vs + at), v + off, bytes);
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < n_tiles) issue(st);
+    cp_commit();
+  }
+
+  // the GR query rows at this lane's dims, fp32, scaled into log2 units
+  float qr[GR][DPL], acc[GR][DPL], m[GR], l[GR];
+#pragma unroll
+  for (int i = 0; i < GR; ++i) {
+    const int64_t g = g0 + i;
+    if (g < group) {
+      load_f32<DPL>(q + (b * hq + hk * group + g) * HD + lane * DPL,
+                        qr[i]);
+    } else {
+#pragma unroll
+      for (int d = 0; d < DPL; ++d) qr[i][d] = 0.f;
+    }
+#pragma unroll
+    for (int d = 0; d < DPL; ++d) {
+      qr[i][d] *= scale_log2;
+      acc[i][d] = 0.f;
+    }
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+  }
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    cp_wait<STAGES - 2>();
+    __syncthreads();  // tile landed for all; tile - 1's stage is free
+    if (tile + STAGES - 1 < n_tiles) issue(tile + STAGES - 1);
+    cp_commit();
+    const T* kt = ks + (tile % STAGES) * TILE + warp * 8 * HD + lane * DPL;
+    const T* vt = vs + (tile % STAGES) * TILE + warp * 8 * HD + lane * DPL;
+    const int64_t kbase = k_lo + static_cast<int64_t>(tile) * KT + warp * 8;
+
+    // this warp's 8 keys: scores of every row, reduced over the warp
+    float sc[GR][8];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      float kf[DPL];
+      load_f32<DPL>(kt + jj * HD, kf);
+#pragma unroll
+      for (int i = 0; i < GR; ++i) {
+        float x = 0.f;
+#pragma unroll
+        for (int d = 0; d < DPL; ++d) x = fmaf(qr[i][d], kf[d], x);
+        sc[i][jj] = x;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < GR; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        sc[i][jj] = warp_sum(sc[i][jj]);
+
+    float pv[GR][8];
+#pragma unroll
+    for (int i = 0; i < GR; ++i) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        if (kbase + jj < k_hi) mx = fmaxf(mx, sc[i][jj]);
+      const float mn = fmaxf(m[i], mx);
+      const float corr = exp2f(m[i] - mn);
+      float sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        pv[i][jj] = kbase + jj < k_hi ? exp2f(sc[i][jj] - mn) : 0.f;
+        sum += pv[i][jj];
+      }
+      m[i] = mn;
+      l[i] = l[i] * corr + sum;
+#pragma unroll
+      for (int d = 0; d < DPL; ++d) acc[i][d] *= corr;
+    }
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      float vf[DPL];
+      load_f32<DPL>(vt + jj * HD, vf);
+#pragma unroll
+      for (int i = 0; i < GR; ++i)
+#pragma unroll
+        for (int d = 0; d < DPL; ++d)
+          acc[i][d] = fmaf(pv[i][jj], vf[d], acc[i][d]);
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();  // the ring is free: merge the 4 warps through it
+
+  float* red = reinterpret_cast<float*>(smem_raw);  // [WARPS][GR][2 + HD]
+#pragma unroll
+  for (int i = 0; i < GR; ++i) {
+    float* row = red + (warp * GR + i) * (HD + 2);
+    if (lane == 0) row[0] = m[i], row[1] = l[i];
+#pragma unroll
+    for (int d = 0; d < DPL; ++d) row[2 + lane * DPL + d] = acc[i][d];
+  }
+  __syncthreads();
+  for (int e = tid; e < GR * HD; e += THREADS) {
+    const int i = e / HD, d = e % HD;
+    const int64_t g = g0 + i;
+    if (g >= group) continue;
+    float mm = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w)
+      mm = fmaxf(mm, red[(w * GR + i) * (HD + 2)]);
+    float a = 0.f, ll = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float* row = red + (w * GR + i) * (HD + 2);
+      const float f = exp2f(row[0] - mm);
+      a = fmaf(row[2 + d], f, a);
+      ll = fmaf(row[1], f, ll);
+    }
+    const int64_t at = (b * hq + hk * group + g) * splits + s;
+    ws_acc[at * HD + d] = a;
+    if (d == 0) ws_ml[2 * at] = mm, ws_ml[2 * at + 1] = ll;
+  }
+}
+
+// grid (hq, b), HD threads: out[b, 0, head, d] from the splits, in order
+template <typename T, int HD>
+__global__ void __launch_bounds__(HD)
+flash_decode_combine_kernel(const float* __restrict__ ws_ml,
+                            const float* __restrict__ ws_acc,
+                            T* __restrict__ out, int64_t splits) {
+  const int64_t row = static_cast<int64_t>(blockIdx.y) * gridDim.x +
+                      blockIdx.x;  // b * hq + head
+  const int d = threadIdx.x;
+  const float* ml = ws_ml + 2 * row * splits;
+  float mm = NEG_INF;
+  for (int64_t s = 0; s < splits; ++s) mm = fmaxf(mm, ml[2 * s]);
+  float a = 0.f, ll = 0.f;
+  for (int64_t s = 0; s < splits; ++s) {
+    const float f = exp2f(ml[2 * s] - mm);
+    a = fmaf(ws_acc[(row * splits + s) * HD + d], f, a);
+    ll = fmaf(ml[2 * s + 1], f, ll);
+  }
+  store(out + row * HD + d, a / fmaxf(ll, 1e-30f));
+}
+
+template <typename T, int HD, int GR>
+int launch(const void* q, const void* k, const void* v, void* out, float* ws,
+           int64_t b, int64_t sk, int64_t hq, int64_t hkv, int64_t kv_end,
+           int64_t splits, int64_t chunk, float scale, cudaStream_t stream) {
+  constexpr int RING = ring_bytes<T, HD>(), MERGE = merge_bytes<HD, GR>();
+  constexpr int SMEM = RING > MERGE ? RING : MERGE;
+  auto split_kernel = flash_decode_split_kernel<T, HD, GR>;
+  static bool smem_set = false;  // the attribute holds for the process
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set = true;
+  }
+  const int64_t groups = (hq / hkv + GR - 1) / GR;
+  if (splits > 2147483647LL || hkv * groups > 65535 || b > 65535 ||
+      hq > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  float* ws_ml = ws;
+  float* ws_acc = ws + 2 * b * hq * splits;
+  const dim3 grid(static_cast<unsigned>(splits),
+                  static_cast<unsigned>(hkv * groups),
+                  static_cast<unsigned>(b));
+  split_kernel<<<grid, THREADS, SMEM, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), ws_ml, ws_acc, sk, hq, hkv, kv_end, chunk,
+      splits, scale * 1.4426950408889634f);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_decode_combine_kernel<T, HD>
+      <<<dim3(static_cast<unsigned>(hq), static_cast<unsigned>(b)), HD, 0,
+         stream>>>(ws_ml, ws_acc, static_cast<T*>(out), splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int GR>
+int dispatch_hd(int64_t hd, const void* q, const void* k, const void* v,
+                void* out, float* ws, int64_t b, int64_t sk, int64_t hq,
+                int64_t hkv, int64_t kv_end, int64_t splits, int64_t chunk,
+                float scale, cudaStream_t st) {
+  switch (hd) {
+    case 32:
+      return launch<T, 32, GR>(q, k, v, out, ws, b, sk, hq, hkv, kv_end,
+                               splits, chunk, scale, st);
+    case 64:
+      return launch<T, 64, GR>(q, k, v, out, ws, b, sk, hq, hkv, kv_end,
+                               splits, chunk, scale, st);
+    case 128:
+      return launch<T, 128, GR>(q, k, v, out, ws, b, sk, hq, hkv, kv_end,
+                                splits, chunk, scale, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace dec
+
 }  // namespace
 
-// q, out: contiguous [B, Sq, Hq, hd]; k, v: contiguous [B, Sk, Hkv, hd];
-// dtype 0 = fp32, 1 = bf16.  Launches on `stream`, does not synchronise,
-// returns cudaGetLastError() of the launch.
+// q, out: contiguous fp32 [B, Sq, Hq, hd]; k, v: contiguous fp32
+// [B, Sk, Hkv, hd].  The CUDA-core kernel (3).  Launches on `stream`, does
+// not synchronise, returns cudaGetLastError() of the launch.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int64_t b,
                                      int64_t sq, int64_t sk, int64_t hq,
                                      int64_t hkv, int64_t hd, int64_t causal,
                                      int64_t window, int64_t sk_valid,
-                                     float scale, int dtype, void* stream) {
+                                     float scale, void* stream) {
+  if (b == 0 || sq == 0 || hq == 0) return 0;
+  if (hkv <= 0 || hq % hkv != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_hd<float>(q, k, v, out, b, sq, sk, hq, hkv, hd,
+                            causal ? 1 : 0, window, sk_valid, scale,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// The tensor-core kernel (1): bf16 q, k, v, out as above (16-byte aligned).
+extern "C" int repro_flash_attention_tc(const void* q, const void* k,
+                                        const void* v, void* out, int64_t b,
+                                        int64_t sq, int64_t sk, int64_t hq,
+                                        int64_t hkv, int64_t hd,
+                                        int64_t causal, int64_t window,
+                                        int64_t sk_valid, float scale,
+                                        void* stream) {
   if (b == 0 || sq == 0 || hq == 0) return 0;
   if (hkv <= 0 || hq % hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int c = causal ? 1 : 0;
-  if (dtype == 0)
-    return dispatch_hd<float>(q, k, v, out, b, sq, sk, hq, hkv, hd, c,
-                              window, sk_valid, scale, s);
-  if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(q, k, v, out, b, sq, sk, hq, hkv, hd,
-                                      c, window, sk_valid, scale, s);
+  switch (hd) {
+    case 32:
+      return tc::launch<32>(q, k, v, out, b, sq, sk, hq, hkv, c, window,
+                            sk_valid, scale, s);
+    case 64:
+      return tc::launch<64>(q, k, v, out, b, sq, sk, hq, hkv, c, window,
+                            sk_valid, scale, s);
+    case 128:
+      return tc::launch<128>(q, k, v, out, b, sq, sk, hq, hkv, c, window,
+                             sk_valid, scale, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The split-KV decode (2): q, out [B, 1, Hq, hd]; k, v [B, Sk, Hkv, hd];
+// the valid keys are [0, kv_end), cut into `splits` chunks of `chunk` keys
+// (a multiple of 32, every chunk non-empty); `rows` query rows of a group
+// per block (2 or 8); ws holds B * Hq * splits * (hd + 2) floats.
+extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
+                                  void* out, void* ws, int64_t b, int64_t sk,
+                                  int64_t hq, int64_t hkv, int64_t hd,
+                                  int64_t kv_end, int64_t splits,
+                                  int64_t chunk, int64_t rows, float scale,
+                                  int dtype, void* stream) {
+  if (b == 0 || hq == 0) return 0;
+  // every split non-empty, together exactly [0, kv_end); kv_end = 0 is one
+  // empty split (the output is then 0, as with no valid key in prefill)
+  const bool plan_ok = kv_end == 0 ? splits == 1
+                                   : (splits - 1) * chunk < kv_end &&
+                                         splits * chunk >= kv_end;
+  if (hkv <= 0 || hq % hkv != 0 || splits < 1 || chunk <= 0 ||
+      chunk % dec::KT != 0 || kv_end < 0 || kv_end > sk || !plan_ok)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* w = static_cast<float*>(ws);
+#define REPRO_DEC(T, GR)                                                     \
+  dec::dispatch_hd<T, GR>(hd, q, k, v, out, w, b, sk, hq, hkv, kv_end,       \
+                          splits, chunk, scale, s)
+  if (dtype == 0 && rows == 2) return REPRO_DEC(float, 2);
+  if (dtype == 0 && rows == 8) return REPRO_DEC(float, 8);
+  if (dtype == 1 && rows == 2) return REPRO_DEC(__nv_bfloat16, 2);
+  if (dtype == 1 && rows == 8) return REPRO_DEC(__nv_bfloat16, 8);
+#undef REPRO_DEC
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -13,9 +13,15 @@ outside the kernel in the reference.
 
 The GEMM itself is ``csrc/batched_matmul.cu`` (`batched_matmul_kernel`,
 CUDA C++ for sm_90a, replacing the TPU kernel ``_bmm_kernel`` /
-``batched_matmul_pallas``); `batched_matmul_plain` is its plain PyTorch
-version (CPU tensors and tests).  `repro_torch.kernels.ops.batched_conv`
-picks between them by the tensors' device.
+``batched_matmul_pallas``).  It is fp32 on the CUDA cores (no TF32, so
+the bound is operations at the fp32 rate): 128×128 block tiles (128×64
+where C <= 64) of 8×8 outputs a thread, K in slabs of 16 through a
+3-stage cp.async ring, and split-K (`gemm_splits`) where the output tiles
+alone leave the card under-filled — the long-K dW shapes — with the
+partial sums reduced in a fixed order by a second launch of the same
+call.  `batched_matmul_plain` is its plain PyTorch version (CPU tensors
+and tests).  `repro_torch.kernels.ops.batched_conv` picks between them by
+the tensors' device.
 """
 from __future__ import annotations
 
@@ -69,10 +75,44 @@ def batched_matmul_plain(a, b):
     return torch.einsum("nmk,nkc->nmc", a, b)
 
 
+GEMM_BM, GEMM_BK = 128, 16   # the kernel's block rows and K slab
+SPLIT_MIN_CHUNK = 512         # least K a split of split-K takes
+H100_SMS = 132
+
+
+def gemm_tile_c(c: int) -> int:
+    """Block columns of the kernel: 64 where C <= 64, else 128."""
+    return 64 if c <= 64 else 128
+
+
+def gemm_splits(n: int, m: int, k: int, c: int, sms: int = H100_SMS):
+    """(splits, chunk) of split-K for ``[n, m, k] @ [n, k, c]``.
+
+    Where the output tiles fill ``sms`` SMs at least twice, or K is short
+    (under two chunks of `SPLIT_MIN_CHUNK`), one split takes all of K.
+    Otherwise K is cut into chunks of ``chunk`` (a multiple of the
+    16-deep slab, at least `SPLIT_MIN_CHUNK`) so that ``tiles · splits``
+    reaches that target; every chunk is non-empty and together they cover
+    K once.
+    """
+    tiles = n * -(-m // GEMM_BM) * -(-c // gemm_tile_c(c))
+    target = 2 * sms
+    if tiles >= target or k < 2 * SPLIT_MIN_CHUNK:
+        return 1, k
+    want = -(-target // tiles)
+    chunk = max(SPLIT_MIN_CHUNK, -(-k // (want * GEMM_BK)) * GEMM_BK)
+    return -(-k // chunk), chunk
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 @functools.lru_cache(maxsize=1)
 def _bmm_symbol():
     fn = build.load("batched_matmul").repro_bmm_f32
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * 10
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 12
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -82,8 +122,10 @@ def batched_matmul_kernel(a, b):
     """``a [N,M,K] @ b [N,K,C] -> [N,M,C]`` on the card (fp32, no TF32).
 
     Any strides are accepted (dW passes patchesᵀ as a transposed view);
-    the output is a fresh contiguous tensor.  Raises on anything the
-    kernel does not take, and on a refused launch.
+    the output is a fresh contiguous tensor.  Split-K (`gemm_splits`)
+    adds an fp32 workspace ``[S, N, M, C]`` and a fixed-order reduction,
+    so repeated calls are bitwise equal; one call is one counted launch.
+    Raises on anything the kernel does not take, and on a refused launch.
     """
     if a.device.type != "cuda" or b.device.type != "cuda" \
             or a.device != b.device:
@@ -101,10 +143,15 @@ def batched_matmul_kernel(a, b):
     out = torch.empty((n, m, c), device=a.device, dtype=torch.float32)
     if out.numel() == 0:
         return out
+    splits, chunk = gemm_splits(n, m, k, c, _sm_count(a.device.index))
+    ws = (torch.empty((splits, n, m, c), device=a.device,
+                      dtype=torch.float32) if splits > 1 else None)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = _bmm_symbol()(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                            n, m, k, c, *a.stride(), *b.stride(), stream)
+                            None if ws is None else ws.data_ptr(),
+                            n, m, k, c, *a.stride(), *b.stride(), splits,
+                            chunk, stream)
     if err != 0:
         raise RuntimeError(f"batched_matmul kernel launch failed: CUDA "
                            f"error {err} at a{tuple(a.shape)} "

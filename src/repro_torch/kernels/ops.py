@@ -86,5 +86,7 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
+    """Zero every kernel's count, and flash attention's per-path counts."""
     for fn in KERNELS.values():
         fn.launches = 0
+    FA.reset_path_launches()

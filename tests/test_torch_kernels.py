@@ -280,3 +280,105 @@ def test_mlstm_scan_matches_reference_kernel(b, s, h, hd, dtype):
                           torch.from_numpy(fg))
     assert out.dtype == qt.dtype
     _assert_close(out, ref, MLSTM_TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# The split plans of the redesigned kernels (pure Python, reached here)
+# ---------------------------------------------------------------------------
+
+def _vgg16_gemm_shapes(n=8, b=64):
+    """(name, M, K, C) of one VGG-16 round's GEMMs at N=n, batch b (the
+    shapes `chip_smoke.py` times): forward, dW and dx of each conv."""
+    chans, pools = (64, 64, 128, 128, 256, 256, 256, 512, 512, 512, 512,
+                    512, 512), (2, 4, 7, 10, 13)
+    shapes, h, cin = [], 32, 3
+    for i, cout in enumerate(chans, start=1):
+        m = b * h * h
+        shapes += [(f"conv{i}.fwd", m, 9 * cin, cout),
+                   (f"conv{i}.dW", 9 * cin, m, cout)]
+        if i > 1:
+            shapes.append((f"conv{i}.dx", m, 9 * cout, cin))
+        cin = cout
+        h //= 2 if i in pools else 1
+    return shapes
+
+
+GEMM_PLAN_SHAPES = [(8, m, k, c) for _, m, k, c in _vgg16_gemm_shapes()] + [
+    (16, m, k, c) for _, m, k, c in _vgg16_gemm_shapes(16)] + [
+    (1, 5, 3, 7), (2, 33, 5000, 70), (1, 17, 100000, 9), (3, 1, 4097, 1),
+    (1, 27, 1024, 64), (1, 27, 1023, 64), (4, 64, 0, 64)]
+
+
+@pytest.mark.parametrize("n,m,k,c", GEMM_PLAN_SHAPES)
+def test_gemm_splits_cover_k_once_in_whole_slabs(n, m, k, c):
+    splits, chunk = TBC.gemm_splits(n, m, k, c)
+    assert splits >= 1
+    if splits == 1:
+        assert chunk == k
+        return
+    assert chunk % TBC.GEMM_BK == 0 and chunk >= TBC.SPLIT_MIN_CHUNK
+    bounds = [(s * chunk, min(k, (s + 1) * chunk)) for s in range(splits)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == k
+    assert all(lo < hi for lo, hi in bounds)                 # none empty
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+
+
+@pytest.mark.parametrize("name,m,k,c", [
+    s for s in _vgg16_gemm_shapes() if s[0].endswith(".dW")])
+def test_gemm_splits_fill_the_card_on_every_vgg16_dw(name, m, k, c):
+    """Output tiles × splits reach two blocks per SM (132 SMs) on every
+    VGG-16 dW shape at N=8; the long-K ones need split-K for it."""
+    n, sms = 8, 132
+    splits, _ = TBC.gemm_splits(n, m, k, c, sms)
+    tiles = n * -(-m // TBC.GEMM_BM) * -(-c // TBC.gemm_tile_c(c))
+    assert tiles * splits >= 2 * sms
+    if k >= 16384:
+        assert splits > 1
+
+
+@pytest.mark.parametrize("n,m,k,c", [(8, 4608, 256, 512), (1, 8, 1023, 8),
+                                     (2, 27, 27, 64), (8, 65536, 576, 64),
+                                     (1, 1, 0, 1)])
+def test_gemm_splits_short_k_or_full_card_take_one_split(n, m, k, c):
+    assert TBC.gemm_splits(n, m, k, c) == (1, k)
+
+
+def test_gemm_tile_columns_follow_c():
+    assert [TBC.gemm_tile_c(c) for c in (1, 64, 65, 128, 512)] == [
+        64, 64, 128, 128, 128]
+
+
+@pytest.mark.parametrize("lanes", [1, 8, 24, 64, 264, 1000])
+@pytest.mark.parametrize("kv_end", [0, 1, 31, 32, 33, 513, 544, 4000])
+def test_decode_splits_cover_valid_keys_once_in_whole_tiles(lanes, kv_end):
+    splits, chunk = TFA.decode_splits(lanes, kv_end)
+    assert splits >= 1 and chunk % TFA.DECODE_TILE == 0 and chunk > 0
+    if kv_end == 0:
+        assert splits == 1
+        return
+    bounds = [(s * chunk, min(kv_end, (s + 1) * chunk))
+              for s in range(splits)]
+    assert bounds[-1][1] == kv_end
+    assert all(lo < hi for lo, hi in bounds)   # each split has a tile
+    tiles = -(-kv_end // TFA.DECODE_TILE)
+    # the grid fills 132 SMs twice wherever the keys allow it
+    assert lanes * splits >= min(2 * 132, lanes * tiles)
+
+
+def test_decode_splits_at_qwen3_decode_shape():
+    """8 sequences × 8 kv heads, one row group of 2, 513 valid keys: 6
+    splits of 3 tiles (384 blocks on 132 SMs)."""
+    lanes = 8 * 8 * -(-2 // TFA.decode_rows(2))
+    assert TFA.decode_splits(lanes, 513) == (6, 96)
+    assert TFA.decode_splits(lanes, 1) == (1, 32)
+
+
+def test_decode_rows_per_block():
+    assert [TFA.decode_rows(g) for g in (1, 2, 3, 8, 16)] == [2, 2, 8, 8, 8]
+
+
+def test_path_counts_reset_with_the_launch_counts():
+    TFA.flash_attention_kernel.launches_tc = 3
+    TFA.flash_attention_kernel.launches_split_kv = 2
+    TOPS.reset_launch_counts()
+    assert TFA.path_launches() == {"tc": 0, "split_kv": 0, "fp32": 0}

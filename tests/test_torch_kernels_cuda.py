@@ -309,3 +309,79 @@ def test_token_kernels_refuse_wrong_types_and_shapes():
         TMS.mlstm_scan_kernel(bf, bf, bf, gates.to(torch.bfloat16), gates)
     with pytest.raises(ValueError, match="shapes"):
         TMS.mlstm_scan_kernel(f32, f32, f32, gates[:, :3], gates)
+
+
+# the redesigned kernels' own edges: the path each call takes, split-KV
+# decode with mostly empty splits, the tensor-core prefill off its row tile
+# and with window + sk_valid, split-K at K not divisible by its split count
+
+FLASH_PATH_CASES = [
+    # (b, sq, sk, hq, hkv, hd, causal, window, sk_valid, dtype, path)
+    (1, 128, 128, 4, 2, 32, True, 0, None, "bfloat16", "tc"),
+    (1, 128, 128, 4, 2, 64, True, 0, None, "bfloat16", "tc"),
+    (1, 77, 77, 3, 1, 128, True, 0, None, "bfloat16", "tc"),
+    (2, 100, 100, 6, 2, 64, True, 0, None, "bfloat16", "tc"),
+    (2, 150, 300, 4, 2, 128, True, 40, 120, "bfloat16", "tc"),
+    (2, 96, 200, 4, 2, 64, False, 0, 150, "bfloat16", "tc"),
+    (1, 130, 130, 9, 3, 64, True, 0, None, "bfloat16", "tc"),
+    (2, 64, 256, 8, 8, 32, True, 0, None, "float32", "fp32"),
+    (8, 1, 544, 16, 8, 128, False, 0, 1, "bfloat16", "split_kv"),
+    (8, 1, 544, 16, 8, 128, False, 0, 1, "float32", "split_kv"),
+    (8, 1, 544, 16, 8, 128, False, 0, 513, "float32", "split_kv"),
+    (2, 1, 4000, 16, 8, 128, False, 0, 3999, "bfloat16", "split_kv"),
+    (2, 1, 300, 9, 3, 64, False, 0, 257, "bfloat16", "split_kv"),
+    (1, 1, 100, 16, 1, 64, False, 0, 99, "float32", "split_kv"),
+    (2, 1, 64, 4, 2, 64, True, 0, None, "bfloat16", "split_kv"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,sq,sk,hq,hkv,hd,causal,window,sk_valid,dtype,path", FLASH_PATH_CASES)
+def test_flash_attention_paths_match_plain(b, sq, sk, hq, hkv, hd, causal,
+                                           window, sk_valid, dtype, path):
+    """Each case runs on its path (one counted launch there) and matches
+    the plain version at the bar; the split-KV decode is bitwise
+    repeatable (its combine runs in a fixed order)."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    dt = DTYPES[dtype]
+    q = _randn(gen, (b, sq, hq, hd), dt)
+    k, v = (_randn(gen, (b, sk, hkv, hd), dt) for _ in range(2))
+    kw = dict(causal=causal, window=window, sk_valid=sk_valid)
+    before = TFA.path_launches()
+    got = TFA.flash_attention_kernel(q, k, v, **kw)
+    after = TFA.path_launches()
+    want = TFA.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert {p: after[p] - before[p] for p in after} == {
+        p: int(p == path) for p in TFA.PATHS}
+    _close(got, want, FLASH_TOL[dtype])
+    if path == "split_kv":
+        assert torch.equal(got, TFA.flash_attention_kernel(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,k,c,transposed", [
+    (2, 33, 5000, 70, True),      # odd M, a transposed view, 3 splits
+    (8, 27, 65536, 64, True),     # conv1.dW: M = 27, K = 27 · 2^11
+    (3, 129, 3333, 17, False),    # K prime to the split count, ragged C
+    (1, 1, 1500, 1, True)])
+def test_batched_matmul_split_k_matches_plain_and_repeats(n, m, k, c,
+                                                          transposed):
+    _need_card()
+    assert TBC.gemm_splits(n, m, k, c)[0] > 1
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    if transposed:
+        a = torch.randn((n, k, m), device="cuda", generator=gen).transpose(1, 2)
+    else:
+        a = torch.randn((n, m, k), device="cuda", generator=gen)
+    b = torch.randn((n, k, c), device="cuda", generator=gen)
+    before = TBC.batched_matmul_kernel.launches
+    out = TBC.batched_matmul_kernel(a, b)
+    assert TBC.batched_matmul_kernel.launches == before + 1
+    want = TBC.batched_matmul_plain(a, b)
+    scale = float(want.abs().max())
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(), rtol=0,
+                               atol=1e-5 * scale * max(1.0, (k / 1024) ** 0.5))
+    assert torch.equal(out, TBC.batched_matmul_kernel(a, b))
