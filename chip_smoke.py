@@ -50,13 +50,15 @@ nothing of the reference package.  Phases, each printing one JSON line:
    and every decode step's 28 on the split-KV path.  Prefill ms, decode
    ms per step, tokens/s, peak memory.
 9. ``serve_ssm``: the same on xlstm-350m at full width (24 layers, bf16):
-   20 mLSTM-scan launches (prefill only), 49 RMSNorms per forward.
+   20 mLSTM-scan launches (prefill only), all 20 on the tensor-core
+   parallel form and none on the recurrence, 49 RMSNorms per forward.
 10. ``serve_cross``: the card with its kernels against the CPU with the
    plain versions, on the same fp32 weights (TF32 off): qwen3 cut to 2
    layers and xlstm to one period of 6, full width otherwise; 2 prompts of
    64 tokens, then 8 decode steps teacher-forced with the CPU's greedy
    tokens.  Prefill and decode logits within 1e-4 for qwen3 and 2e-4 for
-   xlstm (rtol = atol; see ``SERVE_CROSS``), greedy ids equal.  For xlstm
+   xlstm (rtol = atol; see ``SERVE_CROSS``), greedy ids equal, every fp32
+   mLSTM launch on the recurrence.  For xlstm
    the phase also reports the same card run with the mLSTM scan's plain
    version in place of the kernel, against the CPU and against the
    kernel run: the witness of xlstm's bar.
@@ -68,12 +70,19 @@ the tensor-core prefill at hd 64 and 32, off its 128-row tile and with a
 window and ``sk_valid``, the split-KV decode at ``sk_valid`` 1 and at
 qwen3's decode shape, bitwise repeatable there, each call on its path),
 RMSNorm (the reference's cases, every norm shape of the serve phases and
-of ``serve_cross``) and the mLSTM scan (the reference's cases, xlstm-350m's
-prefill shape) — at the reference's bars.  Each is timed as one forward's
-calls back to back in one CUDA-event span (``calls`` of them: 28 flash,
-113 RMSNorms in qwen3's order, 20 scans), beside its bound, its plain
-version and the library yardstick (``F.scaled_dot_product_attention``,
-``F.rms_norm``; the mLSTM scan has none).
+of ``serve_cross``) and the mLSTM scan (the reference's cases, the paths'
+edges in ``MLSTM_PATH_CASES`` — S off the 64-row tile, hd 64 and 32,
+extreme gates — xlstm-350m's prefill shape in bf16 and serve_cross's in
+fp32, each call on its path, the tensor-core path bitwise repeatable) —
+at the reference's bars.  Each is timed as one forward's calls back to
+back in one CUDA-event span (``calls`` of them: 28 flash, 113 RMSNorms in
+qwen3's order for prefill and for decode, 20 scans), beside its bound, its
+plain version and the library yardstick (``F.scaled_dot_product_attention``,
+``F.rms_norm``; the mLSTM scan has none); RMSNorm and the scan also as
+``device_ms``, the span captured once in a CUDA graph and replayed (no
+host launch time).  The scan's bf16 row carries two bounds: its own form's
+(the parallel form's operations or the bytes) and the fp32 recurrence's
+operations (``recurrence_bound_ms``).
 
 Then the per-kernel summary line ``{"kernels": [...]}``, the raw
 ``nvidia-smi`` line, and, last, ``{"ok": true, "device": {...}}``.  Any
@@ -125,6 +134,16 @@ FLASH_CASES = [  # (b, sq, sk, hq, hkv, hd, causal, window, dtype)
 ]
 MLSTM_CASES = [(1, 64, 2, 32, "float32"), (2, 100, 2, 32, "float32"),
                (1, 96, 4, 64, "float32"), (1, 64, 2, 32, "bfloat16")]
+# the mLSTM paths' own edges, (b, s, h, hd, dtype, gates): bf16 takes the
+# parallel form on the tensor cores, fp32 the recurrence; "extreme" gates
+# have forget pre-activations of ±30 and input ones at -1e30 (the first
+# steps and 30 % of the rest), so D underflows and m takes the i branch
+MLSTM_PATH_CASES = [(1, 200, 2, 512, "bfloat16", "normal"),
+                    (1, 96, 4, 64, "bfloat16", "normal"),
+                    (2, 100, 2, 32, "bfloat16", "normal"),
+                    (1, 130, 2, 512, "bfloat16", "extreme"),
+                    (2, 70, 2, 32, "bfloat16", "extreme"),
+                    (1, 130, 2, 64, "float32", "extreme")]
 RMSNORM_CASES = [((4, 128), "float32"), ((3, 50, 96), "float32"),
                  ((2, 17, 256), "bfloat16"), ((1, 1, 512), "bfloat16")]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -218,7 +237,7 @@ def _ptxas_lines(log: str):
         ln = ln.strip()
         if "Compiling entry function" in ln:
             keep.append(ln.split("'")[1] if "'" in ln else ln)
-        elif "registers" in ln or "spill" in ln:
+        elif "registers" in ln or "spill" in ln or "warning" in ln:
             keep.append(ln.replace("ptxas info    : ", ""))
     return keep
 
@@ -621,11 +640,17 @@ def _rmsnorm_checks(detail):
     """Kernel 5 against its plain version: the reference's cases and
     every norm shape of the serve phases (bf16) and of serve_cross (fp32);
     then one qwen3-1.7b forward's norms, in order, timed as one unit, for
-    prefill and for a decode step."""
+    prefill and for a decode step: ``ms`` the span of eager calls (host
+    launch path included), ``device_ms`` the same calls captured once in a
+    CUDA graph and replayed, for the kernel and for ``F.rms_norm``.  At
+    serve_cross's fp32 shapes the kernel and the plain version (both on the
+    card) are also held against the norm taken in fp64, to show which fp32
+    sum is nearer (recorded, no bar)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.config import get_config
     from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.timing import graph_ms
 
     gen = torch.Generator(device="cuda").manual_seed(22)
     qwen, xlstm = get_config("qwen3-1.7b"), get_config("xlstm-350m")
@@ -637,16 +662,28 @@ def _rmsnorm_checks(detail):
                for n in (c["prompt"], 1)
                for sh in _norm_calls(cfg, c["batch"], n)}
     inputs, worst = {}, 0.0
+    vs_fp64 = {"kernel": [0.0, 0.0], "plain": [0.0, 0.0]}  # max, mean
     for shape, dt in RMSNORM_CASES + list(served.items()) \
             + list(crossed.items()):
         x = torch.randn(shape, device="cuda", generator=gen).to(_dtype(dt))
         sc = torch.rand(shape[-1], device="cuda", generator=gen)
-        err = _compare(RN.rmsnorm_kernel(x, sc, qwen.norm_eps),
-                       RN.rmsnorm_plain(x, sc, qwen.norm_eps), RMSNORM_TOL,
-                       f"rmsnorm {shape} {dt}")
+        got = RN.rmsnorm_kernel(x, sc, qwen.norm_eps)
+        want = RN.rmsnorm_plain(x, sc, qwen.norm_eps)
+        err = _compare(got, want, RMSNORM_TOL, f"rmsnorm {shape} {dt}")
         worst = max(worst, err)
         if (shape, dt) in served.items():
             inputs[shape] = (x, sc, sc.to(x.dtype))
+        if (shape, dt) in crossed.items():
+            xd = x.double()   # rmsnorm_plain computes in fp32 whatever x is
+            exact = xd * torch.rsqrt((xd * xd).mean(-1, keepdim=True)
+                                     + qwen.norm_eps) * sc.double()
+            for name, y in (("kernel", got), ("plain", want)):
+                diff = (y.double() - exact).abs()
+                vs_fp64[name][0] = max(vs_fp64[name][0], float(diff.max()))
+                vs_fp64[name][1] = max(vs_fp64[name][1], float(diff.mean()))
+    detail["rmsnorm_fp32_vs_fp64"] = {
+        k: {"max_abs_err": v[0], "worst_mean_abs_err": v[1]}
+        for k, v in vs_fp64.items()}
     totals = {}
     for role, n in (("prefill", s), ("decode", 1)):
         seq = [inputs[sh] for sh in _norm_calls(qwen, b, n)]
@@ -663,66 +700,121 @@ def _rmsnorm_checks(detail):
             flops += fl
             nbytes += by
         eps = qwen.norm_eps
+        kernel = run(lambda x, sc, sl: RN.rmsnorm_kernel(x, sc, eps))
+        library = run(lambda x, sc, sl: F.rms_norm(x, (x.shape[-1],), sl,
+                                                   eps))
+        ms = time_ms(kernel)
         totals[role] = dict(
-            calls=len(seq),
-            ms=time_ms(run(lambda x, sc, sl: RN.rmsnorm_kernel(x, sc, eps))),
+            calls=len(seq), ms=ms, device_ms=graph_ms(kernel),
+            span_us_per_call=ms * 1e3 / len(seq),
             plain_ms=time_ms(run(
                 lambda x, sc, sl: RN.rmsnorm_plain(x, sc, eps))),
-            library_ms=time_ms(run(lambda x, sc, sl: F.rms_norm(
-                x, (x.shape[-1],), sl, eps))),
-            bound_ms=bound, flops=flops, bytes=nbytes)
+            library_ms=time_ms(library), library_device_ms=graph_ms(library),
+            bound_ms=bound, flops=flops, bytes=nbytes,
+            by_shape=[dict(
+                shape=list(x.shape),
+                plan=RN.rmsnorm_plan(x.numel() // x.shape[-1], x.shape[-1],
+                                     x.element_size()),
+                calls=sum(1 for y, _, _ in seq if y is x),
+                device_ms=graph_ms(_span(lambda x=x, sc=sc: RN.rmsnorm_kernel(
+                    x, sc, eps), 10)) / 10,
+                bound_ms=_bound(4.0 * x.numel(), 2.0 * x.numel()
+                                * x.element_size() + 4.0 * x.shape[-1],
+                                PEAK_FP32_FLOPS))
+                for x, sc, _ in {id(t[0]): t for t in seq}.values()])
     detail["rmsnorm"] = totals
     return totals, worst
 
 
+def _mlstm_gates(gen, shape, kind):
+    """(i_gate, f_gate) fp32 pre-activations: N(0, 1), or "extreme"."""
+    import torch
+
+    ig = torch.randn(shape, device="cuda", generator=gen)
+    fg = torch.randn(shape, device="cuda", generator=gen)
+    if kind == "extreme":
+        sign = torch.rand(shape, device="cuda", generator=gen) < 0.5
+        fg = torch.where(sign, 30.0, -30.0)
+        off = torch.rand(shape, device="cuda", generator=gen) < 0.3
+        ig = torch.where(off, -1e30, ig * 5)
+        ig[:, :3] = -1e30
+    return ig, fg
+
+
 def _mlstm_checks(detail):
-    """Kernel 6 against its plain version: the reference's cases and
-    xlstm-350m's prefill shape (4 heads of 512), the latter timed as one
-    prefill's calls (one per mLSTM block)."""
+    """Kernel 6 against its plain version (the recurrence): the reference's
+    cases, the paths' edges (`MLSTM_PATH_CASES`), xlstm-350m's prefill shape
+    (4 heads of 512, bf16) and serve_cross's (fp32); every call must take
+    its path (bf16 the tensor-core parallel form, fp32 the recurrence), and
+    the tensor-core path must repeat bitwise.  The two serve shapes are
+    timed as one prefill's calls (one per mLSTM block)."""
     import torch
     from repro_torch.config import get_config
     from repro_torch.kernels import mlstm_scan as MS
+    from repro_torch.timing import graph_ms
 
     cfg = get_config("xlstm-350m")
     tf = _traffic()
     h, hd = cfg.n_heads, 2 * cfg.d_model // cfg.n_heads
     calls = _blocks(cfg).count("mlstm")
-    served = (tf["batch"], tf["prompt"], h, hd, cfg.dtype)
+    served = (tf["batch"], tf["prompt"], h, hd, cfg.dtype, "normal")
+    crossed = (SERVE_CROSS["batch"], SERVE_CROSS["prompt"], h, hd, "float32",
+               "normal")
     gen = torch.Generator(device="cuda").manual_seed(23)
     worst = 0.0
-    row = None
-    for b, s, h, hd, dt in MLSTM_CASES + [
-            served, (SERVE_CROSS["batch"], SERVE_CROSS["prompt"], h, hd,
-                     "float32")]:
+    rows = {}
+    for b, s, h, hd, dt, gates in [c + ("normal",) for c in MLSTM_CASES] \
+            + MLSTM_PATH_CASES + [served, crossed]:
+        case = (b, s, h, hd, dt, gates)
         q, k, v = (torch.randn((b, s, h, hd), device="cuda",
                                generator=gen).to(_dtype(dt))
                    for _ in range(3))
-        ig, fg = (torch.randn((b, s, h), device="cuda", generator=gen)
-                  for _ in range(2))
-        err = _compare(MS.mlstm_scan_kernel(q, k, v, ig, fg),
-                       MS.mlstm_scan_plain(q, k, v, ig, fg), MLSTM_TOL[dt],
-                       f"mlstm {(b, s, h, hd, dt)}")
+        ig, fg = _mlstm_gates(gen, (b, s, h), gates)
+        path = "tc" if dt == "bfloat16" else "recurrent"
+        before = MS.path_launches()
+        got = MS.mlstm_scan_kernel(q, k, v, ig, fg)
+        after = MS.path_launches()
+        torch.cuda.synchronize()
+        check(after[path] == before[path] + 1 and all(
+            after[p] == before[p] for p in MS.PATHS if p != path),
+            f"mlstm {case}: not launched on the {path} path")
+        check(bool(torch.isfinite(got.float()).all()),
+              f"mlstm {case}: non-finite output")
+        err = _compare(got, MS.mlstm_scan_plain(q, k, v, ig, fg),
+                       MLSTM_TOL[dt], f"mlstm {case}")
         worst = max(worst, err)
-        if (b, s, h, hd, dt) == served:
-            # per step and (b, h), fp32: C's update a multiply and an FMA
-            # per element (i·v once per row), C·q an FMA per element; n
-            # and n·q the same per column
-            flops = calls * (5.0 * hd * hd + 5.0 * hd) * b * s * h
-            nbytes = calls * (4.0 * b * s * h * hd * q.element_size()
-                              + 8.0 * b * s * h)
-            row = dict(shape=[b, s, h, hd, dt], calls=calls,
-                       max_abs_err=err,
-                       ms=time_ms(_span(lambda: MS.mlstm_scan_kernel(
-                           q, k, v, ig, fg), calls)),
-                       plain_ms=time_ms(_span(lambda: MS.mlstm_scan_plain(
-                           q, k, v, ig, fg), calls), reps=1),
-                       library_ms=None,
-                       bound_ms=_bound(flops, nbytes, PEAK_FP32_FLOPS),
-                       bound_by="operations" if flops / PEAK_FP32_FLOPS
-                       >= nbytes / PEAK_BYTES else "bytes",
-                       flops=flops, bytes=nbytes)
-    detail["mlstm_scan"] = row
-    return row, worst
+        if path == "tc":
+            check(torch.equal(got, MS.mlstm_scan_kernel(q, k, v, ig, fg)),
+                  f"mlstm {case}: tensor-core path not bitwise repeatable")
+        if case not in (served, crossed):
+            continue
+        # operations: the parallel form's 4·hd per causal pair (S = QKᵀ
+        # and PV), the recurrence's 5·hd² + 5·hd per step (C's update a
+        # multiply and an FMA per element, i·v once per row, C·q an FMA;
+        # n and n·q the same per column); bytes: q, k, v, h once, gates
+        pairs = s * (s + 1) / 2
+        par_flops = calls * 4.0 * hd * pairs * b * h
+        rec_flops = calls * (5.0 * hd * hd + 5.0 * hd) * b * s * h
+        nbytes = calls * (4.0 * b * s * h * hd * q.element_size()
+                          + 8.0 * b * s * h)
+        if path == "tc":
+            flops, peak = par_flops, PEAK_BF16_FLOPS
+        else:   # fp32 on the CUDA cores: the cheaper form's operations
+            flops, peak = min(par_flops, rec_flops), PEAK_FP32_FLOPS
+        span = _span(lambda: MS.mlstm_scan_kernel(q, k, v, ig, fg), calls)
+        rows[path] = dict(
+            shape=list(case[:5]), calls=calls, path=path, max_abs_err=err,
+            ms=time_ms(span), device_ms=graph_ms(span),
+            plain_ms=time_ms(_span(lambda: MS.mlstm_scan_plain(
+                q, k, v, ig, fg), calls), reps=1 if path == "tc" else 2),
+            library_ms=None, bound_ms=_bound(flops, nbytes, peak),
+            bound_by="operations" if flops / peak >= nbytes / PEAK_BYTES
+            else "bytes",
+            recurrence_bound_ms=_bound(rec_flops, nbytes, PEAK_FP32_FLOPS),
+            flops=flops, recurrence_flops=rec_flops, bytes=nbytes)
+        del q, k, v, got
+    detail["mlstm_scan"] = rows
+    return rows, worst
 
 
 def phase_kernels(detail):
@@ -748,18 +840,23 @@ def phase_kernels(detail):
               "calls", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
               "max_abs_err")} for role, r in flash.items()},
           "rmsnorm": {role: {k: r[k] for k in (
-              "calls", "ms", "plain_ms", "library_ms", "bound_ms")}
+              "calls", "ms", "device_ms", "span_us_per_call", "plain_ms",
+              "library_ms", "library_device_ms", "bound_ms")}
               for role, r in norms.items()},
-          "mlstm_scan": {k: mlstm[k] for k in (
-              "calls", "ms", "plain_ms", "bound_ms", "max_abs_err")},
+          "rmsnorm_fp32_vs_fp64": detail["rmsnorm_fp32_vs_fp64"],
+          "mlstm_scan": {path: {k: r[k] for k in (
+              "shape", "calls", "ms", "device_ms", "plain_ms", "bound_ms",
+              "bound_by", "recurrence_bound_ms", "max_abs_err")}
+              for path, r in mlstm.items()},
           "max_abs_err": {"flash_attention": flash_err, "rmsnorm": norm_err,
                           "mlstm_scan": mlstm_err},
           "note": "ms = one VGG-16 round's shapes summed: GEMM and flat "
                   "update at N=8 (b=64), external-mean update at N=16; "
                   "flash, rmsnorm and mlstm_scan: one forward's calls "
-                  "(calls) timed as one unit, at the serve shapes"})
+                  "(calls) timed as one unit, at the serve shapes; "
+                  "device_ms: the same calls replayed from a CUDA graph"})
     return (gemm, clip, ext, dict(flash, max_abs_err=flash_err),
-            dict(norms["prefill"], max_abs_err=norm_err),
+            dict(norms, max_abs_err=norm_err),
             dict(mlstm, max_abs_err=mlstm_err))
 
 
@@ -993,6 +1090,15 @@ def _expected_launches(cfg, forwards: int) -> dict:
             "mlstm_scan": kinds.count("mlstm")}
 
 
+def _expected_mlstm_paths(cfg) -> dict:
+    """The mLSTM scan's launches per kernel in one ``serve`` run: every
+    prefill scan on the tensor-core path in bf16, on the recurrence in
+    fp32."""
+    scans = _blocks(cfg).count("mlstm")
+    bf16 = cfg.dtype == "bfloat16"
+    return {"tc": scans if bf16 else 0, "recurrent": 0 if bf16 else scans}
+
+
 def _expected_paths(cfg, n_gen: int) -> dict:
     """Flash attention's launches per kernel in one ``serve`` run: the
     prefill's on the tensor-core path (bf16; fp32 takes the CUDA-core
@@ -1012,6 +1118,7 @@ def phase_serve(arch: str, name: str):
     import torch
     from repro_torch.config import get_config
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import mlstm_scan as MS
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import seeded_inputs, serve
 
@@ -1026,8 +1133,10 @@ def phase_serve(arch: str, name: str):
     res = serve(cfg, params, prompts, n_gen)
     launches = ops.launch_counts()
     paths = FA.path_launches()
+    mlstm_paths = MS.path_launches()
     expected = _expected_launches(cfg, n_gen + 1)
     expected_paths = _expected_paths(cfg, n_gen)
+    expected_mlstm = _expected_mlstm_paths(cfg)
     out = {"phase": name, "arch": arch, "dtype": cfg.dtype,
            "n_layers": cfg.n_layers, "d_model": cfg.d_model,
            "vocab_size": cfg.vocab_size, "batch": b, "prompt": s,
@@ -1038,6 +1147,7 @@ def phase_serve(arch: str, name: str):
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "launches": launches, "expected_launches": expected,
            "flash_paths": paths, "expected_flash_paths": expected_paths,
+           "mlstm_paths": mlstm_paths, "expected_mlstm_paths": expected_mlstm,
            "sample": res.tokens[0][:16].tolist(),
            "logits_finite": bool(np.isfinite(res.logits).all())}
     emit(out)
@@ -1052,6 +1162,9 @@ def phase_serve(arch: str, name: str):
     for path, want in expected_paths.items():
         check(paths[path] == want, f"{name}: {paths[path]} flash launches "
               f"on the {path} path, expected {want}")
+    for path, want in expected_mlstm.items():
+        check(mlstm_paths[path] == want, f"{name}: {mlstm_paths[path]} "
+              f"mLSTM launches on the {path} path, expected {want}")
     for kernel in ("batched_matmul", "clip_sgd", "clip_sgd_ext"):
         check(launches[kernel] == 0, f"{name}: {kernel} launched")
     return out
@@ -1096,7 +1209,8 @@ def phase_serve_cross():
     weights, qwen3 and xlstm at full width cut in depth.  For xlstm also
     the witness of its bar: the same card run with the mLSTM scan's plain
     version in place of kernel 6, against the CPU and against the kernel
-    run."""
+    run, and the card runs with RMSNorm's plain version in place of kernel
+    5, with each scan, against the CPU (which kernel the error follows)."""
     import dataclasses
 
     import numpy as np
@@ -1105,6 +1219,7 @@ def phase_serve_cross():
     from repro_torch.device import disable_tf32
     from repro_torch.kernels import mlstm_scan as MS
     from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as RN
     from repro_torch.models import build_model
     from repro_torch.utils.tree import tree_map
 
@@ -1130,18 +1245,30 @@ def phase_serve_cross():
         res = {"n_layers": layers, **_errors(card_logits, cpu_logits, tol),
                "max_abs_logit": float(np.abs(cpu_logits).max()),
                "tol": tol, "ids_equal": bool((card_ids == cpu_ids).all()),
-               "launches": ops.launch_counts()}
+               "launches": ops.launch_counts(),
+               "mlstm_paths": MS.path_launches()}
         if "mlstm" in _blocks(cfg):
-            kernel_scan = ops.mlstm_scan
-            ops.mlstm_scan = MS.mlstm_scan_plain
-            try:
-                plain_logits, _ = _forced(model, on_card, prompts, c["gen"],
-                                          feed=cpu_ids)
-            finally:
-                ops.mlstm_scan = kernel_scan
+            witness = {}
+            for norm, scan in (("kernel", "plain"), ("plain", "kernel"),
+                               ("plain", "plain")):
+                swapped = ops.rmsnorm, ops.mlstm_scan
+                if norm == "plain":
+                    ops.rmsnorm = RN.rmsnorm_plain
+                if scan == "plain":
+                    ops.mlstm_scan = MS.mlstm_scan_plain
+                try:
+                    witness[norm, scan], _ = _forced(
+                        model, on_card, prompts, c["gen"], feed=cpu_ids)
+                finally:
+                    ops.rmsnorm, ops.mlstm_scan = swapped
+            plain_logits = witness["kernel", "plain"]
             res["plain_scan_on_card"] = {
                 "vs_cpu": _errors(plain_logits, cpu_logits, tol),
                 "vs_kernel": _errors(card_logits, plain_logits, tol)}
+            res["plain_norm_on_card"] = {
+                f"{scan}_scan": {"vs_cpu": _errors(
+                    witness["plain", scan], cpu_logits, tol)}
+                for scan in ("kernel", "plain")}
         out[arch] = res
     emit(out)
     for arch, res in out.items():
@@ -1155,6 +1282,10 @@ def phase_serve_cross():
         for kernel in kernels:
             check(res["launches"][kernel] > 0,
                   f"serve_cross {arch}: {kernel} never launched on the card")
+        paths = res["mlstm_paths"]
+        check(paths["tc"] == 0 and paths["recurrent"]
+              == res["launches"]["mlstm_scan"], f"serve_cross {arch}: fp32 "
+              f"mLSTM launches off the recurrence ({paths})")
     return out
 
 
@@ -1232,18 +1363,32 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm.py:11",
          "launches": serve["launches"]["rmsnorm"],
-         "calls": norm["calls"],
-         "max_abs_err": norm["max_abs_err"], "ms": norm["ms"],
-         "plain_ms": norm["plain_ms"], "bound_ms": norm["bound_ms"],
-         "bound_by": "bytes", "library_ms": norm["library_ms"]},
+         "calls": norm["prefill"]["calls"],
+         "max_abs_err": norm["max_abs_err"], "ms": norm["prefill"]["ms"],
+         "device_ms": norm["prefill"]["device_ms"],
+         "plain_ms": norm["prefill"]["plain_ms"],
+         "bound_ms": norm["prefill"]["bound_ms"], "bound_by": "bytes",
+         "library_ms": norm["prefill"]["library_ms"],
+         "library_device_ms": norm["prefill"]["library_device_ms"],
+         "decode": {k: norm["decode"][k] for k in (
+             "calls", "ms", "device_ms", "plain_ms", "bound_ms",
+             "library_ms", "library_device_ms")}},
         {"name": "mlstm_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/mlstm_scan.cu",
          "replaces": "src/repro/kernels/mlstm_scan.py:24",
          "launches": serve_ssm["launches"]["mlstm_scan"],
-         "calls": mlstm["calls"],
-         "max_abs_err": mlstm["max_abs_err"], "ms": mlstm["ms"],
-         "plain_ms": mlstm["plain_ms"], "bound_ms": mlstm["bound_ms"],
-         "bound_by": mlstm["bound_by"], "library_ms": None},
+         "launches_by_path": serve_ssm["mlstm_paths"],
+         "calls": mlstm["tc"]["calls"],
+         "max_abs_err": mlstm["max_abs_err"], "ms": mlstm["tc"]["ms"],
+         "device_ms": mlstm["tc"]["device_ms"],
+         "plain_ms": mlstm["tc"]["plain_ms"],
+         "bound_ms": mlstm["tc"]["bound_ms"],
+         "bound_by": mlstm["tc"]["bound_by"],
+         "recurrence_bound_ms": mlstm["tc"]["recurrence_bound_ms"],
+         "library_ms": None,
+         "fp32": {k: mlstm["recurrent"][k] for k in (
+             "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+             "recurrence_bound_ms")}},
     ]
     detail["kernels"] = kernels
     detail["train"] = train

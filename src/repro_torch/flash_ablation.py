@@ -41,6 +41,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.timing import graph_ms
 
 _NO_MATH = [
     ("  auto softmax = [&](int tile) {\n",
@@ -71,7 +72,8 @@ VARIANTS = {
                "  if (n_tiles >= 0) return;\n"
                "  if (n_tiles == 0) {  // no visible key")],
 }
-CALLS = 28
+CALLS = 28     # one qwen3 prefill's flash calls
+REPLAYS = 10   # graph replays a time averages
 
 
 def _variant_source(subs) -> str:
@@ -106,32 +108,6 @@ def _build_all(out_dir: Path) -> dict:
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
-
-
-def graph_ms(fn, calls: int = CALLS, reps: int = 10) -> float:
-    """Device milliseconds of ``calls`` calls of ``fn`` captured in one
-    CUDA graph, the mean over ``reps`` replays."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def span_ms(fn, calls: int = CALLS, reps: int = 5) -> float:
@@ -175,10 +151,10 @@ def main(argv=None) -> dict:
                      torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"variant {name}: CUDA error {err}")
-        prefill[name] = graph_ms(call)
+        prefill[name] = graph_ms(call, CALLS, REPLAYS)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     prefill["sdpa"] = graph_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
+        qt, kt, vt, is_causal=True, enable_gqa=True), CALLS, REPLAYS)
 
     cache, valid = 544, 513
     q1 = torch.randn((b, 1, hq, hd), device="cuda", generator=gen).bfloat16()
@@ -195,9 +171,9 @@ def main(argv=None) -> dict:
 
     report = {"gpu": smi, "calls": CALLS,
               "prefill_graph_ms": prefill,
-              "decode": {"kernel_graph_ms": graph_ms(decode),
+              "decode": {"kernel_graph_ms": graph_ms(decode, CALLS, REPLAYS),
                          "kernel_span_ms": span_ms(decode),
-                         "sdpa_graph_ms": graph_ms(sdpa),
+                         "sdpa_graph_ms": graph_ms(sdpa, CALLS, REPLAYS),
                          "sdpa_span_ms": span_ms(sdpa)}}
     print(json.dumps(report), flush=True)
     return report

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.kernels.launch import device_scope, raw_stream
 
 
 def same_geometry(h: int, w: int, kh: int, kw: int, stride: int):
@@ -146,8 +147,9 @@ def batched_matmul_kernel(a, b):
     splits, chunk = gemm_splits(n, m, k, c, _sm_count(a.device.index))
     ws = (torch.empty((splits, n, m, c), device=a.device,
                       dtype=torch.float32) if splits > 1 else None)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
+    index = a.device.index
+    with device_scope(index):
+        stream = raw_stream(index)
         err = _bmm_symbol()(a.data_ptr(), b.data_ptr(), out.data_ptr(),
                             None if ws is None else ws.data_ptr(),
                             n, m, k, c, *a.stride(), *b.stride(), splits,

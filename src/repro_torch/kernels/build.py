@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with `ctypes`.  The
 output lands in ``build/repro_torch_kernels/`` at the repo root, keyed by a
-hash of the source, so an edited source rebuilds and an unchanged one
-loads at once.  A failed build raises with the compiler's stderr; nothing
+hash of the source and of every shared header in ``csrc/`` (``*.cuh``), so
+an edited source or header rebuilds and an unchanged one loads at once.  A failed build raises with the compiler's stderr; nothing
 falls back to a plain version.  Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -20,7 +20,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", str(CSRC))
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
@@ -44,7 +45,10 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> tuple:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return src, BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -44,7 +44,6 @@ tests): the naive attention with the same masks.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 import math
@@ -52,6 +51,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.launch import device_scope, raw_stream
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
@@ -109,21 +109,6 @@ def _decode_plan(b: int, hkv: int, group: int, kv_end: int, index: int):
     rows = decode_rows(group)
     sms = torch.cuda.get_device_properties(index).multi_processor_count
     return (rows, *decode_splits(b * hkv * -(-group // rows), kv_end, sms))
-
-
-def _device_scope(index: int):
-    """`torch.cuda.device(index)` unless card ``index`` is already current
-    (entering it costs several µs, a fifth of a decode call's host path)."""
-    if index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(index)
-
-
-def _raw_stream(index: int) -> int:
-    """The current CUDA stream of card ``index`` as an int: the raw handle,
-    without building a `torch.cuda.Stream` (several µs, every decode
-    call)."""
-    return torch._C._cuda_getCurrentRawStream(index)
 
 
 @functools.lru_cache(maxsize=1)
@@ -185,8 +170,8 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
     scale = 1.0 / math.sqrt(hd)
     fn = flash_attention_kernel
     index = q.device.index
-    with _device_scope(index):
-        stream = _raw_stream(index)
+    with device_scope(index):
+        stream = raw_stream(index)
         if sq == 1:
             path = "split_kv"
             kv_end = min(sk_valid, 1) if causal else sk_valid

@@ -86,7 +86,9 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    """Zero every kernel's count, and flash attention's per-path counts."""
+    """Zero every kernel's count, and the per-path counts of flash
+    attention and the mLSTM scan."""
     for fn in KERNELS.values():
         fn.launches = 0
     FA.reset_path_launches()
+    MS.reset_path_launches()

@@ -12,6 +12,8 @@ on the card).  The token-model kernels (flash attention, RMSNorm, the
 mLSTM scan) take the reference's own cases and bars: 2e-5 fp32 / 2e-2
 bf16, 2e-2, and 2e-4 fp32 / 3e-2 bf16.
 """
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +30,7 @@ from repro.models.attention import decode_attention as r_decode_attention
 from repro_torch.kernels import batched_conv as TBC
 from repro_torch.kernels import clip_sgd as TCS
 from repro_torch.kernels import flash_attention as TFA
+from repro_torch.kernels import launch as TLAUNCH
 from repro_torch.kernels import mlstm_scan as TMS
 from repro_torch.kernels import ops as TOPS
 from repro_torch.kernels import ref as TREF
@@ -282,6 +285,90 @@ def test_mlstm_scan_matches_reference_kernel(b, s, h, hd, dtype):
     _assert_close(out, ref, MLSTM_TOL[dtype])
 
 
+# F = Σ log σ(f) reaches about -380 over 256 steps with forget gates of
+# spread 3: where an fp32 prefix of the parallel form loses digits
+MLSTM_LONG_F = (1, 256, 1, 64, "float32")
+F_SPREAD = 3.0
+
+
+def _mlstm_inputs(b, s, h, hd, dtype, seed, f_spread=1.0):
+    rng = np.random.default_rng(seed)
+    qkv = [_both(rng.standard_normal((b, s, h, hd)), dtype) for _ in range(3)]
+    ig = rng.standard_normal((b, s, h)).astype(np.float32)
+    fg = (rng.standard_normal((b, s, h)) * f_spread).astype(np.float32)
+    return qkv, ig, fg
+
+
+@pytest.mark.parametrize("b,s,h,hd,dtype,f_spread", [
+    (*c, 1.0) for c in MLSTM_CASES] + [(*MLSTM_LONG_F, F_SPREAD)])
+def test_mlstm_parallel_form_matches_reference_kernel(b, s, h, hd, dtype,
+                                                     f_spread):
+    """The parallel form in plain PyTorch (the tensor-core kernel's
+    algorithm and roundings) against the reference's recurrence kernel."""
+    ((qj, qt), (kj, kt), (vj, vt)), ig, fg = _mlstm_inputs(
+        b, s, h, hd, dtype, seed=1, f_spread=f_spread)
+    ref = r_mlstm(qj, kj, vj, jnp.asarray(ig), jnp.asarray(fg), chunk=32,
+                  interpret=True)
+    out = TMS.mlstm_parallel_plain(qt, kt, vt, torch.from_numpy(ig),
+                                   torch.from_numpy(fg))
+    assert out.dtype == qt.dtype
+    _assert_close(out, ref, MLSTM_TOL[dtype])
+
+
+@pytest.mark.parametrize("prefix,bar", [(torch.float64, 1e-6),
+                                        (torch.float32, None)])
+def test_mlstm_gate_prefix_needs_fp64(prefix, bar):
+    """D_ts = exp(g_s − M_t) from the prefix helper against the same
+    quantity in numpy fp64, over every causal pair with D > 1e-3, with F
+    near -380: the fp64 prefix is within a few fp32 ulps (bar 1e-6
+    relative), an fp32 cumsum is off by hundreds of ulps (over 1e-5)."""
+    _, ig, fg = _mlstm_inputs(*MLSTM_LONG_F, seed=7, f_spread=F_SPREAD)
+    it, ft = torch.from_numpy(ig), torch.from_numpy(fg)
+    log_f = (-torch.nn.functional.softplus(-ft)).double().numpy()
+    f_cum = np.cumsum(log_f, axis=1)
+    g = ig.astype(np.float64) - f_cum
+    m_run = np.maximum(np.maximum.accumulate(g, axis=1), -1e30)
+    assert f_cum.min() < -300
+    causal = np.tril(np.ones((ig.shape[1],) * 2, dtype=bool))
+    d64 = np.exp(np.where(causal, g[0, None, :, 0] - m_run[0, :, None, 0],
+                          -np.inf))
+    _, gt, mt, m = TMS.mlstm_gate_prefix(it, ft, prefix)
+    d = torch.exp((gt[0, None, :, 0] - mt[0, :, None, 0]).float()
+                  .masked_fill(~torch.from_numpy(causal), float("-inf")))
+    keep = d64 > 1e-3
+    rel = np.abs(d.double().numpy() - d64)[keep] / d64[keep]
+    if bar is None:
+        assert rel.max() > 1e-5
+    else:
+        assert rel.max() <= bar
+        # m is the recurrence's stabilizer F + M, rounded once to fp32
+        np.testing.assert_allclose(m.double().numpy(), f_cum + m_run,
+                                   rtol=1e-7, atol=0)
+
+
+def test_mlstm_parallel_form_takes_the_stabilizer_branch_on_extreme_gates():
+    """Forget pre-activations of ±30 and input ones at -1e30 (the first
+    steps: h is 0 there, as the recurrence's exp(-m) is inf) against the
+    port's recurrence, fp32 and bf16."""
+    rng = np.random.default_rng(9)
+    b, s, h, hd = 1, 80, 2, 32
+    fg = rng.choice([-30.0, 30.0], (b, s, h)).astype(np.float32)
+    ig = np.where(rng.random((b, s, h)) < 0.3, -1e30,
+                  rng.standard_normal((b, s, h)) * 5).astype(np.float32)
+    ig[:, :3] = -1e30
+    for dtype in ("float32", "bfloat16"):
+        q, k, v = (_both(rng.standard_normal((b, s, h, hd)), dtype)[1]
+                   for _ in range(3))
+        gates = torch.from_numpy(ig), torch.from_numpy(fg)
+        par = TMS.mlstm_parallel_plain(q, k, v, *gates)
+        rec = TMS.mlstm_scan_plain(q, k, v, *gates)
+        assert bool(torch.isfinite(par.float()).all())
+        assert not par[:, :3].float().any()
+        np.testing.assert_allclose(par.float().numpy(), rec.float().numpy(),
+                                   rtol=MLSTM_TOL[dtype],
+                                   atol=MLSTM_TOL[dtype])
+
+
 # ---------------------------------------------------------------------------
 # The split plans of the redesigned kernels (pure Python, reached here)
 # ---------------------------------------------------------------------------
@@ -382,3 +469,71 @@ def test_path_counts_reset_with_the_launch_counts():
     TFA.flash_attention_kernel.launches_split_kv = 2
     TOPS.reset_launch_counts()
     assert TFA.path_launches() == {"tc": 0, "split_kv": 0, "fp32": 0}
+
+
+def test_mlstm_path_counts_reset_with_the_launch_counts():
+    TMS.mlstm_scan_kernel.launches_tc = 2
+    TMS.mlstm_scan_kernel.launches_recurrent = 1
+    TOPS.reset_launch_counts()
+    assert TMS.path_launches() == {"tc": 0, "recurrent": 0}
+
+
+def test_mlstm_parallel_workspace_covers_whole_tiles():
+    # F and M (fp64) and gl (fp32) per (b, h) over S rounded up to 64
+    assert TMS.parallel_workspace_bytes(8, 512, 4) == 8 * 4 * 512 * 20
+    assert TMS.parallel_workspace_bytes(1, 200, 2) == 2 * 256 * 20
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm's launch plan and the shared launch path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rows,d,itemsize,aligned,plan", [
+    (4096, 2048, 2, True, (8, 128, 2, 1)),    # qwen3 prefill: 4 warps a row
+    (65536, 128, 2, True, (8, 8, 2, 4)),      # the qk-norms: 4 rows a warp
+    (128, 128, 2, True, (8, 16, 1, 2)),       # ... in decode
+    (4096, 1024, 2, True, (8, 64, 2, 1)),     # xlstm prefill
+    (8, 2048, 2, True, (8, 256, 1, 1)),       # decode: one vector a thread
+    (8, 1024, 2, True, (8, 128, 1, 1)),
+    (128, 2048, 4, True, (4, 256, 2, 1)),     # serve_cross, fp32
+    (150, 50, 4, True, (1, 64, 1, 1)),        # d · 4 = 200: single elements
+    (7, 100, 2, True, (1, 128, 1, 1)),
+    (4096, 2048, 2, False, (1, 1024, 2, 1)),  # misaligned: single elements
+    (2, 65536, 4, True, (4, 1024, 0, 1)),     # too wide: read twice
+    (3, 1, 4, True, (1, 1, 1, 32)),
+])
+def test_rmsnorm_plan_at_the_serve_shapes(rows, d, itemsize, aligned, plan):
+    assert TRN.rmsnorm_plan(rows, d, itemsize, aligned) == plan
+
+
+@pytest.mark.parametrize("rows", [1, 3, 8, 129, 4096, 70000])
+@pytest.mark.parametrize("d,itemsize", [(1, 4), (50, 4), (96, 4), (96, 2),
+                                        (128, 2), (1000, 4), (2048, 2),
+                                        (6144, 2), (9000, 4), (40000, 4)])
+def test_rmsnorm_plan_covers_the_row(rows, d, itemsize):
+    """What the kernel's entry point accepts: tpr a power of two in
+    1..1024, whole warps and at most 1024 threads a block, vectors that
+    tile the row, and registers (nv vectors a thread) that hold it unless
+    nv = 0."""
+    vec, tpr, nv, rpb = TRN.rmsnorm_plan(rows, d, itemsize)
+    assert vec in (1, 16 // itemsize) and d % vec == 0
+    assert vec > 1 or d * itemsize % 16 != 0
+    assert 1 <= tpr <= 1024 and tpr & (tpr - 1) == 0
+    assert rpb >= 1 and tpr * rpb <= 1024 and tpr * rpb % 32 == 0
+    assert nv in (0, 1, 2, 4, 8)
+    assert nv == 0 or tpr * nv * vec >= d
+    assert nv > 0 or tpr * 8 * vec < d
+
+
+def test_rmsnorm_plan_code_packs_every_field():
+    # the entry point unpacks bits 0-1, 2-5, 6-9, 10-20 and 21-31
+    code = TRN.plan_code(1, 8, 1024, 8, 256)
+    assert [code & 3, code >> 2 & 15, code >> 6 & 15, code >> 10 & 2047,
+            code >> 21 & 2047] == [1, 8, 8, 1024, 256]
+    assert code < 2 ** 31
+
+
+def test_device_scope_skips_the_current_device(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert isinstance(TLAUNCH.device_scope(0), contextlib.nullcontext)
+    assert isinstance(TLAUNCH.device_scope(1), torch.cuda.device)

@@ -385,3 +385,119 @@ def test_batched_matmul_split_k_matches_plain_and_repeats(n, m, k, c,
     np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(), rtol=0,
                                atol=1e-5 * scale * max(1.0, (k / 1024) ** 0.5))
     assert torch.equal(out, TBC.batched_matmul_kernel(a, b))
+
+
+# the mLSTM scan's two paths (bf16: the parallel form on the tensor cores;
+# fp32: the recurrence), each against the plain recurrence at the bar:
+# (b, s, h, hd, dtype, gates, path); gates "normal" are N(0, 1) pre-
+# activations, "extreme" forget pre-activations of ±30 and input ones at
+# -1e30 in the first steps and at random, so that D underflows and the
+# stabilizer takes the input gate's branch
+MLSTM_PATH_CASES = [
+    (8, 512, 4, 512, "bfloat16", "normal", "tc"),     # xlstm-350m prefill
+    (1, 200, 2, 512, "bfloat16", "normal", "tc"),     # S off the 64-row tile
+    (1, 96, 4, 64, "bfloat16", "normal", "tc"),
+    (2, 100, 2, 32, "bfloat16", "normal", "tc"),
+    (1, 130, 2, 128, "bfloat16", "extreme", "tc"),
+    (2, 70, 2, 256, "bfloat16", "extreme", "tc"),
+    (2, 64, 4, 512, "float32", "normal", "recurrent"),
+    (1, 130, 2, 64, "float32", "extreme", "recurrent"),
+]
+
+
+def mlstm_gates(gen, shape, kind, device="cuda"):
+    """(i_gate, f_gate) fp32 pre-activations of ``kind`` (see above)."""
+    ig = torch.randn(shape, generator=gen, device=device)
+    fg = torch.randn(shape, generator=gen, device=device)
+    if kind == "extreme":
+        sign = torch.rand(shape, generator=gen, device=device) < 0.5
+        fg = torch.where(sign, 30.0, -30.0)
+        off = torch.rand(shape, generator=gen, device=device) < 0.3
+        ig = torch.where(off, -1e30, ig * 5)
+        ig[:, :3] = -1e30
+    return ig, fg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hd,dtype,gates,path", MLSTM_PATH_CASES)
+def test_mlstm_scan_paths_match_plain(b, s, h, hd, dtype, gates, path):
+    """Each case runs on its path (one counted launch there) and matches
+    the plain recurrence at the bar; the tensor-core path is bitwise
+    repeatable (no atomics)."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dt = DTYPES[dtype]
+    q, k, v = (_randn(gen, (b, s, h, hd), dt) for _ in range(3))
+    ig, fg = mlstm_gates(gen, (b, s, h), gates)
+    before = TMS.path_launches()
+    got = TMS.mlstm_scan_kernel(q, k, v, ig, fg)
+    after = TMS.path_launches()
+    want = TMS.mlstm_scan_plain(q, k, v, ig, fg)
+    torch.cuda.synchronize()
+    assert {p: after[p] - before[p] for p in after} == {
+        p: int(p == path) for p in TMS.PATHS}
+    assert bool(torch.isfinite(got.float()).all())
+    _close(got, want, MLSTM_TOL[dtype])
+    if path == "tc":
+        assert torch.equal(got, TMS.mlstm_scan_kernel(q, k, v, ig, fg))
+
+
+@pytest.mark.cuda
+def test_mlstm_tc_path_matches_parallel_plain():
+    """The tensor-core kernel against the plain parallel form with the same
+    roundings (fp64 prefix, P as two bf16 parts in PV), at xlstm's head
+    width."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v = (_randn(gen, (2, 192, 2, 512), torch.bfloat16)
+               for _ in range(3))
+    ig, fg = mlstm_gates(gen, (2, 192, 2), "normal")
+    _close(TMS.mlstm_scan_kernel(q, k, v, ig, fg),
+           TMS.mlstm_parallel_plain(q, k, v, ig, fg), MLSTM_TOL["bfloat16"])
+
+
+# RMSNorm on each plan: (shape, dtype, offset in elements, expected plan
+# kind) — 16-byte vectors with a row in part of a warp, a row over several
+# warps, single elements (d · itemsize not a multiple of 16, or x
+# misaligned), and a row too wide for registers (read twice)
+RMSNORM_PLAN_CASES = [
+    ((8, 512, 2048), "bfloat16", 0, "row_split"),
+    ((65536, 128), "bfloat16", 0, "vector"),
+    ((4096, 96), "bfloat16", 0, "vector"),
+    ((8, 1, 2048), "bfloat16", 0, "row_split"),
+    ((8, 1, 1024), "float32", 0, "row_split"),
+    ((7, 100), "bfloat16", 0, "scalar"),
+    ((300, 50), "float32", 0, "scalar"),
+    ((64, 256), "float32", 1, "scalar"),
+    ((2, 65536), "float32", 0, "streamed"),
+]
+
+
+def _plan_kind(plan):
+    vec, tpr, nv, _ = plan
+    if nv == 0:
+        return "streamed"
+    if vec == 1:
+        return "scalar"
+    return "row_split" if tpr > 32 else "vector"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,offset,kind", RMSNORM_PLAN_CASES)
+def test_rmsnorm_plans_match_plain(shape, dtype, offset, kind):
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    dt = DTYPES[dtype]
+    n = int(np.prod(shape))
+    x = _randn(gen, (n + offset,), dt)[offset:].view(shape)
+    scale = torch.rand(shape[-1], generator=gen, device="cuda")
+    rows, d = n // shape[-1], shape[-1]
+    aligned = (x.data_ptr() | scale.data_ptr()) % 16 == 0
+    plan = TRN.rmsnorm_plan(rows, d, x.element_size(), aligned)
+    assert _plan_kind(plan) == kind
+    before = TRN.rmsnorm_kernel.launches
+    got = TRN.rmsnorm_kernel(x, scale)
+    want = TRN.rmsnorm_plain(x, scale)
+    torch.cuda.synchronize()
+    assert TRN.rmsnorm_kernel.launches == before + 1
+    _close(got, want, RMSNORM_TOL)
