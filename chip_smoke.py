@@ -9,8 +9,7 @@ nothing of the reference package.  Phases, each printing one JSON line:
 
 1. ``gpu``: the card's name and power limit (``nvidia-smi``).
 2. ``build``: builds every kernel of the main paths from the checkout's
-   sources (the CUDA GEMM with ``nvcc``, the first compiles of the two
-   Triton updates) and times it.
+   sources (one ``nvcc`` a source, all started together) and times it.
 3. ``kernels``: each kernel against its plain PyTorch version on the card
    at the main path's shapes — the client-batched GEMM at every VGG-16
    forward/dW/dx shape at N=8, b=64; `BatchedConv`'s forward and dx/dW/db
@@ -19,19 +18,22 @@ nothing of the reference package.  Phases, each printing one JSON line:
    of N=4, a fractional lone survivor, the full cohort, and the 32 VGG-16
    leaves at N=8; the external-mean update of mesh mode at the 32 VGG-16
    leaves at N_local=16, for the global flag u on and off, keep all on
-   and all off, with participation weights folded into the mean — with
-   times of kernel, plain version and the library yardstick
-   (``torch.bmm``), and each kernel's bound on this card.
+   and all off, with participation weights folded into the mean — each
+   through the one-leaf entry points; then both as the main path calls
+   them, one round's 32 leaves in one launch against the plain loop, with
+   mixed keeps, with participation and at N=30 — with times of kernel,
+   plain version and the library yardstick (``torch.bmm``), and each
+   kernel's bound on this card.
 4. ``train``: the flat main path, `Session(...).run()` for VGG-16 at full
    width, N=8, 12 rounds; the launch counters are zeroed just before and
-   read just after: the GEMM and the update > 0, the external-mean
-   update 0.
+   read just after: the GEMM > 0, the update once a round, the
+   external-mean update 0.
 5. ``mesh``: the mesh path at the same width — VGG-16, 16 resident slots
    on a world-size-1 NCCL group, 4 edge servers, a cohort bank over a
    logical population of 1024, 12 rounds with 3 rotations; counters
-   zeroed and read around it: the GEMM > 0, the external-mean update on
-   every leaf of every round, the flat update 0.  Also the card time of
-   the two all-reduces per leaf of a round.
+   zeroed and read around it: the GEMM > 0, the external-mean update once
+   a round, the flat update 0.  Also the card time of the two all-reduces
+   per leaf of a round.
 6. ``cross_device``: the same vgg9 session on the card and on the CPU from
    the same weights: decisions, clocks and gather plans bitwise equal,
    losses and final parameters within 1e-4.
@@ -243,30 +245,16 @@ def _ptxas_lines(log: str):
 
 
 def phase_build():
-    import torch
     from repro_torch.kernels import build
-    from repro_torch.kernels import ops
 
     t0 = time.perf_counter()
-    sources = ["batched_matmul", "flash_attention", "rmsnorm", "mlstm_scan"]
+    sources = ["batched_matmul", "clip_sgd", "flash_attention", "rmsnorm",
+               "mlstm_scan"]
     build.build(sources)
-    t_nvcc = time.perf_counter() - t0
-    # first Triton compiles of the updates (the N=8 flat and the
-    # N_local=16 external-mean specializations)
-    p = torch.zeros((8, 64), device="cuda")
-    ops.clip_sgd(p, torch.ones_like(p), torch.ones(8, device="cuda"),
-                 torch.ones(8, device="cuda", dtype=torch.bool), gamma=0.1)
-    p = torch.zeros((MESH_SLOTS, 64), device="cuda")
-    ops.clip_sgd(p, torch.ones_like(p), torch.ones(MESH_SLOTS, device="cuda"),
-                 torch.zeros(MESH_SLOTS, device="cuda", dtype=torch.bool),
-                 gamma=0.1, common=torch.ones(64, device="cuda"),
-                 use_common=True)
-    torch.cuda.synchronize()
-    t_all = time.perf_counter() - t0
+    seconds = time.perf_counter() - t0
     ptxas = {name: _ptxas_lines(build.BUILD_LOGS.get(name, ""))
              for name in sources}
-    emit({"phase": "build", "seconds": round(t_all, 3),
-          "nvcc_seconds": round(t_nvcc, 3), "ptxas": ptxas})
+    emit({"phase": "build", "seconds": round(seconds, 3), "ptxas": ptxas})
 
 
 def _gemm_checks(detail):
@@ -357,9 +345,105 @@ def _conv_checks():
     return worst
 
 
+def _round_inputs(gen, n, gamma, ext, part=None, keeps=None):
+    """One VGG-16 round's update inputs on the card at N=n: (ps, gs,
+    scale, keep_specs, participation, commons, count); ``keeps`` defaults
+    to mixed (leaf i keeps where i % 4 != 0); with ``ext`` the means of
+    the external form, participation folded in."""
+    import torch
+
+    sizes = vgg16_leaf_sizes()
+    ps = [torch.randn((n, d), device="cuda", generator=gen) for d in sizes]
+    gs = [torch.randn((n, d), device="cuda", generator=gen) for d in sizes]
+    scale = torch.rand(n, device="cuda", generator=gen) * 0.9 + 0.1
+    keeps = keeps or [i % 4 != 0 for i in range(len(sizes))]
+    commons = count = None
+    if ext:
+        w = torch.ones(n, device="cuda") if part is None else part
+        count = w.sum()
+        commons = [((p - gamma * (g * scale[:, None])) * w[:, None]).sum(0)
+                   / torch.where(count > 0, count, 1.0)
+                   for p, g in zip(ps, gs)]
+    return ps, gs, scale, keeps, part, commons, count
+
+
+def _round_checks(gen, n_timed, gamma, ext):
+    """The round call as the main path makes it — one launch over the 32
+    VGG-16 leaves, updated in place — against the plain loop: mixed keeps
+    at ``n_timed``, with participation (fractional, every third client
+    dropped), every leaf on the aggregation side, and at N=30.  Then the
+    timed round at ``n_timed``: the flat update with mixed keeps (the
+    elementwise and the mean form, 12·N·ΣD bytes either way), the external
+    mean on the aggregation round (keep off, use on: each row written from
+    the mean, p and g not read, 4·N·ΣD + 4·ΣD bytes).  Returns (worst
+    error, timings)."""
+    import torch
+    from repro_torch.kernels import clip_sgd as CS
+    from repro_torch.timing import graph_ms
+
+    def weights(n):
+        w = torch.rand(n, device="cuda", generator=gen) * 0.9 + 0.1
+        w[::3] = 0.0
+        return w
+
+    sizes = vgg16_leaf_sizes()
+    cases = [(n_timed, None, None), (n_timed, weights(n_timed), None),
+             (n_timed, weights(n_timed), [False] * len(sizes)),
+             (30, weights(30), None)]
+    worst = 0.0
+    for n, part, keeps in cases:
+        ps, gs, scale, keeps, part, commons, count = _round_inputs(
+            gen, n, gamma, ext, part, keeps)
+        want = CS.clip_sgd_leaves_plain(ps, gs, scale, keeps, part,
+                                        gamma=gamma, commons=commons,
+                                        count=count)
+        got = CS.clip_sgd_leaves_kernel(ps, gs, scale, keeps, part,
+                                        gamma=gamma, commons=commons,
+                                        count=count)
+        torch.cuda.synchronize()
+        for i, (a, b, p) in enumerate(zip(got, want, ps)):
+            check(a.data_ptr() == p.data_ptr(), "clip_sgd round: not in place")
+            e = float((a - b).abs().max())
+            check(e <= CLIP_TOL, f"clip_sgd round ext={ext} N={n} leaf {i}"
+                  f" D={sizes[i]}: {e}")
+            worst = max(worst, e)
+        del ps, gs, commons, want, got
+    keeps = [False] * len(sizes) if ext else None
+    ps, gs, scale, keeps, part, commons, count = _round_inputs(
+        gen, n_timed, gamma, ext, None, keeps)
+
+    def kernel():
+        CS.clip_sgd_leaves_kernel(ps, gs, scale, keeps, gamma=gamma,
+                                  commons=commons, count=count)
+
+    def plain():
+        CS.clip_sgd_leaves_plain(ps, gs, scale, keeps, gamma=gamma,
+                                 commons=commons, count=count)
+
+    total = float(sum(sizes))
+    nbytes = (4.0 * n_timed * total + 4.0 * total if ext
+              else 12.0 * n_timed * total)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        kernel()
+    host_ms = (time.perf_counter() - t0) / 5 * 1e3  # the wrapper, no sync
+    torch.cuda.synchronize()
+    out = dict(ms=time_ms(kernel), device_ms=graph_ms(kernel),
+               host_ms=host_ms,
+               plain_ms=time_ms(plain), bound_ms=nbytes / PEAK_BYTES * 1e3,
+               bytes=nbytes, launches_a_round=-(-len(sizes) // CS.CAPACITY))
+    if ext:
+        # the bound of the parent's kernel, which read p and g on every row
+        out["full_read_bound_ms"] = (12.0 * n_timed * total + 4.0 * total) \
+            / PEAK_BYTES * 1e3
+    return worst, out
+
+
 def _clip_checks(detail):
     import torch
     from repro_torch.kernels import clip_sgd as CS
+    from repro_torch.timing import graph_ms
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     gamma = 0.05
@@ -389,41 +473,40 @@ def _clip_checks(detail):
         check(e <= CLIP_TOL, f"clip_sgd part={part} keep={keep_spec}: {e}")
         worst = max(worst, e)
 
-    # the 32 VGG-16 leaves at N=8: one round's update
+    # the 32 VGG-16 leaves at N=8, each alone through the one-leaf entry
     n = 8
     scale = torch.rand(n, device="cuda", generator=gen) * 0.9 + 0.1
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes=0.0)
     rows = []
     for i, size in enumerate(vgg16_leaf_sizes()):
         p = torch.randn((n, size), device="cuda", generator=gen)
         g = torch.randn((n, size), device="cuda", generator=gen)
-        keep = torch.full((n,), i % 4 != 0, device="cuda")
+        keep = torch.full((n,), float(i % 4 != 0), device="cuda")
         e = compare(p, g, scale, keep, None)
         check(e <= CLIP_TOL, f"clip_sgd VGG-16 leaf {i} D={size}: {e}")
         worst = max(worst, e)
-        nbytes = 12.0 * n * size
-        row = dict(leaf=i, d=size, max_abs_err=e,
-                   ms=time_ms(lambda: CS.clip_sgd_kernel(
-                       p, g, scale, keep, None, gamma=gamma)),
-                   plain_ms=time_ms(lambda: CS.clip_sgd_plain(
-                       p, g, scale, keep, None, gamma=gamma)),
-                   bound_ms=nbytes / PEAK_BYTES * 1e3)
-        rows.append(row)
-        for key in ("ms", "plain_ms", "bound_ms"):
-            tot[key] += row[key]
-        tot["bytes"] += nbytes
+
+        def one(p=p, g=g, keep=keep):
+            CS.clip_sgd_kernel(p, g, scale, keep, None, gamma=gamma)
+
+        rows.append(dict(leaf=i, d=size, max_abs_err=e, ms=time_ms(one),
+                         device_ms=graph_ms(one),
+                         bound_ms=12.0 * n * size / PEAK_BYTES * 1e3))
+        del p, g
     detail["clip_sgd_vgg16_n8"] = rows
-    tot["max_abs_err"] = worst
+    err, tot = _round_checks(gen, n, gamma, ext=False)
+    tot["max_abs_err"] = max(worst, err)
+    detail["clip_sgd_round_n8"] = tot
     return tot
 
 
 def _clip_ext_checks(detail):
-    """Kernel 3 at the 32 VGG-16 leaves, N_local=16: each (u, keep)
-    combination against the plain version, the mean ``c`` built with
-    fractional participation weights folded in; then one mesh round's
-    time (keep off, u on: the aggregation round)."""
+    """Kernel 3 at the 32 VGG-16 leaves, N_local=16, each leaf alone: each
+    (u, keep) combination against the plain version, the mean ``c`` built
+    with fractional participation weights folded in, and the leaf's time
+    on the aggregation round (keep off, u on); then the round call."""
     import torch
     from repro_torch.kernels import clip_sgd as CS
+    from repro_torch.timing import graph_ms
 
     gen = torch.Generator(device="cuda").manual_seed(11)
     gamma, n = 0.05, MESH_SLOTS
@@ -431,7 +514,6 @@ def _clip_ext_checks(detail):
     w = torch.rand(n, device="cuda", generator=gen)
     w[::3] = 0.0                                   # dropped clients
     worst = 0.0
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes=0.0)
     rows = []
     for i, size in enumerate(vgg16_leaf_sizes()):
         p = torch.randn((n, size), device="cuda", generator=gen)
@@ -452,21 +534,21 @@ def _clip_ext_checks(detail):
                       f" keep={keep_on} u={use}: {e}")
                 leaf_err = max(leaf_err, e)
         worst = max(worst, leaf_err)
-        keep = torch.zeros(n, dtype=torch.bool, device="cuda")
-        u = torch.tensor(True, device="cuda")
-        nbytes = 12.0 * n * size + 4.0 * size
-        row = dict(leaf=i, d=size, max_abs_err=leaf_err,
-                   ms=time_ms(lambda: CS.clip_sgd_ext_kernel(
-                       p, g, scale, keep, common, u, gamma=gamma)),
-                   plain_ms=time_ms(lambda: CS.clip_sgd_ext_plain(
-                       p, g, scale, keep, common, u, gamma=gamma)),
-                   bound_ms=nbytes / PEAK_BYTES * 1e3)
-        rows.append(row)
-        for key in ("ms", "plain_ms", "bound_ms"):
-            tot[key] += row[key]
-        tot["bytes"] += nbytes
+        keep = torch.zeros(n, device="cuda")
+        u = torch.ones(1, device="cuda")
+
+        def one(p=p, g=g, common=common, keep=keep, u=u):
+            CS.clip_sgd_ext_kernel(p, g, scale, keep, common, u, gamma=gamma)
+
+        rows.append(dict(leaf=i, d=size, max_abs_err=leaf_err, ms=time_ms(one),
+                         device_ms=graph_ms(one),
+                         bound_ms=(4.0 * n * size + 4.0 * size)
+                         / PEAK_BYTES * 1e3))
+        del p, g, spec, common
     detail["clip_sgd_ext_vgg16_n16"] = rows
-    tot["max_abs_err"] = worst
+    err, tot = _round_checks(gen, n, gamma, ext=True)
+    tot["max_abs_err"] = max(worst, err)
+    detail["clip_sgd_ext_round_n16"] = tot
     return tot
 
 
@@ -833,9 +915,11 @@ def phase_kernels(detail):
               "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")},
           "batched_conv_max_err": conv_err,
           "clip_sgd": {k: clip[k] for k in (
-              "ms", "plain_ms", "bound_ms", "max_abs_err")},
+              "ms", "device_ms", "host_ms", "plain_ms", "bound_ms",
+              "max_abs_err")},
           "clip_sgd_ext": {k: ext[k] for k in (
-              "ms", "plain_ms", "bound_ms", "max_abs_err")},
+              "ms", "device_ms", "host_ms", "plain_ms", "bound_ms",
+              "full_read_bound_ms", "max_abs_err")},
           "flash_attention": {role: {k: r[k] for k in (
               "calls", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
               "max_abs_err")} for role, r in flash.items()},
@@ -850,8 +934,9 @@ def phase_kernels(detail):
               for path, r in mlstm.items()},
           "max_abs_err": {"flash_attention": flash_err, "rmsnorm": norm_err,
                           "mlstm_scan": mlstm_err},
-          "note": "ms = one VGG-16 round's shapes summed: GEMM and flat "
-                  "update at N=8 (b=64), external-mean update at N=16; "
+          "note": "GEMM: one VGG-16 round's shapes summed at N=8 (b=64); "
+                  "clip_sgd (N=8) and clip_sgd_ext (N=16): one round's 32 "
+                  "leaves in one call; "
                   "flash, rmsnorm and mlstm_scan: one forward's calls "
                   "(calls) timed as one unit, at the serve shapes; "
                   "device_ms: the same calls replayed from a CUDA graph"})
@@ -900,8 +985,10 @@ def phase_train():
     finite = all(bool(torch.isfinite(t).all()) for u in sess.sim._stacked
                  for t in u.values())
     check(finite, "train: non-finite parameters")
-    for name in ("batched_matmul", "clip_sgd"):
-        check(launches[name] > 0, f"train: kernel {name} never launched")
+    check(launches["batched_matmul"] > 0, "train: the GEMM never launched")
+    check(launches["clip_sgd"] == spec.rounds,
+          f"train: {launches['clip_sgd']} update launches, not one a round "
+          f"({spec.rounds})")
     check(launches["clip_sgd_ext"] == 0,
           "train: the flat path launched the external-mean update")
     return out
@@ -947,7 +1034,6 @@ def phase_mesh():
     seconds = time.perf_counter() - t0
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    n_leaves = sum(len(u) for u in sess.sim._stacked)
     out = {"phase": "mesh", "arch": spec.arch, "n_clients": spec.n_clients,
            "mesh": spec.mesh.to_dict(), "rounds": spec.rounds,
            "seconds": seconds, "seconds_per_round": seconds / spec.rounds,
@@ -972,9 +1058,9 @@ def phase_mesh():
                  for t in u.values())
     check(finite, "mesh: non-finite parameters")
     check(launches["batched_matmul"] > 0, "mesh: the GEMM never launched")
-    check(launches["clip_sgd_ext"] == n_leaves * spec.rounds,
+    check(launches["clip_sgd_ext"] == spec.rounds,
           f"mesh: {launches['clip_sgd_ext']} external-mean launches, not "
-          f"{n_leaves} leaves x {spec.rounds} rounds")
+          f"one a round ({spec.rounds})")
     check(launches["clip_sgd"] == 0, "mesh: the flat update launched")
     return out
 
@@ -1332,19 +1418,22 @@ def main(argv=None) -> int:
          "max_abs_err": gemm["max_abs_err"], "ms": gemm["ms"],
          "plain_ms": gemm["plain_ms"], "bound_ms": gemm["bound_ms"],
          "bound_by": gemm["bound_by"], "library_ms": gemm["library_ms"]},
-        {"name": "clip_sgd", "route": "triton",
-         "source": "src/repro_torch/kernels/clip_sgd.py",
+        {"name": "clip_sgd", "route": "cuda",
+         "source": "src/repro_torch/csrc/clip_sgd.cu",
          "replaces": "src/repro/kernels/clip_sgd.py:29",
          "launches": launches["clip_sgd"],
          "max_abs_err": clip["max_abs_err"], "ms": clip["ms"],
+         "device_ms": clip["device_ms"],
          "plain_ms": clip["plain_ms"], "bound_ms": clip["bound_ms"],
          "bound_by": "bytes", "library_ms": None},
-        {"name": "clip_sgd_ext", "route": "triton",
-         "source": "src/repro_torch/kernels/clip_sgd.py",
+        {"name": "clip_sgd_ext", "route": "cuda",
+         "source": "src/repro_torch/csrc/clip_sgd.cu",
          "replaces": "src/repro/kernels/clip_sgd.py:44",
          "launches": mesh["launches"]["clip_sgd_ext"],
          "max_abs_err": ext["max_abs_err"], "ms": ext["ms"],
+         "device_ms": ext["device_ms"],
          "plain_ms": ext["plain_ms"], "bound_ms": ext["bound_ms"],
+         "full_read_bound_ms": ext["full_read_bound_ms"],
          "bound_by": "bytes", "library_ms": None},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",

@@ -15,7 +15,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.config import ModelConfig, CNN
-from repro_torch.utils.tree import tree_map
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 
 def _cnn_only(cfg: ModelConfig) -> None:
@@ -109,10 +109,11 @@ def hasfl_round_update(
     ``participation`` ([N] float weights, or None for the full cohort) the
     survivor weights of a partial round.
 
-    ``impl`` (any non-None value) routes each leaf through the fused
-    `kernels.ops.clip_sgd` — the Triton kernel on the card, which updates
-    the leaf *in place*, so the caller's ``stacked`` tensors change — and
-    ``None`` keeps the inline plain algebra below.
+    ``impl`` (any non-None value) sends every leaf of the round through
+    one `kernels.ops.clip_sgd_leaves` call — on the card one launch of the
+    fused kernel, which updates the leaves *in place*, so the caller's
+    ``stacked`` tensors change — and ``None`` keeps the inline plain
+    algebra below.
 
     ``group`` (a `torch.distributed` process group) switches the mean to
     the two-tier hierarchy of mesh mode: ``stacked``/``grads``/
@@ -121,7 +122,7 @@ def hasfl_round_update(
     ``edge_size`` clients, then the cross-rank all-reduces).  The
     use-common flag comes from the replicated ``keep_spec`` and the
     global count, never from a rank-local ``any(keep)``, so every rank
-    takes the same branch; the kernel receives the finished mean.
+    takes the same branch; the kernel receives the finished means.
     """
     first = stacked[0]["w"]
     n = first.shape[0]
@@ -130,31 +131,28 @@ def hasfl_round_update(
         from repro_torch.kernels import ops as KOPS
 
         scale = grad_scale if grad_scale is not None else ones
-        new_stacked = []
+        ps, gs, keep_specs = [], [], []
         for u, (p_u, g_u) in enumerate(zip(stacked, grads)):
             keep_spec = bool(masks[u] > 0) and not do_agg
-            if participation is None:
-                keep_vec = torch.full((n,), keep_spec, device=first.device)
-            else:
-                keep_vec = (participation > 0) & keep_spec
-
-            def upd_k(p, g, keep_vec=keep_vec, keep_spec=keep_spec):
-                pf, gf = p.reshape(n, -1), g.reshape(n, -1).contiguous()
-                common = use_common = None
-                if group is not None:
-                    # the collective cannot run inside a kernel: combine
-                    # here, hand the kernel the finished mean
-                    spec = pf - gamma * (gf * scale.reshape(-1, 1))
-                    w = ones if participation is None else participation
-                    common, cnt = two_tier_common(spec, w, edge_size, group)
-                    use_common = (cnt > 0) & (not keep_spec)
-                out = KOPS.clip_sgd(pf, gf, scale, keep_vec, participation,
-                                    gamma=gamma, common=common,
-                                    use_common=use_common)
-                return out.reshape(p.shape)
-
-            new_stacked.append(tree_map(upd_k, p_u, g_u))
-        return new_stacked
+            for p, g in zip(tree_leaves(p_u), tree_leaves(g_u)):
+                ps.append(p.reshape(n, -1).contiguous())
+                gs.append(g.reshape(n, -1).contiguous())
+                keep_specs.append(keep_spec)
+        commons = count = None
+        if group is not None:
+            # the collectives cannot run inside a kernel: combine here,
+            # hand the kernel the finished means
+            w = ones if participation is None else participation
+            commons = []
+            for pf, gf in zip(ps, gs):
+                spec = pf - gamma * (gf * scale.reshape(-1, 1))
+                common, count = two_tier_common(spec, w, edge_size, group)
+                commons.append(common)
+        outs = iter(KOPS.clip_sgd_leaves(ps, gs, scale, keep_specs,
+                                         participation, gamma=gamma,
+                                         commons=commons, count=count))
+        return [tree_map(lambda p: next(outs).reshape(p.shape), p_u)
+                for p_u in stacked]
 
     new_stacked = []
     for u, (p_u, g_u) in enumerate(zip(stacked, grads)):

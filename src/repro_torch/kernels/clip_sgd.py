@@ -1,45 +1,59 @@
 """Fused per-client clip-factor + SGD + aggregation-select update.
 
-Port of `repro.kernels.clip_sgd` (TPU kernel ``_kernel`` /
-``clip_sgd_update``).  Per ``[N, D]`` parameter leaf of the HASFL round
-(`core.split.hasfl_round_update`): scale the raw gradient by the
-per-client clip factor, one SGD step (Eq. 5-6), the survivor-weighted
-Eq. 4/7 client mean, and the membership/aggregation select —
+Port of `repro.kernels.clip_sgd` (TPU kernels ``_kernel`` and
+``_kernel_ext``, both called from ``clip_sgd_update``).  Per ``[N, D]``
+parameter leaf of the HASFL round (`core.split.hasfl_round_update`):
+scale the raw gradient by the per-client clip factor, one SGD step (Eq.
+5-6), the survivor-weighted Eq. 4/7 client mean, and the membership/
+aggregation select —
 
     spec   = p - gamma * g * scale
     common = sum(w * spec) / where(cnt > 0, cnt, 1),  cnt = sum(w)
     out    = keep ? spec : (not any(keep) and cnt > 0 ? common : p)
 
-`clip_sgd_kernel` is a Triton kernel: one program owns a
-``[next_pow2(N), BLOCK_D]`` tile (the whole client axis, so the mean is a
-``tl.sum`` over axis 0 in registers), masked loads replace the
-reference's D-padding copies, and the result is written back into ``p``
-in place (the analogue of the reference's donated leaf).  What bounds it
-on the card is memory: it reads p and g and writes p once, 12·N·D bytes.
-`clip_sgd_plain` is the plain PyTorch version (the reference's
-``clip_sgd_ref`` algebra), used for CPU tensors and in tests.
+— or, in mesh mode, the external-mean form, whose mean ``common`` ([D])
+arrives precomputed by the two-tier combine (`core.split.two_tier_common`,
+whose all-reduces a kernel cannot issue):
 
-`clip_sgd_ext_kernel` ports the external-mean variant (TPU kernel
-``_kernel_ext``, mesh mode): the Eq. 4/7 mean ``common`` ([D]) arrives
-precomputed by the two-tier combine (`core.split.two_tier_common`, whose
-all-reduce a kernel tile cannot issue), with the caller's global flag
-``use_common``, so only the shard-local clip + SGD + keep-flag select
-runs in the kernel:
+    out    = keep ? spec : (use_common ? common : p)
 
-    spec = p - gamma * g * scale
-    out  = keep ? spec : (use_common ? common : p)
+On the card both are ``csrc/clip_sgd.cu`` (CUDA C++ for sm_90a), which
+updates every leaf of a round in one launch and in place (the analogue of
+the reference's donated leaf).  `clip_sgd_leaves_kernel` is the round's
+call: a list of leaves, one per-leaf ``keep_spec`` flag, and the round's
+shared columns (clip factors, participation weights), from which the
+kernel builds each leaf's keep vector (``keep_spec and w > 0``).
+`clip_sgd_kernel` and `clip_sgd_ext_kernel` are the one-leaf case of the
+same launch with the caller's own ``[N]`` keep vector, as the reference's
+kernels take it.  A launch takes up to `CAPACITY` leaves; the wrapper
+packs them into a `ctypes` table (pointers, sizes, per-leaf flags and
+first chunks under `clip_sgd_plan`), and launches on the current raw
+stream (`launch`).
 
-It reads no reduction, so one program per ``BLOCK_D`` columns covers
-all ``N_local`` rows with no cross-program state; masked loads replace
-the D padding and the store is in place.  It is bound by memory:
-12·N·D + 4·D bytes (p and g read, p written, the mean row read once).
-`clip_sgd_ext_plain` is its plain PyTorch version.
+What bounds it on the card: memory, 12·N·ΣD bytes (p and g read, p
+written), plus 4·ΣD for the external mean rows; rows whose result does
+not depend on p and g are not read (see the source's note).
+
+`clip_sgd_plain` and `clip_sgd_ext_plain` are the plain PyTorch versions
+(the reference's ``clip_sgd_ref`` algebra), and `clip_sgd_leaves_plain`
+their loop over a round's leaves, for CPU tensors and tests.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.launch import device_scope, raw_stream
+
+THREADS = 256    # a block (csrc/clip_sgd.cu)
+CAPACITY = 64    # leaves a launch; resnet18-cifar, the port's largest CNN
+                 # by leaves, has 42
+MAX_N = 4096     # clients: three fp32 columns in a block's shared memory
+ROWS = 4         # rows a thread streams at once (1, 2, 4, 8)
+VECTORS = 1      # column vectors a thread owns in a chunk (1, 2)
 
 
 def clip_sgd_plain(p, g, scale, keep_spec, participation=None, *,
@@ -63,73 +77,6 @@ def clip_sgd_plain(p, g, scale, keep_spec, participation=None, *,
     return torch.where(keep, spec, fallback)
 
 
-@functools.lru_cache(maxsize=1)
-def _triton_kernel():
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def _clip_sgd(p_ptr, g_ptr, s_ptr, k_ptr, w_ptr, n, d, gamma,
-                  BLOCK_N: tl.constexpr, BLOCK_D: tl.constexpr):
-        rows = tl.arange(0, BLOCK_N)
-        cols = tl.program_id(0).to(tl.int64) * BLOCK_D + tl.arange(0, BLOCK_D)
-        rmask = rows < n
-        tile = rmask[:, None] & (cols < d)[None, :]
-        offs = rows.to(tl.int64)[:, None] * d + cols[None, :]
-        p = tl.load(p_ptr + offs, mask=tile, other=0.0)
-        g = tl.load(g_ptr + offs, mask=tile, other=0.0)
-        s = tl.load(s_ptr + rows, mask=rmask, other=0.0)
-        kf = tl.load(k_ptr + rows, mask=rmask, other=0.0)
-        w = tl.load(w_ptr + rows, mask=rmask, other=0.0)
-        spec = p - gamma * (g * s[:, None])
-        cnt = tl.sum(w, axis=0)
-        common = tl.sum(spec * w[:, None], axis=0) / tl.where(cnt > 0, cnt, 1.0)
-        keep = kf > 0
-        n_keep = tl.sum(keep.to(tl.int32), axis=0)
-        use_common = (n_keep == 0) & (cnt > 0)
-        fallback = tl.where(use_common, common[None, :], p)
-        tl.store(p_ptr + offs, tl.where(keep[:, None], spec, fallback),
-                 mask=tile)
-
-    return triton, _clip_sgd
-
-
-def clip_sgd_kernel(p, g, scale, keep_spec, participation=None, *,
-                    gamma: float):
-    """The Triton launch: updates the contiguous fp32 CUDA leaf ``p``
-    ``[N, D]`` in place and returns it.  ``participation=None`` runs with
-    all-ones weights."""
-    n, d = p.shape
-    if p.device.type != "cuda" or g.device != p.device:
-        raise ValueError(f"clip_sgd_kernel takes CUDA tensors on one "
-                         f"device, got {p.device} and {g.device}")
-    if p.dtype != torch.float32 or g.dtype != torch.float32:
-        raise ValueError("clip_sgd_kernel is fp32")
-    if g.shape != p.shape or not (p.is_contiguous() and g.is_contiguous()):
-        raise ValueError("clip_sgd_kernel needs contiguous [N, D] p and g "
-                         "of one shape")
-    cols = [scale, keep_spec,
-            torch.ones(n, device=p.device) if participation is None
-            else participation]
-    s_col, k_col, w_col = (
-        c.to(device=p.device, dtype=torch.float32).reshape(n).contiguous()
-        for c in cols)
-    if d == 0:
-        return p
-    triton, kernel = _triton_kernel()
-    block_n = max(2, triton.next_power_of_2(n))
-    block_d = max(128, min(2048, 16384 // block_n))
-    with torch.cuda.device(p.device):
-        kernel[(triton.cdiv(d, block_d),)](
-            p, g, s_col, k_col, w_col, n, d, float(gamma),
-            BLOCK_N=block_n, BLOCK_D=block_d, num_warps=8)
-    clip_sgd_kernel.launches += 1
-    return p
-
-
-clip_sgd_kernel.launches = 0
-
-
 def clip_sgd_ext_plain(p, g, scale, keep, common, use_common, *,
                        gamma: float):
     """``p, g: [N, D]``; ``scale``, ``keep``: [N]; ``common``: the [D]
@@ -145,69 +92,233 @@ def clip_sgd_ext_plain(p, g, scale, keep, common, use_common, *,
     return torch.where(keep, spec, fallback)
 
 
+def _keep_vector(keep_spec: bool, participation, n: int, device):
+    """A leaf's keep vector: ``keep_spec`` for every client, or only for
+    the survivors (``participation > 0``)."""
+    if participation is None:
+        return torch.full((n,), keep_spec, device=device)
+    return (participation > 0) & keep_spec
+
+
+def clip_sgd_leaves_plain(ps, gs, scale, keep_specs, participation=None, *,
+                          gamma: float, commons=None, count=None):
+    """A round's leaves through the per-leaf plain versions.  ``ps, gs``:
+    lists of ``[N, D_i]``; ``keep_specs``: one bool a leaf; the keep vector
+    of leaf i is ``keep_specs[i]`` for the survivors.  With ``commons`` (the
+    ``[D_i]`` means of mesh mode) the external-mean form runs, leaf i taking
+    its mean where ``count > 0 and not keep_specs[i]`` (``count``: the
+    global survivor count).  Returns new tensors."""
+    n = ps[0].shape[0]
+    out = []
+    for i, (p, g) in enumerate(zip(ps, gs)):
+        keep = _keep_vector(keep_specs[i], participation, n, p.device)
+        if commons is None:
+            out.append(clip_sgd_plain(p, g, scale, keep, participation,
+                                      gamma=gamma))
+        else:
+            use = (count > 0) & (not keep_specs[i])
+            out.append(clip_sgd_ext_plain(p, g, scale, keep, commons[i], use,
+                                          gamma=gamma))
+    return out
+
+
+def clip_sgd_plan(ds, aligned, vectors: int = VECTORS):
+    """(first chunks, vector flags, chunk count) of a launch over leaves of
+    ``ds`` columns: leaf i takes 16-byte vectors where ``aligned[i]`` (its
+    pointers are 16-byte aligned) and ``ds[i] % 4 == 0``, single elements
+    otherwise, and is cut into chunks of ``THREADS · vectors`` vectors, one
+    block each, leaf after leaf."""
+    starts, vecs, total = [], [], 0
+    for d, al in zip(ds, aligned):
+        vec = bool(al) and d % 4 == 0
+        starts.append(total)
+        vecs.append(vec)
+        total += -(-d // (THREADS * vectors * (4 if vec else 1)))
+    return starts, vecs, total
+
+
+def plan_code(rows: int = ROWS, vectors: int = VECTORS) -> int:
+    """R and V packed into the one int `repro_clip_sgd` takes."""
+    return rows | vectors << 4
+
+
+class Leaf(ctypes.Structure):
+    _fields_ = [("p", ctypes.c_void_p), ("g", ctypes.c_void_p),
+                ("c", ctypes.c_void_p), ("d", ctypes.c_int64),
+                ("start", ctypes.c_int32), ("flags", ctypes.c_int32)]
+
+
+class Table(ctypes.Structure):
+    """``csrc/clip_sgd.cu``'s ``Table``, field for field."""
+    _fields_ = [("leaf", Leaf * CAPACITY), ("scale", ctypes.c_void_p),
+                ("w", ctypes.c_void_p), ("keep", ctypes.c_void_p),
+                ("u", ctypes.c_void_p), ("gamma", ctypes.c_float),
+                ("n", ctypes.c_int32), ("leaves", ctypes.c_int32),
+                ("chunks", ctypes.c_int32), ("u_is_count", ctypes.c_int32)]
+
+
 @functools.lru_cache(maxsize=1)
-def _triton_ext_kernel():
-    import triton
-    import triton.language as tl
+def symbol():
+    lib = build.load("clip_sgd")
+    size = lib.repro_clip_sgd_table_bytes()
+    if size != ctypes.sizeof(Table):
+        raise RuntimeError(f"csrc/clip_sgd.cu's table is {size} bytes, the "
+                           f"wrapper's {ctypes.sizeof(Table)}")
+    fn = lib.repro_clip_sgd
+    fn.argtypes = [ctypes.POINTER(Table), ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
-    @triton.jit
-    def clip_sgd_ext_kernel(p_ptr, g_ptr, s_ptr, k_ptr, c_ptr, u_ptr, n, d,
-                            gamma, BLOCK_N: tl.constexpr,
-                            BLOCK_D: tl.constexpr):
-        rows = tl.arange(0, BLOCK_N)
-        cols = tl.program_id(0).to(tl.int64) * BLOCK_D + tl.arange(0, BLOCK_D)
-        rmask = rows < n
-        cmask = cols < d
-        tile = rmask[:, None] & cmask[None, :]
-        offs = rows.to(tl.int64)[:, None] * d + cols[None, :]
-        p = tl.load(p_ptr + offs, mask=tile, other=0.0)
-        g = tl.load(g_ptr + offs, mask=tile, other=0.0)
-        s = tl.load(s_ptr + rows, mask=rmask, other=0.0)
-        kf = tl.load(k_ptr + rows, mask=rmask, other=0.0)
-        c = tl.load(c_ptr + cols, mask=cmask, other=0.0)
-        u = tl.load(u_ptr)
-        spec = p - gamma * (g * s[:, None])
-        fallback = tl.where(u > 0, c[None, :], p)
-        tl.store(p_ptr + offs, tl.where(kf[:, None] > 0, spec, fallback),
-                 mask=tile)
 
-    return triton, clip_sgd_ext_kernel
+def _column(t, n: int, index: int, what: str):
+    """``t`` as a contiguous fp32 ``[n]`` column on card ``index`` (no copy
+    where it is one already)."""
+    if not (t.is_cuda and t.get_device() == index
+            and t.dtype is torch.float32 and t.is_contiguous()):
+        t = t.to(device=torch.device("cuda", index), dtype=torch.float32)
+    t = t.reshape(-1)
+    if t.numel() != n:
+        raise ValueError(f"{what} has {t.numel()} values for N={n} clients")
+    return t.contiguous()
+
+
+def tables(ps, gs, scale, keep_specs, participation=None, *, gamma: float,
+           commons=None, keep=None, use=None, use_is_count=False,
+           vectors: int = VECTORS):
+    """The launches' tables for the leaves ``ps, gs`` (CUDA fp32, checked),
+    `CAPACITY` leaves a table, and the tensors they point into (to be kept
+    alive until the launches are issued).  ``keep`` ([N], optional)
+    replaces the per-leaf keep vectors; ``use`` is the external mean's
+    one-element flag or, with ``use_is_count``, the global survivor
+    count."""
+    if len(gs) != len(ps) or len(keep_specs) != len(ps) or (
+            commons is not None and len(commons) != len(ps)):
+        raise ValueError("one g, keep_spec (and common) a leaf")
+    if not ps:
+        return [], []
+    p0 = ps[0]
+    if not p0.is_cuda:
+        raise ValueError(f"clip_sgd takes CUDA tensors, got {p0.device}")
+    index, n = p0.get_device(), p0.shape[0]
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"clip_sgd takes 1 to {MAX_N} clients, got {n}")
+    cols = [_column(scale, n, index, "scale")]
+    if participation is not None:
+        cols.append(_column(participation, n, index, "participation"))
+    if keep is not None:
+        cols.append(_column(keep, n, index, "keep"))
+    if commons is not None:
+        cols.append(_column(use, 1, index, "use_common"))
+    f32 = torch.float32
+    rows, ds, aligned = [], [], []
+    for i, (p, g) in enumerate(zip(ps, gs)):
+        shape = p.shape   # get_device() is -1 on the CPU
+        if (p.get_device() != index or g.get_device() != index
+                or p.dtype is not f32 or g.dtype is not f32
+                or len(shape) != 2 or shape[0] != n or g.shape != shape
+                or not (p.is_contiguous() and g.is_contiguous())):
+            raise ValueError(
+                f"clip_sgd takes contiguous fp32 [N={n}, D] p and g of one "
+                f"shape on cuda:{index}; leaf {i}: {p.dtype} "
+                f"{tuple(shape)} on {p.device}, {g.dtype} {tuple(g.shape)} "
+                f"on {g.device}")
+        d = shape[1]
+        if d == 0:
+            continue
+        pp, gp, cp = p.data_ptr(), g.data_ptr(), 0
+        if commons is not None:
+            c = commons[i]
+            if not (c.get_device() == index and c.dtype is f32
+                    and c.is_contiguous() and c.numel() == d):
+                raise ValueError(f"common of leaf {i} must be a contiguous "
+                                 f"fp32 [{d}] on cuda:{index}")
+            cp = c.data_ptr()
+        rows.append((pp, gp, cp or None, d, bool(keep_specs[i])))
+        ds.append(d)
+        aligned.append(not (pp | gp | cp) & 15)
+    out = []
+    ptr = [c.data_ptr() for c in cols]
+    w = ptr[1] if participation is not None else None
+    k = ptr[1 + (participation is not None)] if keep is not None else None
+    u = ptr[-1] if commons is not None else None
+    for lo in range(0, len(rows), CAPACITY):
+        part = rows[lo:lo + CAPACITY]
+        starts, vecs, chunks = clip_sgd_plan(
+            ds[lo:lo + CAPACITY], aligned[lo:lo + CAPACITY], vectors)
+        leaves = (Leaf * CAPACITY)(*[
+            (pp, gp, cp, d, s, ks | v << 1)
+            for (pp, gp, cp, d, ks), s, v in zip(part, starts, vecs)])
+        out.append(Table(leaves, ptr[0], w, k, u, gamma, n, len(part),
+                         chunks, use_is_count))
+    return out, cols
+
+
+def _launch(kernel, index: int, tabs, code: int) -> None:
+    fn = symbol()
+    with device_scope(index):
+        stream = raw_stream(index)
+        for tab in tabs:
+            err = fn(ctypes.byref(tab), code, stream)
+            if err != 0:
+                raise RuntimeError(
+                    f"clip_sgd kernel launch failed: CUDA error {err} "
+                    f"({tab.leaves} leaves, N={tab.n}, plan {code:#x})")
+            kernel.launches += 1
+
+
+def clip_sgd_leaves_kernel(ps, gs, scale, keep_specs, participation=None, *,
+                           gamma: float, commons=None, count=None):
+    """A round's update on the card, in one launch a `CAPACITY` leaves:
+    updates the contiguous fp32 CUDA leaves ``ps`` (``[N, D_i]``) in place
+    and returns them.  The arguments are `clip_sgd_leaves_plain`'s;
+    ``count`` (with ``commons``) stays on the device (no host sync).
+    Launches count on `clip_sgd_kernel` (flat) or `clip_sgd_ext_kernel`
+    (external mean)."""
+    if commons is not None and count is None:
+        raise ValueError("the external mean needs the global count")
+    tabs, _cols = tables(ps, gs, scale, keep_specs, participation,
+                         gamma=gamma, commons=commons, use=count,
+                         use_is_count=True)
+    if tabs:
+        kernel = clip_sgd_kernel if commons is None else clip_sgd_ext_kernel
+        _launch(kernel, ps[0].get_device(), tabs, plan_code())
+    return list(ps)
+
+
+def clip_sgd_kernel(p, g, scale, keep_spec, participation=None, *,
+                    gamma: float):
+    """The flat update of one contiguous fp32 CUDA leaf ``p`` ``[N, D]``,
+    in place; returns it.  ``keep_spec`` is the per-client keep vector
+    [N]; ``participation=None`` runs with all-ones weights."""
+    tabs, _cols = tables([p], [g], scale, [False], participation,
+                         gamma=gamma, keep=keep_spec)
+    if tabs:
+        _launch(clip_sgd_kernel, p.get_device(), tabs, plan_code())
+    return p
+
+
+clip_sgd_kernel.launches = 0
 
 
 def clip_sgd_ext_kernel(p, g, scale, keep, common, use_common, *,
                         gamma: float):
-    """The Triton launch of the external-mean update: updates the
-    contiguous fp32 CUDA leaf ``p`` ``[N, D]`` in place and returns it.
-    ``common`` holds D values, ``use_common`` is a bool or a one-element
-    tensor (kept on the device: no host sync)."""
-    n, d = p.shape
-    if p.device.type != "cuda" or g.device != p.device:
-        raise ValueError(f"clip_sgd_ext_kernel takes CUDA tensors on one "
-                         f"device, got {p.device} and {g.device}")
-    if p.dtype != torch.float32 or g.dtype != torch.float32:
-        raise ValueError("clip_sgd_ext_kernel is fp32")
-    if g.shape != p.shape or not (p.is_contiguous() and g.is_contiguous()):
-        raise ValueError("clip_sgd_ext_kernel needs contiguous [N, D] p "
-                         "and g of one shape")
-    if common.numel() != d:
+    """The external-mean update of one contiguous fp32 CUDA leaf ``p``
+    ``[N, D]``, in place; returns it.  ``common`` holds D values,
+    ``use_common`` is a bool or a one-element tensor (kept on the device:
+    no host sync)."""
+    if not p.is_cuda:
+        raise ValueError(f"clip_sgd takes CUDA tensors, got {p.device}")
+    if common.numel() != p.shape[-1]:
         raise ValueError(f"common has {common.numel()} values, the leaf "
-                         f"has D={d}")
-    s_col, k_col = (c.to(device=p.device, dtype=torch.float32)
-                    .reshape(n).contiguous() for c in (scale, keep))
-    c_row = common.to(device=p.device, dtype=torch.float32).reshape(d) \
+                         f"has D={p.shape[-1]}")
+    dev = p.device
+    common = common.to(device=dev, dtype=torch.float32).reshape(-1) \
         .contiguous()
-    u = torch.as_tensor(use_common, device=p.device).to(torch.float32) \
-        .reshape(1)
-    if d == 0:
-        return p
-    triton, kernel = _triton_ext_kernel()
-    block_n = max(2, triton.next_power_of_2(n))
-    block_d = max(128, min(2048, 16384 // block_n))
-    with torch.cuda.device(p.device):
-        kernel[(triton.cdiv(d, block_d),)](
-            p, g, s_col, k_col, c_row, u, n, d, float(gamma),
-            BLOCK_N=block_n, BLOCK_D=block_d, num_warps=8)
-    clip_sgd_ext_kernel.launches += 1
+    u = torch.as_tensor(use_common, device=dev)
+    tabs, _cols = tables([p], [g], scale, [False], gamma=gamma,
+                         commons=[common], keep=keep, use=u)
+    if tabs:
+        _launch(clip_sgd_ext_kernel, p.get_device(), tabs, plan_code())
     return p
 
 

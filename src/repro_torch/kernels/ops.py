@@ -48,6 +48,20 @@ def clip_sgd(p, g, scale, keep_spec, participation=None, *, gamma: float,
     return fn(p, g, scale, keep_spec, participation, gamma=gamma)
 
 
+def clip_sgd_leaves(ps, gs, scale, keep_specs, participation=None, *,
+                    gamma: float, commons=None, count=None):
+    """One round's fused update over every ``[N, D_i]`` leaf: the leaf
+    i's keep vector is ``keep_specs[i]`` for the survivors.  ``commons``
+    (mesh mode) hands in each leaf's precomputed Eq. 4/7 mean and
+    ``count`` the global survivor count; the external-mean form then runs.
+    On the card the leaves are updated in place in one launch (per 64
+    leaves) and returned; on the CPU new tensors are returned."""
+    fn = CS.clip_sgd_leaves_kernel if _on_card(ps[0]) \
+        else CS.clip_sgd_leaves_plain
+    return fn(ps, gs, scale, keep_specs, participation, gamma=gamma,
+              commons=commons, count=count)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     sk_valid=None):
     """GQA attention, q ``[B, Sq, Hq, hd]`` against k, v ``[B, Sk, Hkv,

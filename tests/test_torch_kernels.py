@@ -1,8 +1,8 @@
 """The port's kernel modules against the JAX reference, on the CPU.
 
 Same numpy-seeded inputs through both packages.  On the CPU the port's
-wrappers run their kernels' plain PyTorch versions (the CUDA GEMM and the
-Triton update only run on a card: `test_torch_kernels_cuda.py`), and
+wrappers run their kernels' plain PyTorch versions (the CUDA kernels only
+run on a card: `test_torch_kernels_cuda.py`), and
 the reference runs its Pallas kernels in interpret mode, as its own tests
 do.  Tolerances are the reference's own bars (`tests/test_kernels.py`):
 2e-5 for the conv forward, 2e-4 for its gradients, 2e-6 for the fused
@@ -12,7 +12,9 @@ on the card).  The token-model kernels (flash attention, RMSNorm, the
 mLSTM scan) take the reference's own cases and bars: 2e-5 fp32 / 2e-2
 bf16, 2e-2, and 2e-4 fp32 / 3e-2 bf16.
 """
+import bisect
 import contextlib
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +29,8 @@ from repro.kernels.mlstm_scan import mlstm_scan as r_mlstm
 from repro.kernels.rmsnorm import rmsnorm as r_rmsnorm
 from repro.models import attention as RATT
 from repro.models.attention import decode_attention as r_decode_attention
+import repro_torch.config as TC
+from repro_torch.core import split as TSP
 from repro_torch.kernels import batched_conv as TBC
 from repro_torch.kernels import clip_sgd as TCS
 from repro_torch.kernels import flash_attention as TFA
@@ -36,13 +40,17 @@ from repro_torch.kernels import ops as TOPS
 from repro_torch.kernels import ref as TREF
 from repro_torch.kernels import rmsnorm as TRN
 from repro_torch.models import attention as TATT
+from repro_torch.models import build_model
+from repro_torch.utils.tree import tree_leaves, tree_map
 from test_torch_kernels_cuda import (CONV_CASES, DECODE_CASES, FLASH_CASES,
                                      FLASH_TOL, GAMMA, MLSTM_CASES, MLSTM_TOL,
-                                     RMSNORM_CASES, RMSNORM_TOL, clip_cases)
+                                     RMSNORM_CASES, RMSNORM_TOL, CLIP_TOL,
+                                     LEAF_DS, LEAF_KEEPS, clip_cases,
+                                     leaf_cases, leaf_weights,
+                                     vgg16_leaf_sizes)
 
 FWD_TOL = dict(rtol=2e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=2e-4, atol=2e-4)
-CLIP_TOL = dict(rtol=2e-6, atol=2e-6)
 
 
 @pytest.fixture(autouse=True)
@@ -143,6 +151,100 @@ def test_clip_sgd_matches_reference_kernel(part, keep_spec):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **CLIP_TOL)
 
 
+def _round_leaves(rng, n, ds=LEAF_DS):
+    ps = [rng.standard_normal((n, d)).astype(np.float32) for d in ds]
+    gs = [rng.standard_normal((n, d)).astype(np.float32) for d in ds]
+    scale = rng.uniform(0.1, 1.0, (n,)).astype(np.float32)
+    return ps, gs, scale
+
+
+@pytest.mark.parametrize("n,part", leaf_cases())
+def test_clip_sgd_leaves_matches_reference_kernel(n, part):
+    """One round's call over mixed leaves against the reference's per-leaf
+    kernel (interpret mode), leaf i's keep vector ``keep_spec_i`` for the
+    survivors."""
+    rng = np.random.default_rng(17 + n)
+    ps, gs, scale = _round_leaves(rng, n)
+    w = leaf_weights(rng, n, part)
+    outs = TOPS.clip_sgd_leaves(
+        [torch.from_numpy(p) for p in ps], [torch.from_numpy(g) for g in gs],
+        torch.from_numpy(scale), list(LEAF_KEEPS),
+        None if w is None else torch.from_numpy(w), gamma=GAMMA)
+    assert len(outs) == len(ps)
+    for p, g, keep_spec, out in zip(ps, gs, LEAF_KEEPS, outs):
+        keep = np.full((n,), keep_spec) if w is None \
+            else np.logical_and(keep_spec, w > 0)
+        ref = ROPS.clip_sgd(
+            jnp.asarray(p), jnp.asarray(g), jnp.asarray(scale),
+            jnp.asarray(keep), None if w is None else jnp.asarray(w),
+            gamma=GAMMA, impl="interpret")
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), **CLIP_TOL)
+
+
+@pytest.mark.parametrize("vectors", [1, 2])
+@pytest.mark.parametrize("ds,aligned", [
+    (tuple(vgg16_leaf_sizes()), (True,) * 32),
+    (LEAF_DS + (5120, 1, 4), (True, True, True, False, True, True, True)),
+    ((7, 4099, 4, 1024, 1025), (True,) * 5),
+], ids=["vgg16", "mixed", "ragged"])
+def test_clip_sgd_plan_covers_every_column_once(ds, aligned, vectors):
+    """Block b takes the last leaf whose first chunk is at or before it
+    (the kernel's search) and columns [chunk·W, (chunk+1)·W) of it, W =
+    threads · vectors · (4 or 1): every column of every leaf once, and
+    16-byte vectors only where D % 4 == 0 and the pointers allow."""
+    starts, vecs, total = TCS.clip_sgd_plan(ds, aligned, vectors)
+    assert vecs == [al and d % 4 == 0 for d, al in zip(ds, aligned)]
+    seen = [np.zeros(d, np.int64) for d in ds]
+    for b in range(total):
+        i = bisect.bisect_right(starts, b) - 1
+        width = TCS.THREADS * vectors * (4 if vecs[i] else 1)
+        lo = (b - starts[i]) * width
+        hi = min(ds[i], lo + width)
+        assert lo < hi, (b, i)
+        seen[i][lo:hi] += 1
+    assert all((s == 1).all() for s in seen)
+
+
+def _narrow_vgg_round(seed, n):
+    """(stacked units, grads, clip factors, masks) of a narrowed VGG-9 at N
+    clients, each client's parameters apart, from a numpy seed."""
+    cfg = dataclasses.replace(
+        TC.get_config("vgg9-cifar-small"), arch_id="vgg9-round-update",
+        conv_channels=(8, 16, 16), fc_dims=(32,), image_size=16)
+    units = build_model(cfg).init(torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+
+    def rnd(a):
+        return torch.from_numpy(rng.standard_normal(
+            (n,) + tuple(a.shape)).astype(np.float32))
+
+    stacked = [tree_map(lambda a: a.unsqueeze(0) + 0.1 * rnd(a), u)
+               for u in units]
+    grads = [tree_map(rnd, u) for u in units]
+    scale = torch.from_numpy(rng.uniform(0.1, 1.0, (n,)).astype(np.float32))
+    masks = TSP.client_unit_mask(cfg, len(units), 2)
+    return stacked, grads, scale, masks
+
+
+@pytest.mark.parametrize("part", [None, [1.0, 0.0, 0.5, 1.0], [0.0] * 4],
+                         ids=["full", "partial", "drop-everyone"])
+@pytest.mark.parametrize("do_agg", [False, True], ids=["local", "agg"])
+def test_round_update_through_the_op_matches_inline(do_agg, part):
+    """``hasfl_round_update(impl="kernel")`` on the CPU (one
+    `ops.clip_sgd_leaves` call, the plain loop) against the inline algebra
+    of ``impl=None``, on an aggregation and a non-aggregation round."""
+    stacked, grads, scale, masks = _narrow_vgg_round(3, 4)
+    w = None if part is None else torch.tensor(part)
+    outs = [TSP.hasfl_round_update(
+        [tree_map(torch.clone, u) for u in stacked], grads, masks, do_agg,
+        GAMMA, grad_scale=scale, impl=impl, participation=w)
+        for impl in (None, "kernel")]
+    inline, fused = (tree_leaves(o) for o in outs)
+    assert [t.shape for t in fused] == [t.shape for t in inline]
+    for a, b in zip(fused, inline):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **CLIP_TOL)
+
+
 def test_cpu_tensors_take_the_plain_versions():
     TOPS.reset_launch_counts()
     x, wt, bias, stride = _conv_operands(CONV_CASES[0], seed=1)
@@ -154,6 +256,11 @@ def test_cpu_tensors_take_the_plain_versions():
     TOPS.clip_sgd(p, torch.ones_like(p), torch.ones(2),
                   torch.zeros(2, dtype=torch.bool), gamma=0.1,
                   common=torch.ones(5), use_common=True)
+    TOPS.clip_sgd_leaves([p], [torch.ones_like(p)], torch.ones(2), [True],
+                         gamma=0.1)
+    TOPS.clip_sgd_leaves([p], [torch.ones_like(p)], torch.ones(2), [False],
+                         gamma=0.1, commons=[torch.ones(5)],
+                         count=torch.tensor(2.0))
     q = torch.zeros((1, 4, 2, 32))
     TOPS.flash_attention(q, q, q, causal=True)
     TOPS.rmsnorm(q, torch.ones(32))
@@ -174,6 +281,10 @@ def test_kernel_launchers_refuse_cpu_tensors():
         TCS.clip_sgd_ext_kernel(torch.zeros((2, 3)), torch.zeros((2, 3)),
                                 torch.ones(2), torch.ones(2), torch.zeros(3),
                                 True, gamma=0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        TCS.clip_sgd_leaves_kernel([torch.zeros((2, 3))],
+                                   [torch.zeros((2, 3))], torch.ones(2),
+                                   [True], gamma=0.1)
     q = torch.zeros((1, 4, 2, 32))
     with pytest.raises(ValueError, match="CUDA"):
         TFA.flash_attention_kernel(q, q, q)

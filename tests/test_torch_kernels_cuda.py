@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.clip_sgd_ablation import vgg16_leaf_sizes
 from repro_torch.kernels import batched_conv as TBC
 from repro_torch.kernels import clip_sgd as TCS
 from repro_torch.kernels import flash_attention as TFA
@@ -89,9 +90,42 @@ def clip_cases():
     return cases
 
 
+CLIP_TOL = dict(rtol=2e-6, atol=2e-6)
+# a round's leaves at a small size: the fc head (D = 10, no 16-byte
+# vectors), a bias, a ragged width and a conv; per-leaf keep_spec mixed
+LEAF_DS = (10, 64, 300, 1728)
+LEAF_KEEPS = (True, False, False, True)
+
+
+def leaf_cases():
+    """(n, participation) of the round-update cases: every participation
+    vector of N=4 (cnt == 0 among them), the fractional lone survivor, the
+    full cohort, and N = 1, 3, 30 with the full cohort and with seeded
+    fractional weights ("random", `leaf_weights`)."""
+    cases = [pytest.param(4, None, id="n4-full")]
+    cases += [pytest.param(4, [float((bits >> i) & 1) for i in range(4)],
+                           id=f"n4-part{bits:04b}") for bits in range(16)]
+    cases += [pytest.param(4, [0.0, 0.3, 0.0, 0.0], id="n4-lone-fractional")]
+    cases += [pytest.param(n, w, id=f"n{n}-{w or 'full'}")
+              for n in (1, 3, 30) for w in (None, "random")]
+    return cases
+
+
+def leaf_weights(rng, n, part):
+    """The participation vector of a `leaf_cases` case (None, a list, or
+    "random": fractional weights, every second client dropped)."""
+    if part is None:
+        return None
+    if part == "random":
+        w = rng.uniform(0.2, 1.0, (n,)).astype(np.float32)
+        w[1::2] = 0.0
+        return w
+    return np.asarray(part, np.float32)
+
+
 def _need_card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the CUDA/Triton kernels only run there")
+        pytest.skip("needs a CUDA card: the CUDA kernels only run there")
     from repro_torch.device import disable_tf32
 
     disable_tf32()
@@ -198,6 +232,111 @@ def test_clip_sgd_ext_kernel_matches_plain(n, d, keep, use_common):
     if keep == "none" and not use_common:
         np.testing.assert_array_equal(target.cpu().numpy(),
                                       p.cpu().numpy())   # holds params
+
+
+def _round_case(seed, n, ds, part, ext, keeps=None):
+    """Card inputs of one round's update over leaves of ``ds`` columns:
+    (ps, gs, scale, keep_specs, participation, commons, count)."""
+    rng = np.random.default_rng(seed)
+    w = leaf_weights(rng, n, part)
+    ps = [torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+          .cuda() for d in ds]
+    gs = [torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+          .cuda() for d in ds]
+    scale = torch.from_numpy(rng.uniform(0.1, 1.0, (n,)).astype(np.float32))
+    scale = scale.cuda()
+    keeps = keeps or [bool(k) for k in rng.integers(0, 2, len(ds))]
+    w = None if w is None else torch.from_numpy(w).cuda()
+    commons = count = None
+    if ext:
+        w_eff = torch.ones(n, device="cuda") if w is None else w
+        count = w_eff.sum()
+        commons = [((p - GAMMA * (g * scale[:, None])) * w_eff[:, None]).sum(0)
+                   / torch.where(count > 0, count, 1.0)
+                   for p, g in zip(ps, gs)]
+    return ps, gs, scale, keeps, w, commons, count
+
+
+def _shifted(p):
+    """A copy of ``p`` that starts 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(p.numel() + 1, device=p.device)
+    buf[1:] = p.reshape(-1)
+    return buf[1:].view(p.shape)
+
+
+def _check_round(case, launches, clone=torch.clone):
+    """The one-launch update against the plain loop: in place (on copies
+    made by ``clone``), within the reference's bar, ``launches`` counted
+    launches."""
+    ps, gs, scale, keeps, w, commons, count = case
+    want = TCS.clip_sgd_leaves_plain(ps, gs, scale, keeps, w, gamma=GAMMA,
+                                     commons=commons, count=count)
+    targets = [clone(p) for p in ps]
+    kernel = TCS.clip_sgd_kernel if commons is None \
+        else TCS.clip_sgd_ext_kernel
+    before = kernel.launches
+    got = TOPS.clip_sgd_leaves(targets, gs, scale, keeps, w, gamma=GAMMA,
+                               commons=commons, count=count)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + launches
+    for i, (t, o, x) in enumerate(zip(targets, got, want)):
+        assert o.data_ptr() == t.data_ptr()                 # in place
+        np.testing.assert_allclose(t.cpu().numpy(), x.cpu().numpy(),
+                                   err_msg=f"leaf {i}", **CLIP_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ext", [False, True], ids=["flat", "ext"])
+@pytest.mark.parametrize("n", [8, 16])
+def test_clip_sgd_leaves_kernel_matches_plain_on_vgg16(n, ext):
+    """A VGG-16 round's 32 leaves in one launch, mixed keeps, with
+    participation weights (every second client dropped)."""
+    _need_card()
+    _check_round(_round_case(n, n, vgg16_leaf_sizes(), "random", ext), 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ext", [False, True], ids=["flat", "ext"])
+@pytest.mark.parametrize("n,part", leaf_cases())
+def test_clip_sgd_leaves_kernel_matches_plain(n, part, ext):
+    """The CPU parity cases (N = 1, 3, 4, 30; cnt == 0; fractional lone
+    survivor) on the card, in one launch."""
+    _need_card()
+    _check_round(_round_case(7 + n, n, LEAF_DS, part, ext,
+                             keeps=list(LEAF_KEEPS)), 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ext", [False, True], ids=["flat", "ext"])
+def test_clip_sgd_leaves_kernel_takes_misaligned_leaves(ext):
+    """``[N, D]`` leaves 4 bytes off a 16-byte boundary take single
+    elements, as does D % 4 != 0; aligned ones take vectors."""
+    _need_card()
+    n, ds = 3, (64, 1728, 300, 10)
+    ps, gs, scale, keeps, w, commons, count = _round_case(
+        5, n, ds, "random", ext)
+    shifted = [_shifted(p) for p in ps]
+    tabs, _ = TCS.tables(shifted, gs, scale, keeps, w, gamma=GAMMA,
+                         commons=commons, use=count, use_is_count=True)
+    assert [tabs[0].leaf[i].flags >> 1 for i in range(len(ds))] == [0] * 4
+    tabs, _ = TCS.tables(ps, gs, scale, keeps, w, gamma=GAMMA,
+                         commons=commons, use=count, use_is_count=True)
+    assert [tabs[0].leaf[i].flags >> 1 for i in range(len(ds))] == \
+        [1, 1, 1, 0]
+    _check_round((ps, gs, scale, keeps, w, commons, count), 1,
+                 clone=_shifted)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ext", [False, True], ids=["flat", "ext"])
+def test_clip_sgd_leaves_kernel_past_its_capacity(ext):
+    """More leaves than a launch's table holds: ceil(L / capacity)
+    launches, every leaf updated."""
+    _need_card()
+    rng = np.random.default_rng(3)
+    ds = [int(d) for d in rng.integers(1, 3000, 2 * TCS.CAPACITY + 5)]
+    _check_round(_round_case(9, 3, ds, None, ext),
+                 -(-len(ds) // TCS.CAPACITY))
 
 
 def _randn(gen, shape, dtype, device="cuda"):

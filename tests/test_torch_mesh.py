@@ -47,6 +47,8 @@ from repro_torch.mesh import CohortBank as TBank
 from repro_torch.mesh import MeshSpec as TMesh
 from repro_torch.mesh import sharded as TSH
 from repro_torch.utils.tree import tree_leaves
+from test_torch_kernels_cuda import (CLIP_TOL, LEAF_DS, LEAF_KEEPS,
+                                     leaf_cases, leaf_weights)
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "vgg9-torch-mesh"
@@ -229,6 +231,46 @@ def test_clip_sgd_ext_matches_reference_kernel(weights, keep_all):
     np.testing.assert_array_equal(via_op.numpy(), got.numpy())
     if weights == "drop-everyone":
         np.testing.assert_array_equal(got.numpy(), p)   # holds params
+
+
+@pytest.mark.parametrize("n,part", leaf_cases())
+def test_clip_sgd_ext_leaves_matches_reference_kernel(n, part):
+    """One round's external-mean call over mixed leaves (``commons`` and
+    the global survivor count) against the reference's per-leaf
+    ``_kernel_ext`` in interpret mode: leaf i keeps ``keep_spec_i`` for the
+    survivors and takes its mean where ``cnt > 0 and not keep_spec_i``."""
+    rng = np.random.default_rng(23 + n)
+    gamma = 0.1
+    w = leaf_weights(rng, n, part)
+    w_eff = np.ones((n,), np.float32) if w is None else w
+    cnt = w_eff.sum(dtype=np.float32)
+    ps, gs, commons = [], [], []
+    scale = rng.uniform(0.5, 1.0, size=n).astype(np.float32)
+    for d in LEAF_DS:
+        p = rng.normal(size=(n, d)).astype(np.float32)
+        g = rng.normal(size=(n, d)).astype(np.float32)
+        spec = p - gamma * (g * scale[:, None])
+        ps.append(p)
+        gs.append(g)
+        commons.append(((spec * w_eff[:, None]).sum(0)
+                        / (cnt if cnt > 0 else 1.0)).astype(np.float32))
+    outs = TOPS.clip_sgd_leaves(
+        [torch.from_numpy(p) for p in ps], [torch.from_numpy(g) for g in gs],
+        torch.from_numpy(scale), list(LEAF_KEEPS),
+        None if w is None else torch.from_numpy(w), gamma=gamma,
+        commons=[torch.from_numpy(c) for c in commons],
+        count=torch.tensor(cnt))
+    for p, g, c, keep_spec, out in zip(ps, gs, commons, LEAF_KEEPS, outs):
+        keep = np.logical_and(keep_spec, w_eff > 0)
+        use = bool(cnt > 0 and not keep_spec)
+        want = np.asarray(clip_sgd_update(
+            jnp.asarray(p), jnp.asarray(g), jnp.asarray(scale),
+            jnp.asarray(keep), None, gamma=gamma, block_d=128,
+            interpret=True, common=jnp.asarray(c),
+            use_common=jnp.asarray(use)))
+        np.testing.assert_allclose(out.numpy(), want, **CLIP_TOL)
+        if not keep.any() and not use:
+            np.testing.assert_array_equal(out.numpy(), p)  # holds params
 
 
 # ---------------------------------------------------------------------------
