@@ -23,7 +23,12 @@ nothing of the reference package.  Phases, each printing one JSON line:
    them, one round's 32 leaves in one launch against the plain loop, with
    mixed keeps, with participation and at N=30 — with times of kernel,
    plain version and the library yardstick (``torch.bmm``), and each
-   kernel's bound on this card.
+   kernel's bound on this card.  Then both as the grid runner calls them,
+   four cells of N=8 folded into one call (the ``grid`` entry): the GEMM
+   at the split-K dW shapes planned per cell, bitwise equal to the
+   one-cell calls (the unplanned call's difference recorded as the
+   witness), and one round's update of four cells' 32 leaves in two
+   launches, bitwise equal to four one-cell launches.
 4. ``train``: the flat main path, `Session(...).run()` for VGG-16 at full
    width, N=8, 12 rounds; the launch counters are zeroed just before and
    read just after: the GEMM > 0, the update once a round, the
@@ -41,7 +46,21 @@ nothing of the reference package.  Phases, each printing one JSON line:
    flat session, both on the card from the same weights: decisions,
    clocks and gather plans bitwise equal, losses and parameters within
    1e-4.
-8. ``serve``: the token-model serving path, `repro_torch.launch.serve.serve`
+8. ``grid_cross``: `run_grid` on the card against each cell's own
+   `run()`, at ``cross_device``'s sizes: three policies crossing pow2
+   buckets (one with the estimating controller), and seeds x partitions
+   (one folded carry of four cells reading their own data).  Decisions,
+   clocks, gather plans, losses, accuracies and parameters bitwise equal;
+   the op-by-op witness of one folded round body against per-cell ones
+   goes to ``--detail``.
+9. ``grid``: `run_grid` on four full-width cells (VGG-16, N=8, 12 rounds,
+   {hasfl, rbs+rms} x seed {0, 1}), timed against the same four cells run
+   one after another; counters zeroed just before and read just after:
+   the GEMM once per conv GEMM of a dispatch round (not per cell), the
+   update ⌈members·32/64⌉ times a round per dispatch, the external-mean
+   update 0; every cell bitwise equal to its own run.  Seconds, seconds
+   per cell-round, peak memory and the dispatch record.
+10. ``serve``: the token-model serving path, `repro_torch.launch.serve.serve`
    for qwen3-1.7b at full width (28 layers, d 2048, vocab 151936, bf16)
    with the port's seeded init and `launch.serve.FULL_WIDTH_TRAFFIC`
    (8 prompts of 512 tokens, a cache of 544, prefill and 32 greedy
@@ -51,10 +70,10 @@ nothing of the reference package.  Phases, each printing one JSON line:
    forwards, the prefill's 28 flash launches all on the tensor-core path
    and every decode step's 28 on the split-KV path.  Prefill ms, decode
    ms per step, tokens/s, peak memory.
-9. ``serve_ssm``: the same on xlstm-350m at full width (24 layers, bf16):
+11. ``serve_ssm``: the same on xlstm-350m at full width (24 layers, bf16):
    20 mLSTM-scan launches (prefill only), all 20 on the tensor-core
    parallel form and none on the recurrence, 49 RMSNorms per forward.
-10. ``serve_cross``: the card with its kernels against the CPU with the
+12. ``serve_cross``: the card with its kernels against the CPU with the
    plain versions, on the same fp32 weights (TF32 off): qwen3 cut to 2
    layers and xlstm to one period of 6, full width otherwise; 2 prompts of
    64 tokens, then 8 decode steps teacher-forced with the CPU's greedy
@@ -93,6 +112,7 @@ detail goes to ``--detail`` (default ``build/chip_smoke.json``).
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -123,6 +143,10 @@ CONV_GRAD_TOL = 2e-4
 CLIP_TOL = 2e-6
 CROSS_TOL = 1e-4
 MESH_SLOTS = 16       # resident clients of the mesh phase (N_local at d=1)
+# the grid phase's cells: the train phase's VGG-16 at full width, crossed
+# over policy {hasfl, rbs+rms} and seed {0, 1}
+GRID = dict(arch="vgg16-cifar", n_clients=8, partition="iid", n_train=4096,
+            n_test=512, rounds=12, eval_every=4)
 
 # the reference's own token-kernel cases (tests/test_kernels.py) and bars
 FLASH_CASES = [  # (b, sq, sk, hq, hkv, hd, causal, window, dtype)
@@ -899,6 +923,109 @@ def _mlstm_checks(detail):
     return rows, worst
 
 
+def _grid_kernel_checks(detail):
+    """Kernels 1 and 2 as the grid runner calls them, G=4 cells of N=8
+    folded into one call: the GEMM at the split-K dW shapes planned per
+    cell (``plan_n=8``), bitwise equal to the four one-cell calls and
+    within the GEMM's bar of the plain version, with the unplanned call's
+    difference recorded as the witness; the clip+SGD update over the 32
+    VGG-16 leaves of four cells with their own keeps and participation,
+    in ⌈4·32/64⌉ = 2 launches, bitwise equal to four one-cell launches and
+    within `CLIP_TOL` of the plain cells; then timed with the full cohort
+    (every row read and written: 12·G·N·ΣD bytes) against four one-cell
+    launches and the plain cells."""
+    import torch
+    from repro_torch.kernels import batched_conv as BC
+    from repro_torch.kernels import clip_sgd as CS
+
+    cells, n = 4, 8
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    gemm = []
+    for name, kind, m, k, c in vgg16_gemm_shapes(n):
+        if name not in ("conv1.dW", "conv2.dW"):
+            continue
+        a = torch.randn((cells * n, k, m), device="cuda",
+                        generator=gen).transpose(1, 2)
+        b = torch.randn((cells * n, k, c), device="cuda", generator=gen)
+        folded = BC.batched_matmul_kernel(a, b, plan_n=n)
+        alone = torch.cat([BC.batched_matmul_kernel(a[i * n:(i + 1) * n],
+                                                    b[i * n:(i + 1) * n])
+                           for i in range(cells)])
+        unplanned = BC.batched_matmul_kernel(a, b)
+        ref = BC.batched_matmul_plain(a, b)
+        torch.cuda.synchronize()
+        check(torch.equal(folded, alone), f"grid GEMM {name}: the folded "
+              "call planned per cell is not bitwise the one-cell calls")
+        err = float((folded - ref).abs().max())
+        tol = GEMM_RTOL * float(ref.abs().max()) * max(1.0, (k / 1024) **
+                                                         0.5)
+        check(err <= tol, f"grid GEMM {name}: {err} > {tol}")
+        splits = BC.gemm_splits(cells * n, m, k, c, plan_n=n)[0]
+        gemm.append(dict(
+            name=name, shape=[cells * n, m, k, c], max_abs_err=err,
+            splits=splits,
+            unplanned_splits=BC.gemm_splits(cells * n, m, k, c)[0],
+            unplanned_bitwise=bool(torch.equal(unplanned, alone)),
+            unplanned_max_abs_diff=float((unplanned - alone).abs().max()),
+            workspace_bytes=4 * splits * cells * n * m * c,
+            ms=time_ms(lambda: BC.batched_matmul_kernel(a, b, plan_n=n)),
+            plain_ms=time_ms(lambda: BC.batched_matmul_plain(a, b)),
+            library_ms=time_ms(lambda: torch.bmm(a, b))))
+        del a, b, folded, alone, unplanned, ref
+
+    sizes = vgg16_leaf_sizes()
+    gamma = 0.05
+    ps = [torch.randn((cells * n, d), device="cuda", generator=gen)
+          for d in sizes]
+    gs = [torch.randn((cells * n, d), device="cuda", generator=gen)
+          for d in sizes]
+    scale = torch.rand(cells * n, device="cuda", generator=gen) * 0.9 + 0.1
+    w = torch.rand(cells * n, device="cuda", generator=gen) * 0.9 + 0.1
+    w[::3] = 0.0
+    keeps = [[(i + c) % 3 != 0 for i in range(len(sizes))]
+             for c in range(cells)]
+    want = CS.clip_sgd_leaves_plain(ps, gs, scale, keeps, w, gamma=gamma,
+                                    cells=cells)
+    folded = [p.clone() for p in ps]
+    before = CS.clip_sgd_kernel.launches
+    CS.clip_sgd_leaves_kernel(folded, gs, scale, keeps, w, gamma=gamma,
+                              cells=cells)
+    torch.cuda.synchronize()
+    launches = CS.clip_sgd_kernel.launches - before
+    check(launches == -(-cells * len(sizes) // CS.CAPACITY),
+          f"grid clip_sgd: {launches} launches for {cells} cells")
+    err = max(float((a - b).abs().max()) for a, b in zip(folded, want))
+    check(err <= CLIP_TOL, f"grid clip_sgd: {err} from the plain cells")
+    for c in range(cells):
+        rows = slice(c * n, (c + 1) * n)
+        alone = [p[rows].clone() for p in ps]
+        CS.clip_sgd_leaves_kernel(alone, [g[rows] for g in gs],
+                                  scale[rows], keeps[c], w[rows],
+                                  gamma=gamma)
+        torch.cuda.synchronize()
+        check(all(torch.equal(f[rows], a) for f, a in zip(folded, alone)),
+              f"grid clip_sgd: cell {c} is not bitwise its own launch")
+
+    def kernel():
+        CS.clip_sgd_leaves_kernel(ps, gs, scale, keeps, gamma=gamma,
+                                  cells=cells)
+
+    def per_cell():
+        for c in range(cells):
+            rows = slice(c * n, (c + 1) * n)
+            CS.clip_sgd_leaves_kernel(
+                [p[rows] for p in ps], [g[rows] for g in gs], scale[rows],
+                keeps[c], gamma=gamma)
+
+    clip = dict(cells=cells, n=n, launches=launches, max_abs_err=err,
+                ms=time_ms(kernel), per_cell_ms=time_ms(per_cell),
+                plain_ms=time_ms(lambda: CS.clip_sgd_leaves_plain(
+                    ps, gs, scale, keeps, gamma=gamma, cells=cells)),
+                bound_ms=12.0 * cells * n * sum(sizes) / PEAK_BYTES * 1e3)
+    detail["grid_kernels"] = dict(gemm=gemm, clip_sgd=clip)
+    return dict(gemm=gemm, clip_sgd=clip)
+
+
 def phase_kernels(detail):
     from repro_torch.device import disable_tf32
 
@@ -910,6 +1037,7 @@ def phase_kernels(detail):
     flash, flash_err = _flash_checks(detail)
     norms, norm_err = _rmsnorm_checks(detail)
     mlstm, mlstm_err = _mlstm_checks(detail)
+    grid = _grid_kernel_checks(detail)
     emit({"phase": "kernels",
           "batched_matmul": {k: gemm[k] for k in (
               "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")},
@@ -934,6 +1062,10 @@ def phase_kernels(detail):
               for path, r in mlstm.items()},
           "max_abs_err": {"flash_attention": flash_err, "rmsnorm": norm_err,
                           "mlstm_scan": mlstm_err},
+          "grid": {"gemm": [{k: r[k] for k in (
+              "name", "shape", "splits", "unplanned_splits",
+              "unplanned_bitwise", "ms", "library_ms")}
+              for r in grid["gemm"]], "clip_sgd": grid["clip_sgd"]},
           "note": "GEMM: one VGG-16 round's shapes summed at N=8 (b=64); "
                   "clip_sgd (N=8) and clip_sgd_ext (N=16): one round's 32 "
                   "leaves in one call; "
@@ -1162,6 +1294,311 @@ def phase_mesh_cross():
     check(loss_err <= CROSS_TOL, f"mesh_cross: losses differ by {loss_err}")
     check(param_err <= CROSS_TOL,
           f"mesh_cross: parameters differ by {param_err}")
+
+
+def _recording(sess):
+    """Record every gather plan ``sess`` draws (a list, filled as it runs)."""
+    plans = []
+    draw = sess.sim.store.segment_indices
+
+    def recording(*a):
+        plans.append(draw(*a))
+        return plans[-1]
+
+    sess.sim.store.segment_indices = recording
+    return plans
+
+
+def _grid_witness(specs, fold_library: bool = False):
+    """One round body of fresh sessions of ``specs`` (same cut, b=8 for
+    every client), folded against per-cell, op by op on the card: the
+    gathered batch, each layer's output, the losses, each gradient leaf,
+    the clip factors and each updated leaf.  With ``fold_library`` the
+    folded body runs the library ops that the grid runs cell by cell
+    (`utils.cells.by_cell`: clip norms, bias gradients, FC GEMMs, loss
+    means) over all G·N rows at once, to show whether the card needs the
+    per-cell calls.  Returns a row per stage, bitwise or not, with its
+    largest difference."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from repro_torch.api import Session
+    from repro_torch.core import split as SP
+    from repro_torch.data.pipeline import DeviceClientStore
+    from repro_torch.models.cnn import cnn_stacked_forward
+    from repro_torch.utils import cells as CELLS
+    from repro_torch.utils.cells import fold
+    from repro_torch.utils.tree import tree_leaves
+
+    sims = [Session(s).sim for s in specs]
+    sim0, cells, n = sims[0], len(sims), sims[0].n
+    b, b_pad = np.full(n, 8), 8
+    idx = [sim.store.segment_indices(1, b, b_pad) for sim in sims]
+    rmask = [sim.store.row_mask(b, b_pad) for sim in sims]
+    arrays = DeviceClientStore.stack_arrays([sim.store for sim in sims])
+    n_train = len(next(iter(sim0.store.arrays.values())))
+    plan, mask = DeviceClientStore.fold_plan(idx, rmask, n_train)
+    dev = sim0.device
+    batch = DeviceClientStore.device_batch(
+        arrays, torch.as_tensor(plan[0], device=dev),
+        torch.as_tensor(mask, device=dev))
+    alone = [DeviceClientStore.device_batch(
+        sim.store.arrays, torch.as_tensor(i[0], device=dev, dtype=torch.long),
+        torch.as_tensor(m, device=dev)) for sim, i, m in zip(sims, idx, rmask)]
+    carry = fold([sim._stacked for sim in sims])
+    rows = []
+
+    def stage(name, folded, per_cell):
+        want = torch.cat(per_cell)
+        rows.append(dict(stage=name, bitwise=bool(torch.equal(folded, want)),
+                         max_abs_diff=float((folded - want).abs().max())))
+
+    def folded(fn, *a):
+        if not fold_library:
+            return fn(*a)
+        with mock.patch.object(CELLS, "apart", lambda t, cell_size: False):
+            return fn(*a)
+
+    stage("batch.images", batch["images"], [a["images"] for a in alone])
+    with torch.no_grad():
+        for layer in range(1, len(carry) + 1):
+            stage(f"layer{layer}", folded(
+                cnn_stacked_forward, carry[:layer], batch["images"],
+                sim0.cfg, n),
+                [cnn_stacked_forward(sim._stacked[:layer], a["images"],
+                                     sim0.cfg) for sim, a in zip(sims, alone)])
+    got = folded(sim0._client_grads, carry, batch, cells)
+    want = [sim._client_grads(sim._stacked, a) for sim, a in zip(sims, alone)]
+    stage("losses", got[0], [w[0] for w in want])
+    for j, leaf in enumerate(tree_leaves(got[1])):
+        stage(f"grad{j}", leaf, [tree_leaves(w[1])[j] for w in want])
+    stage("clip_scale", got[2], [w[2] for w in want])
+    mask_u = SP.client_unit_mask(sim0.cfg, len(carry), 2)
+    new = SP.hasfl_round_update(carry, got[1], np.stack([mask_u] * cells),
+                                False, sim0.sfl.lr, grad_scale=got[2],
+                                impl="kernel", cells=cells)
+    per = [SP.hasfl_round_update(sim._stacked, w[1], mask_u, False,
+                                 sim0.sfl.lr, grad_scale=w[2], impl="kernel")
+           for sim, w in zip(sims, want)]
+    for j, leaf in enumerate(tree_leaves(new)):
+        stage(f"update{j}", leaf, [tree_leaves(p)[j] for p in per])
+    return rows
+
+
+def phase_grid_cross(detail):
+    """`run_grid` on the card against each cell's own `run()`, at
+    ``cross_device``'s sizes: grid (a), three policies crossing pow2
+    buckets with the estimating controller, and grid (b), seeds x
+    partitions (cells reading their own data).  Decisions, clocks, gather
+    plans, losses, accuracies and parameters bitwise; the op-by-op
+    witness of one folded round body goes to ``--detail``."""
+    import numpy as np
+    import torch
+    from repro_torch.api import ExperimentSpec, Session, grid, run_grid
+    from repro_torch.config import SFLConfig
+    from repro_torch.kernels import ops
+    from repro_torch.utils.tree import tree_leaves
+
+    base = dict(arch="vgg9-cifar-small", n_clients=4, partition="iid",
+                n_train=400, n_test=100, rounds=4, eval_every=2,
+                estimate=False, sfl=SFLConfig(lr=0.05, agg_interval=2))
+    grids = {
+        "a": [dict(policy="fixed(b=8,cut=3)"), dict(policy="rbs+rms"),
+              dict(policy="hasfl", estimate=True)],
+        "b": [dict(policy="hasfl", seed=s, partition=p)
+              for s in (0, 1) for p in ("iid", "noniid-shards")],
+    }
+    same = lambda xs, ys: len(xs) == len(ys) and all(
+        np.array_equal(x, y) for x, y in zip(xs, ys))
+    out = {"phase": "grid_cross", "arch": base["arch"]}
+    bad = []
+    for name, cells in grids.items():
+        specs = [ExperimentSpec(**dict(base, **c)) for c in cells]
+        alone = [Session(s) for s in specs]
+        plans_alone = [_recording(s) for s in alone]
+        seq = [s.run() for s in alone]
+        folded = [Session(s) for s in specs]
+        plans_folded = [_recording(s) for s in folded]
+        ops.reset_launch_counts()
+        res = run_grid(folded)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        rows = []
+        for i, (r, q, sr, sq, pr, pq) in enumerate(zip(
+                res, seq, folded, alone, plans_folded, plans_alone)):
+            wr, wq = tree_leaves(sr.sim._stacked), tree_leaves(sq.sim._stacked)
+            row = dict(
+                decisions=same(r.b_history, q.b_history)
+                and same(r.cut_history, q.cut_history),
+                clock=r.clock == q.clock, plans=same(pr, pq),
+                losses=(r.train_loss, r.test_loss, r.test_acc)
+                == (q.train_loss, q.test_loss, q.test_acc),
+                params=all(torch.equal(a, b) for a, b in zip(wr, wq)),
+                loss_max_diff=max(abs(a - b) for a, b in zip(
+                    r.train_loss + r.test_loss + r.test_acc,
+                    q.train_loss + q.test_loss + q.test_acc)),
+                param_max_diff=max(float((a - b).abs().max())
+                                   for a, b in zip(wr, wq)))
+            rows.append(row)
+            bad += [f"grid {name} cell {i}: {k}" for k in (
+                "decisions", "clock", "plans", "losses", "params")
+                if not row[k]]
+        out[name] = dict(
+            cells=[c["policy"] + (f" seed {c['seed']} {c['partition']}"
+                                  if "seed" in c else "") for c in cells],
+            dispatches=[[d.t0, d.rounds, d.b_pad, list(d.members)]
+                        for d in grid.run_group.dispatches],
+            launches=launches, cells_bitwise=rows,
+            train_loss=[r.train_loss for r in res])
+        check(launches["batched_matmul"] > 0 and launches["clip_sgd"] > 0,
+              f"grid_cross {name}: the kernels never launched")
+        check(len({tuple(r.train_loss) for r in res}) == len(res),
+              f"grid_cross {name}: cells do not differ")
+    # the grid's round body, then the same with the library ops folded:
+    # the first stage at which each differs from the per-cell bodies
+    for key, fold_library in (("grid_witness", False),
+                              ("grid_witness_library_folded", True)):
+        witness = _grid_witness([ExperimentSpec(**dict(base, **c))
+                                 for c in grids["b"]], fold_library)
+        detail[key] = witness
+        out[key + "_first_difference"] = next(
+            (w for w in witness if not w["bitwise"]), None)
+    emit(out)
+    detail["grid_cross"] = out
+    check(not bad, "; ".join(bad))
+    return out
+
+
+def _timed_policies(sessions):
+    """Wrap each session's policy to add its wall seconds (the BCD solve,
+    the G²/σ² estimate and their syncs) to the one-element list
+    returned.  The card is synchronized before the clock starts, so a
+    call is not charged with the rounds still queued before it."""
+    import torch
+
+    spent = [0.0]
+    for sess in sessions:
+        def timed(sim, rng, policy=sess.policy):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return policy(sim, rng)
+            finally:
+                torch.cuda.synchronize()
+                spent[0] += time.perf_counter() - t0
+        sess.policy = timed
+    return spent
+
+
+def phase_grid(detail):
+    """`run_grid` on four full-width cells — VGG-16, N=8, 12 rounds,
+    {hasfl, rbs+rms} x seed {0, 1} — against the same four cells run one
+    after another: seconds, seconds per cell-round, peak memory, the
+    dispatch record and the launch counts (counters zeroed just before
+    the grid run and read just after).  Checks: one GEMM launch per conv
+    GEMM of a dispatch round, not per cell (both runs make the same eval
+    and estimate launches, so the grid makes 38 fewer for each cell-round
+    a dispatch round folds), ⌈members·32/64⌉ update launches a round per
+    dispatch, no external-mean launch, finite losses and parameters, and
+    every cell bitwise equal to its own run."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.api import ExperimentSpec, Session, grid, run_grid
+    from repro_torch.config import SFLConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.clip_sgd import CAPACITY
+    from repro_torch.utils.tree import tree_leaves
+
+    specs = [ExperimentSpec(
+        **GRID, policy=policy, seed=seed, conv_impl="kernel",
+        update_impl="kernel", sfl=SFLConfig(lr=0.05, agg_interval=3))
+        for policy in ("hasfl", "rbs+rms") for seed in (0, 1)]
+    cell_rounds = len(specs) * specs[0].rounds
+    runs = {}
+    for runner in ("sequential", "grid"):
+        sessions = [Session(s) for s in specs]
+        n_leaves = len(tree_leaves(sessions[0].sim.units))
+        policy_s = _timed_policies(sessions)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        grid.run_group.dispatches.clear()
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_grid(sessions, runner=runner)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        runs[runner] = dict(
+            seconds=seconds, seconds_per_cell_round=seconds / cell_rounds,
+            policy_seconds=policy_s[0],
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            launches=ops.launch_counts(),
+            dispatches=list(grid.run_group.dispatches), res=res,
+            params=[[t.cpu() for t in tree_leaves(s.sim._stacked)]
+                    for s in sessions])
+        del sessions
+    g, q = runs["grid"], runs["sequential"]
+    # a round's GEMMs: forward, dW and dx of every conv, no dx for the first
+    per_round = 3 * len(get_config(specs[0].arch).conv_channels) - 1
+    dispatch_rounds = sum(d.rounds for d in g["dispatches"])
+    saved = q["launches"]["batched_matmul"] - g["launches"]["batched_matmul"]
+    want_updates = sum(d.rounds * -(-len(d.members) * n_leaves // CAPACITY)
+                       for d in g["dispatches"])
+    res = g["res"]
+    same = lambda xs, ys: len(xs) == len(ys) and all(
+        np.array_equal(x, y) for x, y in zip(xs, ys))
+    bitwise = [dict(
+        decisions=same(r.b_history, s.b_history)
+        and same(r.cut_history, s.cut_history),
+        clock=r.clock == s.clock,
+        losses=(r.train_loss, r.test_loss, r.test_acc)
+        == (s.train_loss, s.test_loss, s.test_acc),
+        params=all(torch.equal(a, b) for a, b in zip(pr, ps)))
+        for r, s, pr, ps in zip(res, q["res"], g["params"], q["params"])]
+    out = {"phase": "grid", "arch": specs[0].arch,
+           "n_clients": specs[0].n_clients, "rounds": specs[0].rounds,
+           "cells": [f"{s.policy} seed {s.seed}" for s in specs],
+           "seconds": g["seconds"],
+           "seconds_per_cell_round": g["seconds_per_cell_round"],
+           "policy_seconds": g["policy_seconds"],
+           "max_memory_allocated": g["max_memory_allocated"],
+           "dispatches": [[d.t0, d.rounds, d.b_pad, list(d.members)]
+                          for d in g["dispatches"]],
+           "launches": g["launches"],
+           "gemm_launches_a_dispatch_round": per_round,
+           "dispatch_rounds": dispatch_rounds, "cell_rounds": cell_rounds,
+           "gemm_launches_saved": saved,
+           "expected_update_launches": want_updates,
+           "sequential": {k: q[k] for k in (
+               "seconds", "seconds_per_cell_round", "policy_seconds",
+               "max_memory_allocated", "launches")},
+           "train_loss": [r.train_loss for r in res],
+           "test_acc": [r.test_acc for r in res],
+           "b_history": [[list(map(int, b)) for b in r.b_history]
+                         for r in res],
+           "bitwise_vs_sequential": bitwise}
+    emit(out)
+    detail["grid"] = out
+    check(saved == per_round * (cell_rounds - dispatch_rounds),
+          f"grid: {saved} GEMM launches fewer than sequential, not "
+          f"{per_round} for each of the {cell_rounds - dispatch_rounds} "
+          "cell-rounds folded away")
+    check(g["launches"]["clip_sgd"] == want_updates,
+          f"grid: {g['launches']['clip_sgd']} update launches, not "
+          f"{want_updates}")
+    check(g["launches"]["clip_sgd_ext"] == 0,
+          "grid: the external-mean update launched")
+    check(all(math.isfinite(v) for r in res
+              for v in r.train_loss + r.test_loss + r.clock),
+          "grid: non-finite loss or clock")
+    check(all(bool(torch.isfinite(t).all()) for ps in g["params"]
+              for t in ps), "grid: non-finite parameters")
+    check(all(all(row.values()) for row in bitwise),
+          f"grid: cells differ from their own runs: {bitwise}")
+    return out
 
 
 def _expected_launches(cfg, forwards: int) -> dict:
@@ -1405,6 +1842,13 @@ def main(argv=None) -> int:
     import torch.distributed as dist
 
     dist.destroy_process_group()      # the mesh phases' world of one
+    phase_grid_cross(detail)
+    grid = phase_grid(detail)
+    # a simulator refers to itself (its segment function is a bound
+    # method), so the earlier phases' sessions and their device tensors
+    # go only with a collection: free them before serving's peak is read
+    gc.collect()
+    torch.cuda.empty_cache()
     serve = phase_serve("qwen3-1.7b", "serve")
     serve_ssm = phase_serve("xlstm-350m", "serve_ssm")
     phase_serve_cross()
@@ -1415,6 +1859,7 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/csrc/batched_matmul.cu",
          "replaces": "src/repro/kernels/batched_conv.py:63",
          "launches": launches["batched_matmul"],
+         "launches_grid": grid["launches"]["batched_matmul"],
          "max_abs_err": gemm["max_abs_err"], "ms": gemm["ms"],
          "plain_ms": gemm["plain_ms"], "bound_ms": gemm["bound_ms"],
          "bound_by": gemm["bound_by"], "library_ms": gemm["library_ms"]},
@@ -1422,6 +1867,7 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/csrc/clip_sgd.cu",
          "replaces": "src/repro/kernels/clip_sgd.py:29",
          "launches": launches["clip_sgd"],
+         "launches_grid": grid["launches"]["clip_sgd"],
          "max_abs_err": clip["max_abs_err"], "ms": clip["ms"],
          "device_ms": clip["device_ms"],
          "plain_ms": clip["plain_ms"], "bound_ms": clip["bound_ms"],

@@ -2,7 +2,8 @@
 
 `ExperimentSpec` (frozen, JSON round-trippable, the reference's form)
 describes one simulation cell; `Session` assembles and runs it on the
-card (or, when asked, the CPU).
+card (or, when asked, the CPU), and `run_grid` runs many, folding the
+compatible ones into one run (`group_cells`, `run_group`).
 """
 
 from repro_torch.api.policies import (
@@ -11,8 +12,14 @@ from repro_torch.api.policies import (
     parse_policy,
     register_policy,
 )
-from repro_torch.api.runners import ExecutionChoice, apply_choice, pick
-from repro_torch.api.session import Session
+from repro_torch.api.grid import group_cells, run_group
+from repro_torch.api.runners import (
+    ExecutionChoice,
+    apply_choice,
+    pick,
+    register_choice,
+)
+from repro_torch.api.session import Session, run_grid
 from repro_torch.api.spec import (
     SPEC_VERSION,
     ExperimentSpec,
@@ -26,7 +33,11 @@ __all__ = [
     "ExperimentSpec",
     "Session",
     "apply_choice",
+    "group_cells",
     "pick",
+    "register_choice",
+    "run_grid",
+    "run_group",
     "list_policies",
     "load_specs",
     "make_policy",

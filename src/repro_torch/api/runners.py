@@ -1,14 +1,21 @@
-"""Arch-family x device kernel table (port of `repro.api.runners`).
+"""Arch-family x device execution table (port of `repro.api.runners`).
 
 The reference keys its table on (arch family, JAX backend) and picks the
-runner and the kernel impls measured fastest there; its TPU CNN row turns
-on the batched-conv and fused clip+SGD kernels.  The port's counterpart
-row is ``("cnn", "cuda")``: both hand-written kernels.  Only sequential
-execution is ported (the grid runner is a ROADMAP.md item), so the table
-holds kernel impls only, and it only *fills* knobs a spec leaves unset.
+runner (grid or sequential) and the kernel impls measured fastest there;
+its TPU CNN row turns on the batched-conv and fused clip+SGD kernels.  The
+port's counterpart row is ``("cnn", "cuda")``: the grid runner, with both
+hand-written kernels.  `Session.run_grid(..., runner="auto")` resolves
+each compatible group through this table, and `apply_choice` only *fills*
+knobs a spec leaves unset, so pinned specs replay exactly.
+
+The ``("cnn", "cpu")`` row keeps the reference's core-count rule: grid
+with two cores or more, sequential on one (`cpu_cores`,
+``REPRO_CPU_CORES``).  It fills no kernel impl: the port's CPU conv is
+always the im2col GEMM's plain version, whatever ``conv_impl`` says.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -18,18 +25,37 @@ from repro_torch.config import get_config
 
 @dataclass(frozen=True)
 class ExecutionChoice:
-    """The kernel impls one cell should run with."""
+    """How one grid-compatible group of cells should execute."""
 
+    runner: str = "grid"                 # "grid" | "sequential"
     conv_impl: Optional[str] = None      # None = the plain stacked conv
     update_impl: Optional[str] = None    # None = the inline plain update
+
+    def __post_init__(self):
+        if self.runner not in ("grid", "sequential"):
+            raise ValueError(f"unknown runner {self.runner!r}")
 
 
 _DEFAULT = ExecutionChoice()
 
 _REGISTRY = {
-    ("cnn", "cuda"): ExecutionChoice(conv_impl="kernel",
+    ("cnn", "cuda"): ExecutionChoice("grid", conv_impl="kernel",
                                      update_impl="kernel"),
 }
+
+
+def cpu_cores() -> int:
+    """Cores the process can use (``REPRO_CPU_CORES`` overrides — tests and
+    pinned-affinity launchers set it)."""
+    env = os.environ.get("REPRO_CPU_CORES")
+    if env:
+        return max(1, int(env))
+    return os.cpu_count() or 1
+
+
+def _cnn_cpu_choice() -> ExecutionChoice:
+    """The (cnn, cpu) row, resolved from the core count."""
+    return ExecutionChoice("grid" if cpu_cores() >= 2 else "sequential")
 
 
 def arch_family(arch: str) -> str:
@@ -37,8 +63,16 @@ def arch_family(arch: str) -> str:
 
 
 def pick(spec: ExperimentSpec, device_type: str) -> ExecutionChoice:
-    """The table's choice for one cell on ``device_type`` ("cuda"/"cpu")."""
-    return _REGISTRY.get((arch_family(spec.arch), device_type), _DEFAULT)
+    """The table's choice for one cell on ``device_type`` ("cuda"/"cpu").
+
+    A `register_choice` pin always wins; the (cnn, cpu) default is
+    core-count-aware (`_cnn_cpu_choice`)."""
+    key = (arch_family(spec.arch), device_type)
+    if key in _REGISTRY:
+        return _REGISTRY[key]
+    if key == ("cnn", "cpu"):
+        return _cnn_cpu_choice()
+    return _DEFAULT
 
 
 def apply_choice(spec: ExperimentSpec, device_type: str) -> ExperimentSpec:
@@ -51,3 +85,8 @@ def apply_choice(spec: ExperimentSpec, device_type: str) -> ExperimentSpec:
         overrides["update_impl"] = choice.update_impl
     return spec.replace(**overrides) if overrides else spec
 
+
+def register_choice(family: str, device_type: str,
+                    choice: ExecutionChoice) -> None:
+    """Override one (arch family, device type) row."""
+    _REGISTRY[(family, device_type)] = choice

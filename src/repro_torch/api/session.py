@@ -7,7 +7,8 @@ and the device pool, in that order, and the simulator's own
 gather plans match the reference bitwise for the same spec.
 
 Sessions are single-shot: the simulator they wrap is stateful, so build a
-fresh `Session` per run.
+fresh `Session` per run.  `Session.run_grid` runs many specs, folding each
+grid-compatible group into one run (`repro_torch.api.grid`).
 
 A spec with ``mesh`` runs on the default `torch.distributed` process
 group, one process per device.  At ``mesh.devices`` 1 (or None) with no
@@ -20,11 +21,13 @@ not ``mesh.devices``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 
 from repro_torch.api import policies as policy_registry
+from repro_torch.api import runners
+from repro_torch.api.grid import group_cells, run_group
 from repro_torch.api.spec import ExperimentSpec
 from repro_torch.config import get_config
 from repro_torch.core.latency import sample_devices
@@ -139,14 +142,18 @@ class Session:
         test = {"images": xte, "labels": yte}
         return train, test, ytr
 
-    def run(self, *, verbose: bool = False) -> SimResult:
-        """Run this cell (single-shot)."""
+    def _consume(self) -> None:
+        """Mark this session as run (single-shot) or raise if it was."""
         if self._ran:
             raise RuntimeError(
                 "Session already ran; sessions are single-shot — build a "
                 "fresh Session from the spec to rerun"
             )
         self._ran = True
+
+    def run(self, *, verbose: bool = False) -> SimResult:
+        """Run this cell (single-shot)."""
+        self._consume()
         return self.sim.run(
             self.policy,
             rounds=self.spec.rounds,
@@ -154,3 +161,71 @@ class Session:
             reconfigure_every=self.spec.reconfigure_every,
             verbose=verbose,
         )
+
+    @classmethod
+    def run_grid(
+        cls,
+        specs: Sequence[Union[ExperimentSpec, "Session"]],
+        *,
+        runner: Optional[str] = None,
+        device=None,
+        verbose: bool = False,
+    ) -> List[SimResult]:
+        """Run a grid of cells, folding compatible ones (DESIGN.md §10).
+
+        Cells sharing `ExperimentSpec.grid_key()` — same model, data
+        shapes, `SFLConfig`, round segmentation, kernel impls and fault
+        mode; policy, seed and partition free — run as one folded run
+        (`repro_torch.api.grid.run_group`).  Incompatible cells fall back
+        to sequential `run()`.  Results come back in input order, each
+        bitwise equal to running that cell alone.
+
+        ``specs`` may hold built Sessions (one device for a group);
+        specs are built on ``device`` (None: the card).  ``runner``:
+        ``None``/``"grid"`` folds every compatible group; ``"sequential"``
+        runs each cell alone; ``"auto"`` consults `api.runners` per group
+        — it fills unset kernel impls (specs only: a built Session's are
+        pinned) and picks grid or sequential per arch family and device.
+        """
+        if runner not in (None, "grid", "sequential", "auto"):
+            raise ValueError(f"unknown runner {runner!r}")
+        if runner == "auto":
+            if any(isinstance(s, Session) for s in specs):
+                raise ValueError(
+                    "runner='auto' needs ExperimentSpecs (a built "
+                    "Session's kernel impls are already pinned)")
+            dev = resolve(device).type
+            specs = [runners.apply_choice(s, dev) for s in specs]
+        sessions = [s if isinstance(s, Session) else cls(s, device=device)
+                    for s in specs]
+        results: List[Optional[SimResult]] = [None] * len(sessions)
+        for idxs in group_cells([s.spec for s in sessions]):
+            members = [sessions[i] for i in idxs]
+            lead = members[0]
+            sequential = (
+                len(members) == 1
+                or runner == "sequential"
+                or (runner == "auto" and runners.pick(
+                    lead.spec, lead.device.type).runner == "sequential")
+            )
+            if sequential:
+                for i, sess in zip(idxs, members):
+                    results[i] = sess.run(verbose=verbose)
+                continue
+            for sess in members:
+                sess._consume()
+            for i, r in zip(idxs, run_group(members, verbose=verbose)):
+                results[i] = r
+        return results
+
+
+def run_grid(
+    specs: Sequence[Union[ExperimentSpec, Session]],
+    *,
+    runner: Optional[str] = None,
+    device=None,
+    verbose: bool = False,
+) -> List[SimResult]:
+    """Module-level alias for `Session.run_grid`."""
+    return Session.run_grid(specs, runner=runner, device=device,
+                            verbose=verbose)

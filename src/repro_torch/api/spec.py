@@ -231,8 +231,8 @@ class ExperimentSpec:
         return dataclasses.replace(self, **overrides)
 
     def grid_key(self):
-        """Hashable compatibility key for grid grouping (the reference's
-        ``Session.run_grid``; the port's grid runner is a later slice).
+        """Hashable compatibility key for grid grouping (`Session.run_grid`,
+        `repro_torch.api.grid.group_cells`).
 
         Cells sharing this key execute the same program on the same
         shapes and round segmentation.  ``None`` means the cell cannot

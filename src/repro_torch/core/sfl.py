@@ -43,6 +43,7 @@ from repro_torch.core.profiles import LayerProfile
 from repro_torch.data.pipeline import DeviceClientStore
 from repro_torch.device import resolve
 from repro_torch.models.factory import Model
+from repro_torch.utils.cells import by_cell
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -223,38 +224,59 @@ class SFLEdgeSimulator:
         ], int)
 
     # -- the round ------------------------------------------------------------
-    def _client_grads(self, stacked, batch):
+    def _client_grads(self, stacked, batch, cells: int = 1):
         """Per-client (losses [N], raw grads, clip scale [N]): one backward
         of the sum of the stacked per-client losses (client i's slice only
         touches loss i), and the per-client fp32 global-norm clip factor
-        returned separately so the update fuses it."""
+        returned separately so the update fuses it.  ``cells=G`` folds G
+        cells of N clients into the leading axis; the loss's library ops
+        and the clip norms then run cell by cell
+        (`utils.cells.by_cell`)."""
         leaves = _with_grad(stacked)
-        losses = self.model.stacked_loss(leaves, batch)
+        cell = None if cells == 1 else leaves[0]["w"].shape[0] // cells
+        losses = self.model.stacked_loss(leaves, batch, cell_size=cell)
         losses.sum().backward()
         grads = tree_map(lambda a: a.grad, leaves)
         scale = None
         if self.sfl.clip_norm:
-            norm = torch.sqrt(sum(
+            norm = by_cell(lambda *gs: torch.sqrt(sum(
                 torch.sum(torch.square(g.float()),
                           dim=tuple(range(1, g.dim())))
-                for g in tree_leaves(grads)))
+                for g in gs)), cell, *tree_leaves(grads))
             scale = clip_scale_from_norm(norm, self.sfl.clip_norm)
         return losses.detach(), grads, scale
 
-    def _round(self, batch, masks, do_agg: bool, part=None):
-        """One HASFL round over the stacked units; returns losses [N]."""
-        losses, grads, scale = self._client_grads(self._stacked, batch)
-        self._stacked = SP.hasfl_round_update(
-            self._stacked, grads, masks, do_agg, self.sfl.lr,
+    def _round(self, stacked, batch, masks, do_agg: bool, part=None,
+               cells: int = 1):
+        """One HASFL round over the stacked units; returns (the updated
+        units, losses [N])."""
+        losses, grads, scale = self._client_grads(stacked, batch, cells)
+        stacked = SP.hasfl_round_update(
+            stacked, grads, masks, do_agg, self.sfl.lr,
             grad_scale=scale, impl=self._update_ops_impl,
             participation=part, group=self._group,
-            edge_size=self._edge_size)
-        return losses
+            edge_size=self._edge_size, cells=cells)
+        return stacked, losses
 
     def _run_segment(self, t0: int, idx, row_mask, masks, parts=None):
-        """Rounds (t0, t0 + R] on the device: the plan, mask and
-        participation go up once, the losses come back as one [R, N]
-        device tensor.  The every-I flag comes from the running counter."""
+        """Rounds (t0, t0 + R] of this simulator's clients on the device;
+        the losses come back as one [R, N] device tensor."""
+        self._stacked, losses = self.run_rounds(
+            self._stacked, self.store.arrays, t0, idx, row_mask, masks,
+            parts)
+        return losses
+
+    def run_rounds(self, stacked, arrays, t0: int, idx, row_mask, masks,
+                   parts=None, cells: int = 1):
+        """Rounds (t0, t0 + R] over ``stacked`` on the device: the plan
+        ``idx`` ([R, N, b_pad] indices into ``arrays``), the row mask and
+        the participation ([R, N]) go up once, the losses come back as one
+        [R, N] device tensor.  The every-I flag comes from the running
+        counter.  Returns (the updated units, the losses).
+
+        ``cells=G`` runs the grid runner's folded carry: G cells of N
+        clients on one leading axis of G·N rows, with ``masks`` ``[G,
+        U]``; every cell's rounds are computed as by its own run."""
         interval = self.sfl.agg_interval
         idx_d = torch.as_tensor(idx).to(self.device, torch.long)
         mask_d = torch.as_tensor(row_mask).to(self.device)
@@ -264,12 +286,12 @@ class SFLEdgeSimulator:
         t = t0
         for r in range(idx.shape[0]):
             t += 1
-            batch = DeviceClientStore.device_batch(
-                self.store.arrays, idx_d[r], mask_d)
-            losses.append(self._round(
-                batch, masks, (t % interval) == 0,
-                None if parts_d is None else parts_d[r]))
-        return torch.stack(losses)
+            batch = DeviceClientStore.device_batch(arrays, idx_d[r], mask_d)
+            stacked, loss = self._round(
+                stacked, batch, masks, (t % interval) == 0,
+                None if parts_d is None else parts_d[r], cells)
+            losses.append(loss)
+        return stacked, torch.stack(losses)
 
     # -- device pool ----------------------------------------------------------
     def set_devices(self, devices: Sequence[DeviceProfile], available=None) -> None:

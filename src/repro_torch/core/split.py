@@ -15,6 +15,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.config import ModelConfig, CNN
+from repro_torch.utils.cells import fold, rows
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -96,7 +97,7 @@ def two_tier_common(spec, w, edge_size, group):
 def hasfl_round_update(
     stacked: list, grads: list, masks, do_agg: bool,
     gamma: float, grad_scale=None, impl=None, participation=None,
-    group=None, edge_size=None
+    group=None, edge_size=None, cells: int = 1
 ) -> list:
     """One HASFL parameter update over [N, ...]-stacked units.
 
@@ -123,21 +124,38 @@ def hasfl_round_update(
     use-common flag comes from the replicated ``keep_spec`` and the
     global count, never from a rank-local ``any(keep)``, so every rank
     takes the same branch; the kernel receives the finished means.
+
+    ``cells=G`` folds G cells of N clients (the grid runner): every leaf,
+    ``grad_scale`` and ``participation`` hold ``G·N`` rows, cell ``g``'s
+    rows ``[g·N, (g+1)·N)``, and ``masks`` is ``[G, U]``.  Each cell is
+    updated as by its own call: through the op, one entry a (cell, leaf)
+    in one call; inline, cell by cell on its rows, the results
+    concatenated into new folded tensors.
     """
     first = stacked[0]["w"]
     n = first.shape[0]
     ones = torch.ones(n, device=first.device)
+    if cells > 1 and group is not None:
+        raise ValueError("mesh mode runs one cell")
+    if cells > 1 and impl is None:
+        size = n // cells
+        return fold([hasfl_round_update(
+            rows(stacked, g, size), rows(grads, g, size), masks[g], do_agg,
+            gamma, grad_scale=rows(grad_scale, g, size),
+            participation=rows(participation, g, size))
+            for g in range(cells)])
     if impl is not None:
         from repro_torch.kernels import ops as KOPS
 
         scale = grad_scale if grad_scale is not None else ones
-        ps, gs, keep_specs = [], [], []
+        cell_masks = [masks] if cells == 1 else masks
+        ps, gs, keep_specs = [], [], [[] for _ in cell_masks]
         for u, (p_u, g_u) in enumerate(zip(stacked, grads)):
-            keep_spec = bool(masks[u] > 0) and not do_agg
             for p, g in zip(tree_leaves(p_u), tree_leaves(g_u)):
                 ps.append(p.reshape(n, -1).contiguous())
                 gs.append(g.reshape(n, -1).contiguous())
-                keep_specs.append(keep_spec)
+                for ks, m in zip(keep_specs, cell_masks):
+                    ks.append(bool(m[u] > 0) and not do_agg)
         commons = count = None
         if group is not None:
             # the collectives cannot run inside a kernel: combine here,
@@ -148,9 +166,10 @@ def hasfl_round_update(
                 spec = pf - gamma * (gf * scale.reshape(-1, 1))
                 common, count = two_tier_common(spec, w, edge_size, group)
                 commons.append(common)
-        outs = iter(KOPS.clip_sgd_leaves(ps, gs, scale, keep_specs,
-                                         participation, gamma=gamma,
-                                         commons=commons, count=count))
+        outs = iter(KOPS.clip_sgd_leaves(
+            ps, gs, scale, keep_specs[0] if cells == 1 else keep_specs,
+            participation, gamma=gamma, commons=commons, count=count,
+            cells=cells))
         return [tree_map(lambda p: next(outs).reshape(p.shape), p_u)
                 for p_u in stacked]
 

@@ -34,6 +34,11 @@
 // - a row whose result does not depend on p and g is not read: a row that
 //   takes neither spec nor a mean is left as it is, and a row that takes
 //   the external mean is only written;
+// - a table entry is one (cell, leaf) pair: the grid runner folds G cells of
+//   N clients into [G * N, D] leaves, and an entry points at its cell's N
+//   rows of the leaf and, by `row`, of the per-client columns.  Its mean
+//   sums its own N rows in row order, as a one-cell launch does, so a
+//   folded round is bitwise equal to G one-cell rounds;
 // - 16-byte vectors where D % 4 == 0 and the leaf's pointers are 16-byte
 //   aligned, single elements otherwise (the fc head's D = 10);
 // - the per-client columns (scale, keep, weights) sit in shared memory;
@@ -57,18 +62,19 @@ struct Leaf {
   int64_t d;
   int32_t start;     // the leaf's first chunk
   int32_t flags;     // bit 0: keep_spec; bit 1: 16-byte vectors
+  int32_t row;       // the entry's first row of the per-client columns
 };
 
 struct Table {
   Leaf leaf[CAPACITY];
-  const float* scale;  // [n] clip factors
-  const float* w;      // [n] participation weights, or null (all ones)
-  const float* keep;   // [n] the caller's keep vector (> 0 keeps), or null:
-                       //     keep_spec && w > 0, per leaf
+  const float* scale;  // [rows] clip factors
+  const float* w;      // [rows] participation weights, or null (all ones)
+  const float* keep;   // [rows] the caller's keep vector (> 0 keeps), or
+                       //     null: keep_spec && w > 0, per leaf
   const float* u;      // [1] external: the caller's use-common flag, or
                        //     the global survivor count (u_is_count)
   float gamma;
-  int32_t n;
+  int32_t n;           // rows of an entry (a cell's clients)
   int32_t leaves;
   int32_t chunks;      // blocks of the launch
   int32_t u_is_count;  // use = u > 0 && !keep_spec (else use = u > 0)
@@ -248,12 +254,13 @@ clip_sgd_kernel(const __grid_constant__ Table t) {
   }
   const Leaf& L = t.leaf[lo];
   const bool keep_spec = (L.flags & 1) != 0;
+  const int row = L.row;
   bool mine = false;
   for (int i = threadIdx.x; i < n; i += THREADS) {
-    const float wi = t.w != nullptr ? t.w[i] : 1.f;
-    const bool keep = t.keep != nullptr ? t.keep[i] > 0.f
+    const float wi = t.w != nullptr ? t.w[row + i] : 1.f;
+    const bool keep = t.keep != nullptr ? t.keep[row + i] > 0.f
                                         : keep_spec && wi > 0.f;
-    s[i] = t.scale[i];
+    s[i] = t.scale[row + i];
     k[i] = keep ? 1.f : 0.f;
     w[i] = wi;
     mine |= keep;

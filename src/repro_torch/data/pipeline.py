@@ -17,6 +17,11 @@ Two feeding paths share one host RNG routine (``draw_indices``):
   int32 index tensor per segment (same draws, same order, bitwise-identical
   sampling), and per-round batches are gathered *on device* with
   ``index_select`` (DESIGN.md §8).
+
+The grid runner folds G cells of N clients into one ``[G·N, ...]`` batch:
+`DeviceClientStore.fold_plan` turns the cells' plans into one, and
+`DeviceClientStore.stack_arrays` lays seed-crossing cells' own arrays end
+to end, so ``device_batch`` gathers every cell's batch in one call.
 """
 from __future__ import annotations
 
@@ -102,6 +107,40 @@ class DeviceClientStore:
     @property
     def n_clients(self) -> int:
         return len(self.client_indices)
+
+    @staticmethod
+    def stack_arrays(stores) -> dict:
+        """The member stores' arrays end to end, ``[G·n_train, ...]``: cell
+        g's samples at rows ``[g·n_train, (g+1)·n_train)``, for grid cells
+        that read their own data (different seeds).  All stores must hold
+        the same keys and shapes (``grid_key`` pins n_train and the arch,
+        which is what guarantees it)."""
+        keys = set(stores[0].arrays)
+        for s in stores[1:]:
+            if set(s.arrays) != keys or any(
+                s.arrays[k].shape != stores[0].arrays[k].shape for k in keys
+            ):
+                raise ValueError(
+                    "stack_arrays needs same-keyed, same-shaped stores "
+                    "(grid cells must share data shapes)"
+                )
+        return {k: torch.cat([s.arrays[k] for s in stores]) for k in keys}
+
+    @staticmethod
+    def fold_plan(idx, row_mask, n_train: Optional[int] = None):
+        """G cells' segment plans ``[G, R, N, b_pad]`` and row masks ``[G,
+        N, b_pad]`` (host arrays) -> the folded ``[R, G·N, b_pad]`` plan and
+        ``[G·N, b_pad]`` mask, cell after cell.  With ``n_train`` (arrays
+        from `stack_arrays`) cell g's indices move by ``g·n_train`` to its
+        own samples; without, every cell reads the one store's arrays.
+        Padded columns keep their zero mask, so ``device_batch`` zeroes
+        them whatever they gather."""
+        idx = np.asarray(idx, np.int64)
+        g, r, n, b_pad = idx.shape
+        if n_train is not None:
+            idx = idx + (np.arange(g) * n_train)[:, None, None, None]
+        plan = idx.transpose(1, 0, 2, 3).reshape(r, g * n, b_pad)
+        return plan, np.asarray(row_mask).reshape(g * n, b_pad)
 
     def set_pool(self, slot: int, indices) -> None:
         """Rebind one client slot's shard pool (the cohort bank's slot

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build
 from repro_torch.kernels.launch import device_scope, raw_stream
+from repro_torch.utils.cells import by_cell
 
 
 def same_geometry(h: int, w: int, kh: int, kw: int, stride: int):
@@ -86,7 +87,8 @@ def gemm_tile_c(c: int) -> int:
     return 64 if c <= 64 else 128
 
 
-def gemm_splits(n: int, m: int, k: int, c: int, sms: int = H100_SMS):
+def gemm_splits(n: int, m: int, k: int, c: int, sms: int = H100_SMS,
+                plan_n=None):
     """(splits, chunk) of split-K for ``[n, m, k] @ [n, k, c]``.
 
     Where the output tiles fill ``sms`` SMs at least twice, or K is short
@@ -94,9 +96,12 @@ def gemm_splits(n: int, m: int, k: int, c: int, sms: int = H100_SMS):
     Otherwise K is cut into chunks of ``chunk`` (a multiple of the
     16-deep slab, at least `SPLIT_MIN_CHUNK`) so that ``tiles · splits``
     reaches that target; every chunk is non-empty and together they cover
-    K once.
+    K once.  ``plan_n`` (one cell of a call that folds ``n / plan_n``
+    cells) counts the tiles of ``plan_n`` batches instead of ``n``: a
+    batch's outputs are summed in an order that depends only on (splits,
+    chunk), so the folded call sums each output as the one-cell call does.
     """
-    tiles = n * -(-m // GEMM_BM) * -(-c // gemm_tile_c(c))
+    tiles = (plan_n or n) * -(-m // GEMM_BM) * -(-c // gemm_tile_c(c))
     target = 2 * sms
     if tiles >= target or k < 2 * SPLIT_MIN_CHUNK:
         return 1, k
@@ -119,13 +124,14 @@ def _bmm_symbol():
     return fn
 
 
-def batched_matmul_kernel(a, b):
+def batched_matmul_kernel(a, b, *, plan_n=None):
     """``a [N,M,K] @ b [N,K,C] -> [N,M,C]`` on the card (fp32, no TF32).
 
     Any strides are accepted (dW passes patchesᵀ as a transposed view);
-    the output is a fresh contiguous tensor.  Split-K (`gemm_splits`)
-    adds an fp32 workspace ``[S, N, M, C]`` and a fixed-order reduction,
-    so repeated calls are bitwise equal; one call is one counted launch.
+    the output is a fresh contiguous tensor.  Split-K (`gemm_splits`, at
+    ``plan_n`` batches where given) adds an fp32 workspace ``[S, N, M,
+    C]`` and a fixed-order reduction, so repeated calls are bitwise equal;
+    one call is one counted launch.
     Raises on anything the kernel does not take, and on a refused launch.
     """
     if a.device.type != "cuda" or b.device.type != "cuda" \
@@ -144,7 +150,8 @@ def batched_matmul_kernel(a, b):
     out = torch.empty((n, m, c), device=a.device, dtype=torch.float32)
     if out.numel() == 0:
         return out
-    splits, chunk = gemm_splits(n, m, k, c, _sm_count(a.device.index))
+    splits, chunk = gemm_splits(n, m, k, c, _sm_count(a.device.index),
+                                plan_n)
     ws = (torch.empty((splits, n, m, c), device=a.device,
                       dtype=torch.float32) if splits > 1 else None)
     index = a.device.index
@@ -180,9 +187,11 @@ def conv_fwd(x, w, b, stride: int, mm):
     return out + b[:, None, None, None, :]
 
 
-def conv_bwd(x, w, dy, stride: int, mm, need_dx: bool = True):
+def conv_bwd(x, w, dy, stride: int, mm, need_dx: bool = True,
+             cell_size=None):
     """(dx, dw, db), the matmuls through ``mm``; dx is None unless
-    ``need_dx``.
+    ``need_dx``.  ``cell_size`` (a grid's N) sums db cell by cell
+    (`utils.cells.by_cell`).
 
     dW: patches(x)ᵀ @ dy.  dx: dilate dy by the stride, re-pad so the
     VALID correlation with the 180°-rotated in/out-transposed filter
@@ -192,7 +201,7 @@ def conv_bwd(x, w, dy, stride: int, mm, need_dx: bool = True):
     kh, kw, cout = w.shape[1], w.shape[2], w.shape[4]
     ho, wo, plo_h, phi_h, plo_w, phi_w = same_geometry(h, wd, kh, kw, stride)
 
-    db = dy.sum(dim=(1, 2, 3))
+    db = by_cell(lambda t: t.sum(dim=(1, 2, 3)), cell_size, dy)
 
     pat = extract_patches(pad_hw(x, plo_h, phi_h, plo_w, phi_w),
                           kh, kw, ho, wo, stride)
@@ -220,11 +229,12 @@ class BatchedConv(torch.autograd.Function):
     """Stacked SAME conv whose forward and backward both run through the
     client-batched GEMM ``mm`` (the reference's ``conv_vjp``).  Saves
     only (x, w); the backward rebuilds the patches, and skips dx when the
-    input needs no gradient (the images)."""
+    input needs no gradient (the images).  ``cell_size`` is a grid's N
+    (`conv_bwd`), or None."""
 
     @staticmethod
-    def forward(ctx, x, w, b, stride, mm):
-        ctx.stride, ctx.mm = stride, mm
+    def forward(ctx, x, w, b, stride, mm, cell_size=None):
+        ctx.stride, ctx.mm, ctx.cell_size = stride, mm, cell_size
         ctx.save_for_backward(x, w)
         return conv_fwd(x, w, b, stride, mm)
 
@@ -232,8 +242,9 @@ class BatchedConv(torch.autograd.Function):
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
         dx, dw, db = conv_bwd(x, w, dy, ctx.stride, ctx.mm,
-                              need_dx=ctx.needs_input_grad[0])
-        return dx, dw, db, None, None
+                              need_dx=ctx.needs_input_grad[0],
+                              cell_size=ctx.cell_size)
+        return dx, dw, db, None, None, None
 
 
 def batched_conv_plain(x, w, b, stride: int = 1):

@@ -23,6 +23,11 @@ the reference's donated leaf).  `clip_sgd_leaves_kernel` is the round's
 call: a list of leaves, one per-leaf ``keep_spec`` flag, and the round's
 shared columns (clip factors, participation weights), from which the
 kernel builds each leaf's keep vector (``keep_spec and w > 0``).
+The grid runner folds G cells of N clients into ``[G·N, D]`` leaves
+(``cells=G``): a table entry is then one (cell, leaf) pair, pointing at the
+cell's N rows of the leaf and of the shared columns, with the cell's own
+``keep_spec``, so one launch a `CAPACITY` entries updates every cell and
+each cell's mean sums its own rows as a one-cell launch does.
 `clip_sgd_kernel` and `clip_sgd_ext_kernel` are the one-leaf case of the
 same launch with the caller's own ``[N]`` keep vector, as the reference's
 kernels take it.  A launch takes up to `CAPACITY` leaves; the wrapper
@@ -36,7 +41,7 @@ not depend on p and g are not read (see the source's note).
 
 `clip_sgd_plain` and `clip_sgd_ext_plain` are the plain PyTorch versions
 (the reference's ``clip_sgd_ref`` algebra), and `clip_sgd_leaves_plain`
-their loop over a round's leaves, for CPU tensors and tests.
+their loop over a round's leaves (and cells), for CPU tensors and tests.
 """
 from __future__ import annotations
 
@@ -47,10 +52,11 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.launch import device_scope, raw_stream
+from repro_torch.utils.cells import fold, rows
 
 THREADS = 256    # a block (csrc/clip_sgd.cu)
-CAPACITY = 64    # leaves a launch; resnet18-cifar, the port's largest CNN
-                 # by leaves, has 42
+CAPACITY = 64    # (cell, leaf) entries a launch; resnet18-cifar, the
+                 # port's largest CNN by leaves, has 42
 MAX_N = 4096     # clients: three fp32 columns in a block's shared memory
 ROWS = 4         # rows a thread streams at once (1, 2, 4, 8)
 VECTORS = 1      # column vectors a thread owns in a chunk (1, 2)
@@ -101,13 +107,24 @@ def _keep_vector(keep_spec: bool, participation, n: int, device):
 
 
 def clip_sgd_leaves_plain(ps, gs, scale, keep_specs, participation=None, *,
-                          gamma: float, commons=None, count=None):
+                          gamma: float, commons=None, count=None, cells=1):
     """A round's leaves through the per-leaf plain versions.  ``ps, gs``:
     lists of ``[N, D_i]``; ``keep_specs``: one bool a leaf; the keep vector
     of leaf i is ``keep_specs[i]`` for the survivors.  With ``commons`` (the
     ``[D_i]`` means of mesh mode) the external-mean form runs, leaf i taking
     its mean where ``count > 0 and not keep_specs[i]`` (``count``: the
-    global survivor count).  Returns new tensors."""
+    global survivor count).  ``cells=G`` folds G cells of N clients: the
+    leaves are ``[G·N, D_i]``, ``scale`` and ``participation`` ``[G·N]``,
+    ``keep_specs`` one such list a cell, and each cell is updated as by its
+    own call.  Returns new tensors."""
+    if cells > 1:
+        if commons is not None:
+            raise ValueError("the external mean takes one cell")
+        n = _cell_size(ps[0].shape[0], cells, keep_specs)
+        return fold([clip_sgd_leaves_plain(
+            rows(ps, g, n), rows(gs, g, n), rows(scale, g, n),
+            keep_specs[g], rows(participation, g, n), gamma=gamma)
+            for g in range(cells)])
     n = ps[0].shape[0]
     out = []
     for i, (p, g) in enumerate(zip(ps, gs)):
@@ -122,12 +139,20 @@ def clip_sgd_leaves_plain(ps, gs, scale, keep_specs, participation=None, *,
     return out
 
 
+def _cell_size(n_rows: int, cells: int, keep_specs) -> int:
+    if cells < 1 or n_rows % cells or len(keep_specs) != cells:
+        raise ValueError(f"{n_rows} rows do not fold {cells} cells with one "
+                         f"keep_spec list a cell ({len(keep_specs)})")
+    return n_rows // cells
+
+
 def clip_sgd_plan(ds, aligned, vectors: int = VECTORS):
-    """(first chunks, vector flags, chunk count) of a launch over leaves of
-    ``ds`` columns: leaf i takes 16-byte vectors where ``aligned[i]`` (its
-    pointers are 16-byte aligned) and ``ds[i] % 4 == 0``, single elements
-    otherwise, and is cut into chunks of ``THREADS · vectors`` vectors, one
-    block each, leaf after leaf."""
+    """(first chunks, vector flags, chunk count) of a launch over entries
+    of ``ds`` columns (a leaf, or one cell's rows of a leaf): entry i takes
+    16-byte vectors where ``aligned[i]`` (its pointers are 16-byte aligned)
+    and ``ds[i] % 4 == 0``, single elements otherwise, and is cut into
+    chunks of ``THREADS · vectors`` vectors, one block each, entry after
+    entry."""
     starts, vecs, total = [], [], 0
     for d, al in zip(ds, aligned):
         vec = bool(al) and d % 4 == 0
@@ -135,6 +160,18 @@ def clip_sgd_plan(ds, aligned, vectors: int = VECTORS):
         vecs.append(vec)
         total += -(-d // (THREADS * vectors * (4 if vec else 1)))
     return starts, vecs, total
+
+
+def cell_entries(leaves, keep_specs, n: int):
+    """The table entries ``(p, g, c, d, keep_spec, row)`` of a launch, cell
+    after cell: ``leaves`` holds ``(i, p, g, c, d)`` of each non-empty
+    leaf (fp32 ``[G·n, d]`` at addresses p and g; c its external mean's or
+    0), ``keep_specs[cell][i]`` the keep flag of leaf i in a cell.  Cell
+    ``g``'s entry of a leaf points at its rows ``[g·n, (g+1)·n)``."""
+    return [(pp + 4 * cell * n * d, gp + 4 * cell * n * d, cp, d,
+             bool(keep_specs[cell][i]), cell * n)
+            for cell in range(len(keep_specs))
+            for i, pp, gp, cp, d in leaves]
 
 
 def plan_code(rows: int = ROWS, vectors: int = VECTORS) -> int:
@@ -145,7 +182,8 @@ def plan_code(rows: int = ROWS, vectors: int = VECTORS) -> int:
 class Leaf(ctypes.Structure):
     _fields_ = [("p", ctypes.c_void_p), ("g", ctypes.c_void_p),
                 ("c", ctypes.c_void_p), ("d", ctypes.c_int64),
-                ("start", ctypes.c_int32), ("flags", ctypes.c_int32)]
+                ("start", ctypes.c_int32), ("flags", ctypes.c_int32),
+                ("row", ctypes.c_int32)]
 
 
 class Table(ctypes.Structure):
@@ -184,48 +222,60 @@ def _column(t, n: int, index: int, what: str):
 
 def tables(ps, gs, scale, keep_specs, participation=None, *, gamma: float,
            commons=None, keep=None, use=None, use_is_count=False,
-           vectors: int = VECTORS):
+           vectors: int = VECTORS, cells: int = 1):
     """The launches' tables for the leaves ``ps, gs`` (CUDA fp32, checked),
-    `CAPACITY` leaves a table, and the tensors they point into (to be kept
-    alive until the launches are issued).  ``keep`` ([N], optional)
+    `CAPACITY` entries a table, and the tensors they point into (to be
+    kept alive until the launches are issued).  ``keep`` ([N], optional)
     replaces the per-leaf keep vectors; ``use`` is the external mean's
     one-element flag or, with ``use_is_count``, the global survivor
-    count."""
-    if len(gs) != len(ps) or len(keep_specs) != len(ps) or (
-            commons is not None and len(commons) != len(ps)):
+    count.  ``cells=G``: the leaves and columns fold G cells of N rows
+    (`clip_sgd_leaves_plain`), one entry a (cell, leaf), cell after
+    cell."""
+    if cells > 1 and (commons is not None or keep is not None):
+        raise ValueError("the external mean and a caller's keep vector "
+                         "take one cell")
+    if cells == 1:
+        keep_specs = [keep_specs]
+    elif ps:
+        _cell_size(ps[0].shape[0], cells, keep_specs)
+    if len(gs) != len(ps) or any(len(k) != len(ps) for k in keep_specs) \
+            or (commons is not None and len(commons) != len(ps)):
         raise ValueError("one g, keep_spec (and common) a leaf")
     if not ps:
         return [], []
     p0 = ps[0]
     if not p0.is_cuda:
         raise ValueError(f"clip_sgd takes CUDA tensors, got {p0.device}")
-    index, n = p0.get_device(), p0.shape[0]
+    index, rows_all = p0.get_device(), p0.shape[0]
+    n = rows_all // cells
     if not 1 <= n <= MAX_N:
         raise ValueError(f"clip_sgd takes 1 to {MAX_N} clients, got {n}")
-    cols = [_column(scale, n, index, "scale")]
+    cols = [_column(scale, rows_all, index, "scale")]
     if participation is not None:
-        cols.append(_column(participation, n, index, "participation"))
+        cols.append(_column(participation, rows_all, index,
+                            "participation"))
     if keep is not None:
         cols.append(_column(keep, n, index, "keep"))
     if commons is not None:
         cols.append(_column(use, 1, index, "use_common"))
     f32 = torch.float32
-    rows, ds, aligned = [], [], []
+    leaves = []
     for i, (p, g) in enumerate(zip(ps, gs)):
         shape = p.shape   # get_device() is -1 on the CPU
         if (p.get_device() != index or g.get_device() != index
                 or p.dtype is not f32 or g.dtype is not f32
-                or len(shape) != 2 or shape[0] != n or g.shape != shape
+                or len(shape) != 2 or shape[0] != rows_all
+                or g.shape != shape
                 or not (p.is_contiguous() and g.is_contiguous())):
             raise ValueError(
-                f"clip_sgd takes contiguous fp32 [N={n}, D] p and g of one "
-                f"shape on cuda:{index}; leaf {i}: {p.dtype} "
+                f"clip_sgd takes contiguous fp32 [N={rows_all}, D] p and g "
+                f"of one shape on cuda:{index}; leaf {i}: {p.dtype} "
                 f"{tuple(shape)} on {p.device}, {g.dtype} {tuple(g.shape)} "
                 f"on {g.device}")
         d = shape[1]
         if d == 0:
             continue
-        pp, gp, cp = p.data_ptr(), g.data_ptr(), 0
+        cp = 0
         if commons is not None:
             c = commons[i]
             if not (c.get_device() == index and c.dtype is f32
@@ -233,22 +283,22 @@ def tables(ps, gs, scale, keep_specs, participation=None, *, gamma: float,
                 raise ValueError(f"common of leaf {i} must be a contiguous "
                                  f"fp32 [{d}] on cuda:{index}")
             cp = c.data_ptr()
-        rows.append((pp, gp, cp or None, d, bool(keep_specs[i])))
-        ds.append(d)
-        aligned.append(not (pp | gp | cp) & 15)
+        leaves.append((i, p.data_ptr(), g.data_ptr(), cp, d))
+    entries = cell_entries(leaves, keep_specs, n)
+    aligned = [not (pp | gp | cp) & 15 for pp, gp, cp, *_ in entries]
     out = []
     ptr = [c.data_ptr() for c in cols]
     w = ptr[1] if participation is not None else None
     k = ptr[1 + (participation is not None)] if keep is not None else None
     u = ptr[-1] if commons is not None else None
-    for lo in range(0, len(rows), CAPACITY):
-        part = rows[lo:lo + CAPACITY]
+    for lo in range(0, len(entries), CAPACITY):
+        part = entries[lo:lo + CAPACITY]
         starts, vecs, chunks = clip_sgd_plan(
-            ds[lo:lo + CAPACITY], aligned[lo:lo + CAPACITY], vectors)
-        leaves = (Leaf * CAPACITY)(*[
-            (pp, gp, cp, d, s, ks | v << 1)
-            for (pp, gp, cp, d, ks), s, v in zip(part, starts, vecs)])
-        out.append(Table(leaves, ptr[0], w, k, u, gamma, n, len(part),
+            [e[3] for e in part], aligned[lo:lo + CAPACITY], vectors)
+        table = (Leaf * CAPACITY)(*[
+            (pp, gp, cp or None, d, s, ks | v << 1, row)
+            for (pp, gp, cp, d, ks, row), s, v in zip(part, starts, vecs)])
+        out.append(Table(table, ptr[0], w, k, u, gamma, n, len(part),
                          chunks, use_is_count))
     return out, cols
 
@@ -267,18 +317,20 @@ def _launch(kernel, index: int, tabs, code: int) -> None:
 
 
 def clip_sgd_leaves_kernel(ps, gs, scale, keep_specs, participation=None, *,
-                           gamma: float, commons=None, count=None):
-    """A round's update on the card, in one launch a `CAPACITY` leaves:
-    updates the contiguous fp32 CUDA leaves ``ps`` (``[N, D_i]``) in place
-    and returns them.  The arguments are `clip_sgd_leaves_plain`'s;
-    ``count`` (with ``commons``) stays on the device (no host sync).
-    Launches count on `clip_sgd_kernel` (flat) or `clip_sgd_ext_kernel`
-    (external mean)."""
+                           gamma: float, commons=None, count=None,
+                           cells=1):
+    """A round's update on the card, in one launch a `CAPACITY` entries
+    (leaves, or (cell, leaf) pairs with ``cells``): updates the contiguous
+    fp32 CUDA leaves ``ps`` (``[N, D_i]``, or ``[G·N, D_i]``) in place and
+    returns them.  The arguments are `clip_sgd_leaves_plain`'s; ``count``
+    (with ``commons``) stays on the device (no host sync).  Launches count
+    on `clip_sgd_kernel` (flat) or `clip_sgd_ext_kernel` (external
+    mean)."""
     if commons is not None and count is None:
         raise ValueError("the external mean needs the global count")
     tabs, _cols = tables(ps, gs, scale, keep_specs, participation,
                          gamma=gamma, commons=commons, use=count,
-                         use_is_count=True)
+                         use_is_count=True, cells=cells)
     if tabs:
         kernel = clip_sgd_kernel if commons is None else clip_sgd_ext_kernel
         _launch(kernel, ps[0].get_device(), tabs, plan_code())

@@ -7,6 +7,8 @@ There is no impl knob and no fallback on the card.
 """
 from __future__ import annotations
 
+import functools
+
 from repro_torch.kernels import batched_conv as BC
 from repro_torch.kernels import clip_sgd as CS
 from repro_torch.kernels import flash_attention as FA
@@ -22,13 +24,15 @@ def _on_card(t) -> bool:
     raise ValueError(f"unsupported device {t.device}")
 
 
-def batched_conv(x, w, b, *, stride: int = 1):
+def batched_conv(x, w, b, *, stride: int = 1, cell_size=None):
     """Per-client stacked SAME conv, forward and backward through the
     client-batched GEMM.  x: [N, B, H, W, Cin]; w: [N, kh, kw, Cin, Cout];
-    b: [N, Cout]."""
-    mm = (BC.batched_matmul_kernel if _on_card(x)
-          else BC.batched_matmul_plain)
-    return BC.BatchedConv.apply(x, w, b, stride, mm)
+    b: [N, Cout].  ``cell_size`` (a grid's N, where the leading axis folds
+    cells of N clients) plans the GEMM's split-K per cell and sums the
+    bias gradient per cell, so each cell is computed as alone."""
+    mm = (functools.partial(BC.batched_matmul_kernel, plan_n=cell_size)
+          if _on_card(x) else BC.batched_matmul_plain)
+    return BC.BatchedConv.apply(x, w, b, stride, mm, cell_size)
 
 
 def clip_sgd(p, g, scale, keep_spec, participation=None, *, gamma: float,
@@ -49,17 +53,19 @@ def clip_sgd(p, g, scale, keep_spec, participation=None, *, gamma: float,
 
 
 def clip_sgd_leaves(ps, gs, scale, keep_specs, participation=None, *,
-                    gamma: float, commons=None, count=None):
+                    gamma: float, commons=None, count=None, cells=1):
     """One round's fused update over every ``[N, D_i]`` leaf: the leaf
     i's keep vector is ``keep_specs[i]`` for the survivors.  ``commons``
     (mesh mode) hands in each leaf's precomputed Eq. 4/7 mean and
     ``count`` the global survivor count; the external-mean form then runs.
-    On the card the leaves are updated in place in one launch (per 64
-    leaves) and returned; on the CPU new tensors are returned."""
+    ``cells=G`` folds G cells of N clients (``[G·N, D_i]`` leaves, one
+    ``keep_specs`` list a cell), each updated as by its own call.  On the
+    card the leaves are updated in place in one launch (per 64 (cell,
+    leaf) entries) and returned; on the CPU new tensors are returned."""
     fn = CS.clip_sgd_leaves_kernel if _on_card(ps[0]) \
         else CS.clip_sgd_leaves_plain
     return fn(ps, gs, scale, keep_specs, participation, gamma=gamma,
-              commons=commons, count=count)
+              commons=commons, count=count, cells=cells)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,

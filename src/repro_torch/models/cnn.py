@@ -12,6 +12,12 @@ batches (`cnn_stacked_forward`), with each convolution going through
 `kernels.ops.batched_conv` — the client-batched GEMM kernel on the card,
 its plain version on the CPU.  The single-model functions run the stacked
 path at N = 1.
+
+``cell_size`` (a grid's N, where the leading axis folds G cells of N
+clients) reaches every conv, and runs the FC layers' GEMMs and the masked
+loss means once per cell (`utils.cells.by_cell`): cuBLAS and
+PyTorch's reductions choose their plans from the leading extent, so only
+a cell's own shape sums as its own run does.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops as KOPS
+from repro_torch.utils.cells import by_cell
 
 
 def _conv_init(gen, cin, cout):
@@ -83,11 +90,21 @@ def _max_pool_2x2(x):
     return x.reshape(n, b, h // 2, 2, w // 2, 2, c).amax(dim=(3, 5))
 
 
-def cnn_stacked_forward(params: list, x, cfg: ModelConfig):
+def _fc(x, w, b):
+    return torch.bmm(x, w) + b[:, None, :]
+
+
+def _masked_mean(nll, loss_mask):
+    total = torch.clamp(loss_mask.sum(dim=1), min=1.0)
+    return (nll * loss_mask).sum(dim=1) / total
+
+
+def cnn_stacked_forward(params: list, x, cfg: ModelConfig, cell_size=None):
     """Full forward over [N, ...]-stacked per-client params and batches.
 
     x: [N, B, H, W, C]; every leaf of ``params`` carries a leading client
-    axis.  Returns logits [N, B, n_classes].
+    axis.  Returns logits [N, B, n_classes].  ``cell_size``: a grid's N
+    (see the module's note), or None.
     """
     kinds = cnn_layer_kinds(cfg)
     conv_seen = 0
@@ -96,7 +113,8 @@ def cnn_stacked_forward(params: list, x, cfg: ModelConfig):
             conv_seen += 1
 
             def conv(q, z, stride=1):
-                return KOPS.batched_conv(z, q["w"], q["b"], stride=stride)
+                return KOPS.batched_conv(z, q["w"], q["b"], stride=stride,
+                                         cell_size=cell_size)
 
             if cfg.residual and "proj" not in p \
                     and x.shape[-1] == p["w"].shape[-1]:
@@ -113,7 +131,7 @@ def cnn_stacked_forward(params: list, x, cfg: ModelConfig):
                     x = x.mean(dim=(2, 3))               # global average pool
                 else:
                     x = x.reshape(x.shape[0], x.shape[1], -1)  # NHWC flatten
-            x = torch.bmm(x, p["w"]) + p["b"][:, None, :]
+            x = by_cell(_fc, cell_size, x, p["w"], p["b"])
             if kinds[i] == "fc":
                 x = torch.relu(x)
     return x
@@ -125,17 +143,16 @@ def _nll(logits, labels):
 
 
 def cnn_stacked_loss(params: list, images, labels, cfg: ModelConfig,
-                     loss_mask=None):
+                     loss_mask=None, cell_size=None):
     """Per-client masked-mean NLL [N] over the stacked forward.
 
     Differentiating the *sum* over clients yields exactly the per-client
     gradients (client i's stacked slice only touches loss i).
     """
-    nll = _nll(cnn_stacked_forward(params, images, cfg), labels)
+    nll = _nll(cnn_stacked_forward(params, images, cfg, cell_size), labels)
     if loss_mask is not None:
-        total = torch.clamp(loss_mask.sum(dim=1), min=1.0)
-        return (nll * loss_mask).sum(dim=1) / total
-    return nll.mean(dim=1)
+        return by_cell(_masked_mean, cell_size, nll, loss_mask)
+    return by_cell(lambda t: t.mean(dim=1), cell_size, nll)
 
 
 def _stack1(params: list) -> list:

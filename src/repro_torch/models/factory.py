@@ -28,7 +28,8 @@ class Model:
     init_cache: Callable    # (batch, cache_len, window=None, device=None) -> cache
     prefill: Callable       # (params, batch, cache_len=None) -> (logits, cache)
     decode_step: Callable   # (params, cache, batch) -> (logits, cache)
-    # per-client losses [N] over [N, ...]-stacked params/batches
+    # per-client losses [N] over [N, ...]-stacked params/batches; takes
+    # ``cell_size=`` (a grid's N where cells fold into the leading axis)
     stacked_loss: Callable = None
 
 
@@ -135,10 +136,10 @@ def _build_cnn(cfg: ModelConfig) -> Model:
         return C.cnn_loss(params, batch["images"], batch["labels"], cfg,
                           loss_mask=batch.get("loss_mask"))
 
-    def stacked_loss(params, batch):
+    def stacked_loss(params, batch, cell_size=None):
         return C.cnn_stacked_loss(
             params, batch["images"], batch["labels"], cfg,
-            loss_mask=batch.get("loss_mask"))
+            loss_mask=batch.get("loss_mask"), cell_size=cell_size)
 
     def _no_cache(*a, **k):
         raise NotImplementedError("CNNs have no decode path")

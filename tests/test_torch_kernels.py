@@ -205,12 +205,15 @@ def test_clip_sgd_plan_covers_every_column_once(ds, aligned, vectors):
     assert all((s == 1).all() for s in seen)
 
 
+_NARROW = dataclasses.replace(
+    TC.get_config("vgg9-cifar-small"), arch_id="vgg9-round-update",
+    conv_channels=(8, 16, 16), fc_dims=(32,), image_size=16)
+
+
 def _narrow_vgg_round(seed, n):
     """(stacked units, grads, clip factors, masks) of a narrowed VGG-9 at N
     clients, each client's parameters apart, from a numpy seed."""
-    cfg = dataclasses.replace(
-        TC.get_config("vgg9-cifar-small"), arch_id="vgg9-round-update",
-        conv_channels=(8, 16, 16), fc_dims=(32,), image_size=16)
+    cfg = _NARROW
     units = build_model(cfg).init(torch.Generator().manual_seed(seed))
     rng = np.random.default_rng(seed)
 
@@ -243,6 +246,69 @@ def test_round_update_through_the_op_matches_inline(do_agg, part):
     assert [t.shape for t in fused] == [t.shape for t in inline]
     for a, b in zip(fused, inline):
         np.testing.assert_allclose(a.numpy(), b.numpy(), **CLIP_TOL)
+
+
+def _cells(tensor, cells):
+    return list(tensor.chunk(cells)) if tensor is not None \
+        else [None] * cells
+
+
+@pytest.mark.parametrize("part", [None, "partial", "zeros"])
+def test_clip_sgd_leaves_plain_cells_equal_one_cell_calls(part):
+    """A folded call over G cells (``cells=G``, one ``keep_specs`` list a
+    cell) equals G one-cell calls to the bit, with different keeps per
+    cell and with participation."""
+    rng = np.random.default_rng(23)
+    g_cells, n = 3, 4
+    ps, gs, scale = _round_leaves(rng, g_cells * n)
+    w = {None: None,
+         "partial": rng.choice([0.0, 0.5, 1.0], g_cells * n),
+         "zeros": np.r_[np.zeros(n), rng.uniform(0.1, 1, 2 * n)]}[part]
+    w = None if w is None else torch.from_numpy(w.astype(np.float32))
+    keeps = [list(LEAF_KEEPS), [False] * len(LEAF_DS),
+             [not k for k in LEAF_KEEPS]]
+    ps, gs = ([torch.from_numpy(a) for a in xs] for xs in (ps, gs))
+    scale = torch.from_numpy(scale)
+    folded = TOPS.clip_sgd_leaves(ps, gs, scale, keeps, w, gamma=GAMMA,
+                                  cells=g_cells)
+    alone = [TOPS.clip_sgd_leaves(
+        [p.chunk(g_cells)[c] for p in ps], [g.chunk(g_cells)[c] for g in gs],
+        _cells(scale, g_cells)[c], keeps[c], _cells(w, g_cells)[c],
+        gamma=GAMMA) for c in range(g_cells)]
+    for i, out in enumerate(folded):
+        assert torch.equal(out, torch.cat([a[i] for a in alone]))
+
+
+@pytest.mark.parametrize("impl", [None, "kernel"], ids=["inline", "op"])
+@pytest.mark.parametrize("part", [None, "partial"])
+@pytest.mark.parametrize("do_agg", [False, True], ids=["local", "agg"])
+def test_round_update_cells_equal_one_cell_updates(do_agg, part, impl):
+    """``hasfl_round_update(..., cells=G)`` over a folded carry with a cut
+    a cell equals G one-cell updates to the bit."""
+    g_cells, n = 3, 4
+    stacked, grads, scale, _ = _narrow_vgg_round(5, g_cells * n)
+    cfg_units = len(stacked)
+    masks = np.stack([TSP.client_unit_mask(_NARROW, cfg_units, c)
+                      for c in (1, 2, 3)])
+    w = None if part is None else torch.tensor(
+        [1.0, 0.0, 0.5, 1.0] * g_cells)
+
+    def cell(tree, c):
+        return [tree_map(lambda a: a[c * n:(c + 1) * n].clone(), u)
+                for u in tree]
+
+    folded = TSP.hasfl_round_update(
+        [tree_map(torch.clone, u) for u in stacked], grads, masks, do_agg,
+        GAMMA, grad_scale=scale, impl=impl, participation=w, cells=g_cells)
+    alone = [TSP.hasfl_round_update(
+        cell(stacked, c), cell(grads, c), masks[c], do_agg, GAMMA,
+        grad_scale=scale[c * n:(c + 1) * n], impl=impl,
+        participation=None if w is None else w[c * n:(c + 1) * n])
+        for c in range(g_cells)]
+    got = tree_leaves(folded)
+    want = [torch.cat(xs) for xs in zip(*(tree_leaves(a) for a in alone))]
+    assert len(got) == len(want)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -539,6 +605,55 @@ def test_gemm_splits_fill_the_card_on_every_vgg16_dw(name, m, k, c):
                                      (1, 1, 0, 1)])
 def test_gemm_splits_short_k_or_full_card_take_one_split(n, m, k, c):
     assert TBC.gemm_splits(n, m, k, c) == (1, k)
+
+
+@pytest.mark.parametrize("cells", [1, 2, 4])
+def test_gemm_plan_of_a_folded_call_is_the_cells_plan(cells):
+    """A call folding G cells of N=8 (n = G·8) planned at ``plan_n=8``
+    takes each VGG-16 shape's one-cell (splits, chunk); the split-K
+    workspace ``[S, G·N, M, C]`` stays small.  Planned at n itself, the
+    long-K dW shapes take fewer splits: the reason for ``plan_n``."""
+    n = 8
+    for name, m, k, c in _vgg16_gemm_shapes(n):
+        plan = TBC.gemm_splits(cells * n, m, k, c, plan_n=n)
+        assert plan == TBC.gemm_splits(n, m, k, c), name
+        if plan[0] > 1:                  # the workspace, under 256 MiB
+            assert 4 * plan[0] * cells * n * m * c < 2 ** 28, name
+        if cells > 1 and name in ("conv1.dW", "conv2.dW"):
+            assert TBC.gemm_splits(cells * n, m, k, c)[0] < plan[0], name
+
+
+@pytest.mark.parametrize("cells", [1, 2, 4])
+def test_clip_sgd_plan_covers_every_cell_entry_once(cells):
+    """One entry a (cell, leaf), cell after cell, pointing at the cell's
+    rows; `CAPACITY` entries a launch, ⌈G·32/64⌉ launches for VGG-16;
+    within each launch the plan covers every column of every entry
+    once."""
+    n, ds = 8, list(vgg16_leaf_sizes())
+    base = [1 << 32 + i for i in range(len(ds))]
+    leaves = [(i, base[i], base[i] + (1 << 31), 0, d)
+              for i, d in enumerate(ds)]
+    keep_specs = [[(i + c) % 3 == 0 for i in range(len(ds))]
+                  for c in range(cells)]
+    entries = TCS.cell_entries(leaves, keep_specs, n)
+    assert len(entries) == cells * len(ds)
+    for e, (pp, gp, cp, d, ks, row) in enumerate(entries):
+        c, i = divmod(e, len(ds))
+        assert row == c * n and d == ds[i] and ks == keep_specs[c][i]
+        assert pp == base[i] + 4 * row * d
+        assert gp - pp == 1 << 31 and cp == 0
+    launches = range(0, len(entries), TCS.CAPACITY)
+    assert len(launches) == -(-cells * len(ds) // TCS.CAPACITY)
+    for lo in launches:
+        part = [e[3] for e in entries[lo:lo + TCS.CAPACITY]]
+        starts, vecs, total = TCS.clip_sgd_plan(part, [True] * len(part))
+        seen = [np.zeros(d, np.int64) for d in part]
+        for b in range(total):
+            i = bisect.bisect_right(starts, b) - 1
+            width = TCS.THREADS * (4 if vecs[i] else 1)
+            lo_col = (b - starts[i]) * width
+            seen[i][lo_col:min(part[i], lo_col + width)] += 1
+        assert all((s == 1).all() for s in seen)
 
 
 def test_gemm_tile_columns_follow_c():

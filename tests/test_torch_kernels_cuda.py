@@ -339,6 +339,79 @@ def test_clip_sgd_leaves_kernel_past_its_capacity(ext):
                  -(-len(ds) // TCS.CAPACITY))
 
 
+# (M, K, C) of VGG-16's split-K dW shapes at b = 64 (32x32 images)
+SPLIT_K_DW = {"conv1.dW": (27, 65536, 64), "conv2.dW": (576, 65536, 64)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SPLIT_K_DW))
+def test_folded_gemm_planned_per_cell_is_bitwise_per_cell(name,
+                                                          record_property):
+    """G=4 cells of N=8 folded into one call planned at ``plan_n=8`` equal
+    the four one-cell calls to the bit.  Planned at n=32 (no ``plan_n``)
+    the call takes fewer splits; whether that moves a bit is recorded
+    (``unplanned_*``), not asserted."""
+    _need_card()
+    cells, n = 4, 8
+    m, k, c = SPLIT_K_DW[name]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    a = torch.randn((cells * n, k, m), device="cuda",
+                    generator=gen).transpose(1, 2)
+    b = torch.randn((cells * n, k, c), device="cuda", generator=gen)
+    before = TBC.batched_matmul_kernel.launches
+    folded = TBC.batched_matmul_kernel(a, b, plan_n=n)
+    assert TBC.batched_matmul_kernel.launches == before + 1
+    alone = torch.cat([TBC.batched_matmul_kernel(a[i * n:(i + 1) * n],
+                                                 b[i * n:(i + 1) * n])
+                       for i in range(cells)])
+    assert torch.equal(folded, alone)
+    unplanned = TBC.batched_matmul_kernel(a, b)
+    torch.cuda.synchronize()
+    record_property("unplanned_splits",
+                    TBC.gemm_splits(cells * n, m, k, c)[0])
+    record_property("planned_splits",
+                    TBC.gemm_splits(cells * n, m, k, c, plan_n=n)[0])
+    record_property("unplanned_bitwise", bool(torch.equal(unplanned, alone)))
+    record_property("unplanned_max_abs_diff",
+                    float((unplanned - alone).abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("part", [None, "random"], ids=["full", "partial"])
+def test_folded_clip_sgd_round_is_bitwise_per_cell(part):
+    """One folded round of G=4 cells of N=8 over the 32 VGG-16 leaves, a
+    keep list a cell: ⌈G·32/64⌉ = 2 launches, each cell bitwise equal to
+    its own one-cell launch, and within the bar of the plain cells."""
+    _need_card()
+    cells, n = 4, 8
+    ds = vgg16_leaf_sizes()
+    ps, gs, scale, _, w, _, _ = _round_case(11, cells * n, ds, part, False)
+    rng = np.random.default_rng(12)
+    keeps = [[bool(x) for x in rng.integers(0, 2, len(ds))]
+             for _ in range(cells)]
+    folded = [p.clone() for p in ps]
+    before = TCS.clip_sgd_kernel.launches
+    TOPS.clip_sgd_leaves(folded, gs, scale, keeps, w, gamma=GAMMA,
+                         cells=cells)
+    torch.cuda.synchronize()
+    assert TCS.clip_sgd_kernel.launches == \
+        before + -(-cells * len(ds) // TCS.CAPACITY)
+    want = TCS.clip_sgd_leaves_plain(ps, gs, scale, keeps, w, gamma=GAMMA,
+                                     cells=cells)
+    for c in range(cells):
+        rows = slice(c * n, (c + 1) * n)
+        alone = [p[rows].clone() for p in ps]
+        TOPS.clip_sgd_leaves(alone, [g[rows] for g in gs], scale[rows],
+                             keeps[c], None if w is None else w[rows],
+                             gamma=GAMMA)
+        torch.cuda.synchronize()
+        for i, (f, a) in enumerate(zip(folded, alone)):
+            assert torch.equal(f[rows], a), (c, i)
+    for f, x in zip(folded, want):
+        np.testing.assert_allclose(f.cpu().numpy(), x.cpu().numpy(),
+                                   **CLIP_TOL)
+
+
 def _randn(gen, shape, dtype, device="cuda"):
     return torch.randn(shape, generator=gen, device=device).to(dtype)
 
