@@ -60,7 +60,28 @@ nothing of the reference package.  Phases, each printing one JSON line:
    update ⌈members·32/64⌉ times a round per dispatch, the external-mean
    update 0; every cell bitwise equal to its own run.  Seconds, seconds
    per cell-round, peak memory and the dispatch record.
-10. ``serve``: the token-model serving path, `repro_torch.launch.serve.serve`
+10. ``scenario``: the train phase's cell under ``churn-heavy`` with
+   deadline faults (`SCENARIO`), run uninterrupted, again writing a
+   snapshot every 6 rounds (0.49 GB each, in a temporary directory under
+   build/, removed at the end), and resumed from round 6 by
+   `Session.resume`; counters zeroed and read around the first run: the
+   GEMM > 0, the update once a round.  Both later runs bitwise equal to
+   the first (results and final parameters).  Seconds per round, snapshot
+   seconds, peak memory, mean participation.
+11. ``traffic``: the same cohort (8 slots) under ``churn-heavy`` with the
+   streaming plane (`TRAFFIC`), the same three runs, the event log
+   bitwise too; more admits than the cohort, an eviction, a fractional
+   staleness weight, one update launch a round.  Event counts by kind.
+12. ``dynamic_cross``: vgg9 at ``cross_device``'s sizes on the card
+   against the CPU: the scenario cell, a traffic cell (`TRAFFIC_CROSS`)
+   and a 2 x 2 grid of policies x presets through `run_grid`; decisions,
+   clocks, gather and participation plans and event logs bitwise, losses
+   and parameters within 1e-4, each grid cell bitwise equal to its own
+   run on the card.
+13. ``cli``: `repro_torch.launch.train.main(CLI_ARGS + ["--csv", ...])`
+   on the card: one CSV row per eval, the ``.spec.json`` reloading equal,
+   the numbers bitwise equal to `Session(spec).run()`.
+14. ``serve``: the token-model serving path, `repro_torch.launch.serve.serve`
    for qwen3-1.7b at full width (28 layers, d 2048, vocab 151936, bf16)
    with the port's seeded init and `launch.serve.FULL_WIDTH_TRAFFIC`
    (8 prompts of 512 tokens, a cache of 544, prefill and 32 greedy
@@ -70,10 +91,10 @@ nothing of the reference package.  Phases, each printing one JSON line:
    forwards, the prefill's 28 flash launches all on the tensor-core path
    and every decode step's 28 on the split-KV path.  Prefill ms, decode
    ms per step, tokens/s, peak memory.
-11. ``serve_ssm``: the same on xlstm-350m at full width (24 layers, bf16):
+15. ``serve_ssm``: the same on xlstm-350m at full width (24 layers, bf16):
    20 mLSTM-scan launches (prefill only), all 20 on the tensor-core
    parallel form and none on the recurrence, 49 RMSNorms per forward.
-12. ``serve_cross``: the card with its kernels against the CPU with the
+16. ``serve_cross``: the card with its kernels against the CPU with the
    plain versions, on the same fp32 weights (TF32 off): qwen3 cut to 2
    layers and xlstm to one period of 6, full width otherwise; 2 prompts of
    64 tokens, then 8 decode steps teacher-forced with the CPU's greedy
@@ -147,6 +168,31 @@ MESH_SLOTS = 16       # resident clients of the mesh phase (N_local at d=1)
 # over policy {hasfl, rbs+rms} and seed {0, 1}
 GRID = dict(arch="vgg16-cifar", n_clients=8, partition="iid", n_train=4096,
             n_test=512, rounds=12, eval_every=4)
+# the scenario phase's cell: the train phase's spec under the reference
+# resume test's maximal-state settings (churn masks and deadline faults
+# into kernel 2), snapshots every 6 rounds
+SCENARIO = dict(scenario="churn-heavy", scenario_seed=7, fault_mode="deadline",
+                deadline_factor=2.0)
+CHECKPOINT_EVERY = 6
+# the traffic phase's plane: benchmarks/traffic_sweep.py's shape, arrival
+# rate and dwell matched to the plane's virtual clock at VGG-16 so the
+# cohort churns within 12 rounds.  That clock has no Eq. 38 barrier and no
+# Eq. 39 exchange: it reads ~0.56 virtual s after 12 rounds where the
+# synchronous clock reads ~31 s, so at 0.5 arrivals/s and a 10 s dwell a
+# run would expect 0.28 arrivals and 0.44 of 8 users departing
+TRAFFIC = dict(n_users=100_000, arrival_rate=20.0, mean_dwell=0.5,
+               buffer_frac=0.5, staleness_alpha=0.5, shard_size=150, seed=11)
+# dynamic_cross's traffic plane at vgg9's virtual clock (~0.01 s a round):
+# the reference's churny cell (tests/test_traffic.py)
+TRAFFIC_CROSS = dict(n_users=500, arrival_rate=300.0, mean_dwell=0.02,
+                     buffer_frac=0.5, staleness_alpha=0.5, shard_size=40,
+                     seed=3)
+# the cli phase's command line (the reference launcher's small edge run,
+# under a scenario), its CSV under build/
+CLI_ARGS = ["--mode", "edge", "--arch", "vgg9-cifar-small", "--clients", "4",
+            "--rounds", "12", "--agg-interval", "3", "--eval-every", "4",
+            "--n-train", "400", "--n-test", "100", "--iid", "--scenario",
+            "straggler-bursts"]
 
 # the reference's own token-kernel cases (tests/test_kernels.py) and bars
 FLASH_CASES = [  # (b, sq, sk, hq, hkv, hd, causal, window, dtype)
@@ -1601,6 +1647,416 @@ def phase_grid(detail):
     return out
 
 
+def _same(xs, ys) -> bool:
+    """Two lists of arrays (or Nones) equal element for element."""
+    import numpy as np
+
+    return len(xs) == len(ys) and all(
+        (x is None and y is None) or np.array_equal(x, y)
+        for x, y in zip(xs, ys))
+
+
+def _same_result(a, b) -> bool:
+    """Two `SimResult`s bitwise: rounds, clocks, losses, accuracies and
+    decisions."""
+    return (a.rounds == b.rounds and a.clock == b.clock
+            and a.train_loss == b.train_loss and a.test_loss == b.test_loss
+            and a.test_acc == b.test_acc
+            and _same(a.b_history, b.b_history)
+            and _same(a.cut_history, b.cut_history))
+
+
+def _same_params(sa, sb) -> bool:
+    import torch
+    from repro_torch.utils.tree import tree_leaves
+
+    return all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(sa.sim._stacked), tree_leaves(sb.sim._stacked)))
+
+
+def _same_log(a, b) -> bool:
+    return (a.time, a.round, a.kind, a.slot, a.user) == \
+        (b.time, b.round, b.kind, b.slot, b.user)
+
+
+def _recording_parts(sess):
+    """Record every participation plan ``sess`` draws."""
+    parts = []
+    draw = sess.sim._segment_participation
+
+    def recording(*a):
+        parts.append(draw(*a))
+        return parts[-1]
+
+    sess.sim._segment_participation = recording
+    return parts
+
+
+def _recording_weights(sess):
+    """Record every staleness-weight plan ``sess``'s traffic plane draws."""
+    plans = []
+    draw = sess.plane.plan_segment
+
+    def recording(*a):
+        plans.append(draw(*a))
+        return plans[-1]
+
+    sess.plane.plan_segment = recording
+    return plans
+
+
+def _timed_snapshots(sess):
+    """Wrap ``sess``'s snapshot writer to add its wall seconds to the
+    one-element list returned."""
+    spent = [0.0]
+    write = sess._snapshot_cb
+
+    def timed(*a):
+        t0 = time.perf_counter()
+        write(*a)
+        spent[0] += time.perf_counter() - t0
+
+    sess._snapshot_cb = timed
+    return spent
+
+
+def _dynamic_runs(spec, name, record):
+    """The full-width checkpoint drill of the ``scenario`` and ``traffic``
+    phases: ``spec`` run uninterrupted on the card (launch counters zeroed
+    just before and read just after, peak memory, policy seconds), run
+    again writing a
+    snapshot every `CHECKPOINT_EVERY` rounds into a temporary directory
+    under build/ (snapshot seconds), then `Session.resume` from the first
+    snapshot runs the rest.  ``record(sess)`` wraps what the phase reads
+    and returns it.  Returns the three (session, result, recorded, wall
+    seconds), the first run's launches, peak and policy seconds, and the
+    second's snapshot seconds and bytes; the directory is removed."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.api import Session
+    from repro_torch.kernels import ops
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix=f"{name}_snaps_", dir=ROOT / "build")
+    try:
+        runs = []
+        for kind in ("whole", "checkpointed", "resumed"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            ck = spec.replace(checkpoint_every=CHECKPOINT_EVERY,
+                              checkpoint_dir=ckpt_dir)
+            if kind == "whole":
+                sess = Session(spec)
+            elif kind == "checkpointed":
+                sess = Session(ck)
+                snap_s = _timed_snapshots(sess)
+            else:
+                sess = Session.resume(ck, step=CHECKPOINT_EVERY)
+            recorded = record(sess)
+            if kind == "whole":
+                policy_s = _timed_policies([sess])
+                torch.cuda.reset_peak_memory_stats()
+                ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = sess.run()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            if kind == "whole":
+                launches = ops.launch_counts()
+                peak = torch.cuda.max_memory_allocated()
+            runs.append((sess, res, recorded, seconds))
+            if kind == "checkpointed":
+                snapshot_bytes = sum(
+                    f.stat().st_size for f in Path(ckpt_dir).iterdir())
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return runs, dict(launches=launches, max_memory_allocated=peak,
+                      policy_seconds=policy_s[0],
+                      snapshot_seconds=snap_s[0],
+                      snapshot_bytes=snapshot_bytes)
+
+
+def _dynamic_out(phase, spec, runs, info):
+    """The common part of the ``scenario``/``traffic`` lines."""
+    import math
+
+    import torch
+    from repro_torch.utils.tree import tree_leaves
+
+    (whole, r, _, s_whole), (ck, rc, _, s_ck), (res, rr, _, s_res) = runs
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in tree_leaves(whole.sim._stacked))
+    out = {"phase": phase, "arch": spec.arch, "n_clients": spec.n_clients,
+           "rounds": spec.rounds, "scenario": spec.scenario,
+           "seconds": s_whole, "seconds_per_round": s_whole / spec.rounds,
+           "policy_seconds": info["policy_seconds"],
+           "checkpointed_seconds": s_ck,
+           "resumed_seconds": s_res,
+           "resumed_rounds": spec.rounds - CHECKPOINT_EVERY,
+           "snapshot_seconds": info["snapshot_seconds"],
+           "snapshot_bytes": info["snapshot_bytes"],
+           "max_memory_allocated": info["max_memory_allocated"],
+           "launches": info["launches"],
+           "train_loss": r.train_loss, "test_acc": r.test_acc,
+           "clock": r.clock,
+           "b_history": [list(map(int, b)) for b in r.b_history],
+           "checkpointed_bitwise": _same_result(rc, r)
+           and _same_params(ck, whole),
+           "resumed_bitwise": _same_result(rr, r)
+           and _same_params(res, whole)}
+    checks = [
+        (len(r.train_loss) == spec.rounds // spec.eval_every, "evals"),
+        (all(math.isfinite(v) for v in r.train_loss + r.test_loss + r.clock)
+         and finite, "non-finite loss, clock or parameters"),
+        (info["launches"]["batched_matmul"] > 0, "the GEMM never launched"),
+        (info["launches"]["clip_sgd"] == spec.rounds,
+         f"{info['launches']['clip_sgd']} update launches, not one a round"),
+        (info["launches"]["clip_sgd_ext"] == 0,
+         "the external-mean update launched"),
+        (out["checkpointed_bitwise"],
+         "the checkpointed run differs from the uninterrupted run"),
+        (out["resumed_bitwise"],
+         "the resumed run differs from the uninterrupted run"),
+    ]
+    return out, checks
+
+
+def phase_scenario(detail):
+    """The train phase's VGG-16 cell under ``churn-heavy`` with deadline
+    faults (`SCENARIO`): run uninterrupted, checkpointed every 6 rounds,
+    and resumed from round 6 (`_dynamic_runs`).  Checks: one update
+    launch a round, the GEMM launched, the checkpointed and the resumed
+    runs bitwise equal to the uninterrupted one (results and final
+    parameters), and the deadline dropping clients.  Reports seconds per
+    round, snapshot seconds and bytes, peak memory and the mean
+    participation."""
+    import numpy as np
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.config import SFLConfig
+
+    spec = ExperimentSpec(**GRID, policy="hasfl", conv_impl="kernel",
+                          update_impl="kernel", **SCENARIO,
+                          sfl=SFLConfig(lr=0.05, agg_interval=3))
+    runs, info = _dynamic_runs(spec, "scenario", _recording_parts)
+    out, checks = _dynamic_out("scenario", spec, runs, info)
+    parts = np.concatenate(runs[0][2])
+    out["mean_participation"] = float(parts.mean())
+    out["rounds_with_drops"] = int((parts.min(axis=1) < 1).sum())
+    out["parts_bitwise_resumed"] = _same(
+        runs[2][2], runs[0][2][-len(runs[2][2]):])
+    emit(out)
+    detail["scenario"] = out
+    checks += [(out["rounds_with_drops"] > 0, "no client was ever dropped"),
+               (out["parts_bitwise_resumed"],
+                "the resumed participation plans differ")]
+    for ok, what in checks:
+        check(ok, f"scenario: {what}")
+    return out
+
+
+def phase_traffic(detail):
+    """The same VGG-16 cohort (8 slots) under ``churn-heavy`` with the
+    streaming plane (`TRAFFIC`): the same drill as ``scenario``, plus the
+    event log of the resumed run bitwise equal to the uninterrupted one's.
+    Checks: more admits than the cohort, an eviction, a staleness weight
+    strictly between 0 and 1, one update launch a round.  Reports event
+    counts by kind and seconds per round."""
+    import numpy as np
+    from repro_torch.api import ExperimentSpec, TrafficSpec
+    from repro_torch.config import SFLConfig
+
+    spec = ExperimentSpec(**GRID, policy="hasfl", conv_impl="kernel",
+                          update_impl="kernel", scenario="churn-heavy",
+                          scenario_seed=7, traffic=TrafficSpec(**TRAFFIC),
+                          sfl=SFLConfig(lr=0.05, agg_interval=3))
+    runs, info = _dynamic_runs(spec, "traffic", _recording_weights)
+    out, checks = _dynamic_out("traffic", spec, runs, info)
+    whole, resumed = runs[0][0], runs[2][0]
+    w = np.concatenate([p.ravel() for p in runs[0][2]])
+    counts = whole.plane.log.counts()
+    out.update(events=counts, virtual_clock=whole.plane.clock,
+               fractional_weights=int(((w > 0) & (w < 1)).sum()),
+               min_positive_weight=float(w[w > 0].min()),
+               event_log_bitwise_resumed=_same_log(resumed.plane.log,
+                                                   whole.plane.log),
+               event_log_bitwise_checkpointed=_same_log(
+                   runs[1][0].plane.log, whole.plane.log))
+    emit(out)
+    detail["traffic"] = out
+    checks += [
+        (counts["admit"] > spec.n_clients,
+         f"{counts['admit']} admits, not more than the cohort"),
+        (counts["evict"] > 0, "no eviction"),
+        (out["fractional_weights"] > 0, "no fractional staleness weight"),
+        (out["event_log_bitwise_resumed"]
+         and out["event_log_bitwise_checkpointed"],
+         "the event log differs from the uninterrupted run's"),
+    ]
+    for ok, what in checks:
+        check(ok, f"traffic: {what}")
+    return out
+
+
+def _cross_pair(spec, record):
+    """``spec`` on the card and on the CPU from the same weights: the two
+    (session, result, recorded plans) pairs."""
+    import torch
+    from repro_torch.api import Session
+    from repro_torch.config import get_config
+    from repro_torch.convert import units_to_numpy
+    from repro_torch.models import build_model
+
+    init = units_to_numpy(build_model(get_config(spec.arch)).init(
+        torch.Generator().manual_seed(0)))
+    out = []
+    for dev in ("cuda", "cpu"):
+        sess = Session(spec, device=dev, init_units=init)
+        recorded = record(sess)
+        out.append((sess, sess.run(), recorded))
+    return out
+
+
+def _cross_errors(ra, rb, sa, sb):
+    """(max loss/accuracy difference, max parameter difference)."""
+    import numpy as np
+    from repro_torch.convert import units_to_numpy
+    from repro_torch.utils.tree import tree_leaves
+
+    loss = max(abs(a - b) for a, b in zip(
+        ra.train_loss + ra.test_loss + ra.test_acc,
+        rb.train_loss + rb.test_loss + rb.test_acc))
+    param = max(float(np.max(np.abs(a - b))) for a, b in zip(
+        tree_leaves(units_to_numpy(sa.sim._stacked)),
+        tree_leaves(units_to_numpy(sb.sim._stacked))))
+    return loss, param
+
+
+def phase_dynamic_cross(detail):
+    """The dynamic edge on the card against the CPU at ``cross_device``'s
+    sizes (vgg9-cifar-small, N=4): the scenario cell (``SCENARIO``), a
+    traffic cell (`TRAFFIC_CROSS`) and a 2 x 2 grid (hasfl, rbs+rms x
+    straggler-bursts, flaky-uplink) through `run_grid`.  Decisions,
+    clocks, gather and participation plans and event logs bitwise; losses
+    and parameters within 1e-4; each grid cell on the card bitwise equal
+    to its own `run()` on the card."""
+    import torch
+    from repro_torch.api import ExperimentSpec, Session, TrafficSpec, run_grid
+    from repro_torch.config import SFLConfig, get_config
+    from repro_torch.convert import units_to_numpy
+    from repro_torch.models import build_model
+
+    base = dict(arch="vgg9-cifar-small", n_clients=4, partition="iid",
+                n_train=400, n_test=100, rounds=4, eval_every=2,
+                policy="hasfl", estimate=False,
+                sfl=SFLConfig(lr=0.05, agg_interval=2))
+    out = {"phase": "dynamic_cross", "arch": base["arch"]}
+    bad = []
+
+    def both(sess):
+        return _recording(sess), _recording_parts(sess)
+
+    def gate(name, card, cpu, extra=()):
+        (sa, ra, (pa, qa)), (sb, rb, (pb, qb)) = card, cpu
+        loss, param = _cross_errors(ra, rb, sa, sb)
+        row = dict(decisions=_same(ra.b_history, rb.b_history)
+                   and _same(ra.cut_history, rb.cut_history),
+                   clock=ra.clock == rb.clock, plans=_same(pa, pb),
+                   participation=_same(qa, qb),
+                   loss_acc_max_err=loss, param_max_err=param, **dict(extra))
+        out[name] = row
+        bad.extend(f"{name}: {k}" for k, v in row.items()
+                   if v is False)
+        if loss > CROSS_TOL or param > CROSS_TOL:
+            bad.append(f"{name}: losses {loss} / parameters {param} over "
+                       f"{CROSS_TOL}")
+
+    spec = ExperimentSpec(**base, **SCENARIO)
+    card, cpu = _cross_pair(spec, both)
+    gate("scenario", card, cpu)
+
+    spec = ExperimentSpec(**dict(base, policy="fixed"),
+                          traffic=TrafficSpec(**TRAFFIC_CROSS))
+    card, cpu = _cross_pair(spec, both)
+    counts = card[0].plane.log.counts()
+    gate("traffic", card, cpu, dict(
+        event_log=_same_log(card[0].plane.log, cpu[0].plane.log),
+        events=counts))
+    if counts["admit"] <= spec.n_clients or counts["evict"] == 0:
+        bad.append(f"traffic: the cell did not churn ({counts})")
+
+    cells = [dict(base, policy=p, scenario=sc, scenario_seed=5)
+             for p in ("hasfl", "rbs+rms")
+             for sc in ("straggler-bursts", "flaky-uplink")]
+    specs = [ExperimentSpec(**c) for c in cells]
+    init = units_to_numpy(build_model(get_config(base["arch"])).init(
+        torch.Generator().manual_seed(0)))
+    grids = {}
+    for dev in ("cuda", "cpu"):
+        sessions = [Session(s, device=dev, init_units=init) for s in specs]
+        recorded = [both(s) for s in sessions]
+        grids[dev] = list(zip(sessions, run_grid(sessions), recorded))
+    alone = [Session(s, init_units=init) for s in specs]
+    alone_res = [s.run() for s in alone]
+    rows = []
+    for i, (card, cpu) in enumerate(zip(grids["cuda"], grids["cpu"])):
+        gate(f"grid_{i}", card, cpu, dict(
+            cell=f"{cells[i]['policy']} x {cells[i]['scenario']}",
+            bitwise_own_run=_same_result(card[1], alone_res[i])
+            and _same_params(card[0], alone[i])))
+        rows.append(out.pop(f"grid_{i}"))
+    out["grid"] = rows
+    emit(out)
+    detail["dynamic_cross"] = out
+    check(not bad, "dynamic_cross: " + "; ".join(bad))
+    return out
+
+
+def phase_cli(detail):
+    """`repro_torch.launch.train.main` in process, edge mode on the card
+    (`CLI_ARGS`, a CSV under build/): one CSV row per eval, the
+    ``.spec.json`` beside it reloading equal to the spec, and the numbers
+    bitwise equal to `Session(spec).run()` on the card."""
+    import csv
+    import shutil
+    import tempfile
+
+    from repro_torch.api import ExperimentSpec, Session
+    from repro_torch.launch import train
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    d = tempfile.mkdtemp(prefix="cli_", dir=ROOT / "build")
+    try:
+        path = str(Path(d) / "edge.csv")
+        t0 = time.perf_counter()
+        spec, res = train.main(CLI_ARGS + ["--csv", path])
+        seconds = time.perf_counter() - t0
+        with open(path) as f:
+            rows = list(csv.DictReader(f))
+        reloaded = ExperimentSpec.load(path + ".spec.json")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    alone = Session(spec).run()
+    out = {"phase": "cli", "argv": CLI_ARGS, "seconds": seconds,
+           "csv_rows": len(rows), "evals": len(res.rounds),
+           "spec_reloads_equal": reloaded == spec,
+           "csv_matches": [float(r["clock"]) for r in rows] == res.clock
+           and [float(r["train_loss"]) for r in rows] == res.train_loss,
+           "bitwise_session_run": _same_result(res, alone),
+           "test_acc": res.test_acc, "clock": res.clock}
+    emit(out)
+    detail["cli"] = out
+    check(out["csv_rows"] == out["evals"] == spec.rounds // spec.eval_every,
+          f"cli: {out['csv_rows']} CSV rows for {out['evals']} evals")
+    check(out["spec_reloads_equal"], "cli: the spec file reloads unequal")
+    check(out["csv_matches"], "cli: the CSV differs from the result")
+    check(out["bitwise_session_run"],
+          "cli: the launcher's run differs from Session(spec).run()")
+    return out
+
+
 def _expected_launches(cfg, forwards: int) -> dict:
     """Launches of the token kernels in one ``serve`` run of ``forwards``
     forwards (one prefill, then decode steps): flash attention once per
@@ -1844,6 +2300,10 @@ def main(argv=None) -> int:
     dist.destroy_process_group()      # the mesh phases' world of one
     phase_grid_cross(detail)
     grid = phase_grid(detail)
+    scenario = phase_scenario(detail)
+    traffic = phase_traffic(detail)
+    phase_dynamic_cross(detail)
+    phase_cli(detail)
     # a simulator refers to itself (its segment function is a bound
     # method), so the earlier phases' sessions and their device tensors
     # go only with a collection: free them before serving's peak is read
@@ -1860,6 +2320,8 @@ def main(argv=None) -> int:
          "replaces": "src/repro/kernels/batched_conv.py:63",
          "launches": launches["batched_matmul"],
          "launches_grid": grid["launches"]["batched_matmul"],
+         "launches_scenario": scenario["launches"]["batched_matmul"],
+         "launches_traffic": traffic["launches"]["batched_matmul"],
          "max_abs_err": gemm["max_abs_err"], "ms": gemm["ms"],
          "plain_ms": gemm["plain_ms"], "bound_ms": gemm["bound_ms"],
          "bound_by": gemm["bound_by"], "library_ms": gemm["library_ms"]},
@@ -1868,6 +2330,8 @@ def main(argv=None) -> int:
          "replaces": "src/repro/kernels/clip_sgd.py:29",
          "launches": launches["clip_sgd"],
          "launches_grid": grid["launches"]["clip_sgd"],
+         "launches_scenario": scenario["launches"]["clip_sgd"],
+         "launches_traffic": traffic["launches"]["clip_sgd"],
          "max_abs_err": clip["max_abs_err"], "ms": clip["ms"],
          "device_ms": clip["device_ms"],
          "plain_ms": clip["plain_ms"], "bound_ms": clip["bound_ms"],

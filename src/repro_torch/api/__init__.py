@@ -26,12 +26,14 @@ from repro_torch.api.spec import (
     load_specs,
     save_specs,
 )
+from repro_torch.traffic import TrafficSpec
 
 __all__ = [
     "SPEC_VERSION",
     "ExecutionChoice",
     "ExperimentSpec",
     "Session",
+    "TrafficSpec",
     "apply_choice",
     "group_cells",
     "pick",

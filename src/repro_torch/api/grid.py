@@ -1,15 +1,15 @@
-"""The policy x seed grid runner (port of `repro.api.grid`, DESIGN.md §10,
-§13).
+"""The policy x scenario x seed grid runner (port of `repro.api.grid`,
+DESIGN.md §10, §13).
 
 `run_group` executes a list of *compatible* sessions — same
 `ExperimentSpec.grid_key()`: same model architecture and data shapes,
 same `SFLConfig`, same round segmentation, kernel impls and fault mode;
-policy, seed and partition are free axes — as one run.  The reference
-stacks the cells on a leading grid axis and dispatches each segment as a
-``vmap`` of the scan engine's body.  The port has no ``vmap``: it *folds*
-the cell axis into the client axis instead.  G cells of N clients become
-one carry of ``[G·N, ...]`` leaves (cell g's clients at rows
-``[g·N, (g+1)·N)``), and each segment's rounds run once over it
+policy, scenario, seed and partition are free axes — as one run.  The
+reference stacks the cells on a leading grid axis and dispatches each
+segment as a ``vmap`` of the scan engine's body.  The port has no
+``vmap``: it *folds* the cell axis into the client axis instead.  G cells
+of N clients become one carry of ``[G·N, ...]`` leaves (cell g's clients
+at rows ``[g·N, (g+1)·N)``), and each segment's rounds run once over it
 (`SFLEdgeSimulator.run_rounds` with ``cells=G``): on the card every conv
 is one GEMM launch for all cells and every round one clip+SGD launch (per
 64 (cell, leaf) entries).
@@ -34,9 +34,11 @@ bit.  What makes it hold:
   the library reductions and GEMMs whose plan may follow the leading
   extent (clip norms, bias gradients, the FC layers, the loss means) run
   cell by cell (`utils.cells.by_cell`);
-- host-side parity: clocks, policy decisions and the RNG index streams
-  advance through each cell's own simulator with the code `run()` uses
-  (`_advance_clock`, `DeviceClientStore.segment_indices`, the policies);
+- host-side parity: clocks, policy decisions, participation plans and
+  the RNG index streams advance through each cell's own simulator, on its
+  own scenario's trace states, with the code `run()` uses
+  (`_scenario_tick`, `_segment_participation`, `_advance_clock`,
+  `DeviceClientStore.segment_indices`, the policies);
 - bucket sub-grouping: a cell's gather plan is padded to its OWN
   ``pow2_bucket(b_max)`` (padding wider regroups the batch reduction), so
   cells whose b_max falls in different buckets run as separate folded
@@ -50,7 +52,6 @@ from typing import List, Tuple
 
 import numpy as np
 
-from repro_torch.core import split as SP
 from repro_torch.core.sfl import SimResult, pow2_bucket
 from repro_torch.data.pipeline import DeviceClientStore
 from repro_torch.utils.cells import fold, rows
@@ -115,7 +116,6 @@ def run_group(sessions, *, verbose: bool = False) -> List[SimResult]:
     rounds = spec0.rounds
     eval_every = spec0.eval_every
     reconf = spec0.resolved_reconfigure_every
-    n_units_total = len(sim0.units)
     faulty = spec0.fault_mode != "soft"
     uniform_data = len({s.spec.seed for s in sessions}) == 1
     arrays_cache: dict = {}
@@ -141,13 +141,12 @@ def run_group(sessions, *, verbose: bool = False) -> List[SimResult]:
         idx, rmask, masks, parts = [], [], [], []
         for g in members:
             b, cuts = decisions[g]
-            l_c_units = int(np.max(sims[g]._unit_cuts(cuts)))
-            masks.append(
-                SP.client_unit_mask(sim0.cfg, n_units_total, l_c_units))
+            masks.append(sims[g]._unit_masks(cuts))
             idx.append(sims[g].store.segment_indices(seg, b, b_pad))
             rmask.append(sims[g].store.row_mask(b, b_pad))
             if faulty:
-                parts.append(sims[g]._segment_participation(t, nxt, b, cuts))
+                parts.append(sims[g]._segment_participation(
+                    t, nxt, b, cuts, sessions[g].scenario))
         arrays, n_train = arrays_for(members)
         idx, rmask = DeviceClientStore.fold_plan(idx, rmask, n_train)
         masks = np.stack(masks)
@@ -158,6 +157,7 @@ def run_group(sessions, *, verbose: bool = False) -> List[SimResult]:
     clocks = [0.0] * n_cells
     decisions = []
     for g, sess in enumerate(sessions):
+        sims[g]._scenario_tick(sess.scenario, 0)
         b, cuts = sess.policy(sims[g], sims[g].rng)
         sims[g]._record_policy(res[g], b, cuts)
         decisions.append((np.asarray(b), np.asarray(cuts)))
@@ -168,11 +168,7 @@ def run_group(sessions, *, verbose: bool = False) -> List[SimResult]:
 
     t = 0
     while t < rounds:
-        nxt = min(
-            (t // eval_every + 1) * eval_every,
-            (t // reconf + 1) * reconf,
-            rounds,
-        )
+        nxt = sim0._next_boundary(t, eval_every, reconf, rounds)
         buckets = {}
         for g, (b, _) in enumerate(decisions):
             buckets.setdefault(pow2_bucket(int(np.max(b))), []).append(g)
@@ -196,9 +192,10 @@ def run_group(sessions, *, verbose: bool = False) -> List[SimResult]:
                 seg_losses[g] = losses[:, j * n:(j + 1) * n]
             dispatches.append(Dispatch(t, nxt - t, b_pad, tuple(members)))
 
-        for g in range(n_cells):
+        for g, sess in enumerate(sessions):
             b, cuts = decisions[g]
-            clocks[g] = sims[g]._advance_clock(clocks[g], t, nxt, b, cuts)
+            clocks[g] = sims[g]._advance_clock(clocks[g], t, nxt, b, cuts,
+                                               sess.scenario)
         t = nxt
 
         at_reconf = t % reconf == 0 and t < rounds

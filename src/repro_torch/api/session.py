@@ -8,7 +8,12 @@ gather plans match the reference bitwise for the same spec.
 
 Sessions are single-shot: the simulator they wrap is stateful, so build a
 fresh `Session` per run.  `Session.run_grid` runs many specs, folding each
-grid-compatible group into one run (`repro_torch.api.grid`).
+grid-compatible group into one run (`repro_torch.api.grid`).  A spec with
+``scenario`` runs on that preset's time-varying device pool; with
+``checkpoint_every`` it writes crash-safe snapshots, and `Session.resume`
+rebuilds a session from one that continues the run bitwise; with
+``traffic`` it runs the semi-async streaming plane
+(`repro_torch.traffic`), the plane's state folded into the snapshots.
 
 A spec with ``mesh`` runs on the default `torch.distributed` process
 group, one process per device.  At ``mesh.devices`` 1 (or None) with no
@@ -21,9 +26,12 @@ not ``mesh.devices``.
 """
 from __future__ import annotations
 
+import dataclasses
+import json
 from typing import List, Optional, Sequence, Union
 
 import numpy as np
+import torch
 
 from repro_torch.api import policies as policy_registry
 from repro_torch.api import runners
@@ -32,7 +40,7 @@ from repro_torch.api.spec import ExperimentSpec
 from repro_torch.config import get_config
 from repro_torch.core.latency import sample_devices
 from repro_torch.core.profiles import model_profile
-from repro_torch.core.sfl import SFLEdgeSimulator, SimResult
+from repro_torch.core.sfl import SFLEdgeSimulator, SimResult, pow2_bucket
 from repro_torch.data import (
     ClientSampler,
     make_cifar_like,
@@ -42,6 +50,8 @@ from repro_torch.data import (
 from repro_torch.device import disable_tf32, resolve
 from repro_torch.mesh import sharded as SH
 from repro_torch.models import build_model
+from repro_torch.training import checkpoint as ckpt
+from repro_torch.utils.tree import tree_leaves
 
 
 class Session:
@@ -72,12 +82,38 @@ class Session:
                 f"unknown policy {spec.policy!r}; "
                 f"known: {policy_registry.list_policies()}"
             )
+        if spec.scenario is not None:
+            from repro_torch.scenarios import list_presets
+
+            if spec.scenario not in list_presets():
+                raise KeyError(
+                    f"unknown scenario preset {spec.scenario!r}; "
+                    f"known: {list_presets()}"
+                )
 
         self.model = build_model(self.cfg)
         rng = np.random.default_rng(spec.seed)
         train, test, shard_labels = self._build_data(spec)
         self._bank = None
-        if spec.mesh is not None and spec.mesh.population is not None:
+        self._plane = None
+        self.sfl = spec.resolved_sfl
+        n_slots = spec.n_clients
+        if spec.traffic is not None:
+            # streaming traffic (DESIGN.md §14): the simulator is built at
+            # pow2 slot capacity with every slot bound to the dummy pool;
+            # the plane admits the initial cohort (and every later
+            # arrival's derived shard/profile) by slot surgery, so the
+            # static partition is skipped entirely
+            from repro_torch.traffic import TrafficPlane, dummy_pool
+
+            n_slots = pow2_bucket(spec.n_clients)
+            self.sampler = ClientSampler(
+                train, [dummy_pool() for _ in range(n_slots)], rng)
+            self.sfl = dataclasses.replace(self.sfl, n_devices=n_slots)
+            self._plane = TrafficPlane(
+                spec.traffic, n_train=spec.n_train,
+                cohort=spec.n_clients, capacity=n_slots)
+        elif spec.mesh is not None and spec.mesh.population is not None:
             # cohort-bank scale-out (DESIGN.md §15): the resident
             # simulator holds only the active cohort; every slot's data
             # pool is bound by the bank at attach/rotate time, so the
@@ -97,9 +133,8 @@ class Session:
                 shards = partition_noniid_shards(
                     shard_labels, spec.n_clients, rng)
             self.sampler = ClientSampler(train, shards, rng)
-        self.sfl = spec.resolved_sfl
         self.profile = model_profile(self.cfg, seq_len=spec.seq_len)
-        self.devices = sample_devices(spec.n_clients, rng)
+        self.devices = sample_devices(n_slots, rng)
         if init_units is not None:
             from repro_torch.convert import units_from_numpy
 
@@ -120,6 +155,12 @@ class Session:
             mesh=spec.mesh,
             cohort_bank=self._bank,
         )
+        self.scenario = None
+        if spec.scenario is not None:
+            from repro_torch.scenarios import make_scenario
+
+            self.scenario = make_scenario(
+                spec.scenario, self.devices, seed=spec.scenario_seed)
         self.policy = policy_registry.make_policy(
             spec.policy,
             self.profile,
@@ -128,6 +169,7 @@ class Session:
             seed=spec.seed,
         )
         self._ran = False
+        self._resume: Optional[dict] = None
 
     def _build_data(self, spec: ExperimentSpec):
         """(train arrays, test batch, labels for non-IID sharding)."""
@@ -142,6 +184,12 @@ class Session:
         test = {"images": xte, "labels": yte}
         return train, test, ytr
 
+    @property
+    def plane(self):
+        """The cell's `TrafficPlane` (None on synchronous specs) — the
+        event log and slot state live here after `run()`."""
+        return self._plane
+
     def _consume(self) -> None:
         """Mark this session as run (single-shot) or raise if it was."""
         if self._ran:
@@ -151,15 +199,139 @@ class Session:
             )
         self._ran = True
 
+    # -- crash-safe snapshots (DESIGN.md §12) --------------------------------
+
+    def _snapshot_cb(self, t: int, clock: float, b, cuts, res: SimResult):
+        """Write the full run state at round ``t`` (atomic, tmp-then-
+        rename — `training.checkpoint.save_snapshot`).
+
+        Everything the resumed loop touches is captured: the stacked
+        parameters (device tensors copied to the host), the decision in
+        force, the metric/decision history, the two host RNG streams
+        (sampling and policy), the controller's cross-boundary state and,
+        on traffic cells, the plane's host state.  The scenario is *not*
+        snapshotted — it regenerates its trace deterministically from
+        ``spec.scenario_seed``.
+        """
+        leaves = tree_leaves(self.sim._stacked)
+        arrays = {f"param_leaf_{i}": ckpt.to_numpy(x)
+                  for i, x in enumerate(leaves)}
+        arrays.update(
+            b=np.asarray(b),
+            cuts=np.asarray(cuts),
+            res_rounds=np.asarray(res.rounds, np.int64),
+            res_clock=np.asarray(res.clock, np.float64),
+            res_train_loss=np.asarray(res.train_loss, np.float64),
+            res_test_loss=np.asarray(res.test_loss, np.float64),
+            res_test_acc=np.asarray(res.test_acc, np.float64),
+            res_b_history=np.asarray(res.b_history),
+            res_cut_history=np.asarray(res.cut_history),
+        )
+        meta = {
+            "clock": float(clock),
+            "structure": ckpt.structure(self.sim._stacked),
+            "n_param_leaves": len(leaves),
+            "rng_sampler": self.sampler.rng.bit_generator.state,
+            "rng_sim": self.sim.rng.bit_generator.state,
+            "spec": self.spec.to_dict(),
+        }
+        state_fn = getattr(self.policy, "state_dict", None)
+        if state_fn is not None:
+            meta["controller"] = state_fn()
+        if self._plane is not None:
+            # fold the plane's host state — slot sessions, event heap,
+            # pool bindings, population cursor — into the same snapshot,
+            # so `resume` replays the event walk bitwise
+            tr_arrays, tr_meta = self._plane.state(self.sim.store)
+            arrays.update(tr_arrays)
+            meta["traffic"] = tr_meta
+        ckpt.save_snapshot(self.spec.checkpoint_dir, t, arrays, meta)
+
+    @torch.no_grad()
+    def _restore_state(self, arrays: dict, meta: dict) -> None:
+        """Load a snapshot back onto this (freshly built) session.  The
+        parameters are copied into the stacked tensors the simulator
+        already holds, so nothing that refers to them goes stale."""
+        leaves = tree_leaves(self.sim._stacked)
+        if meta["structure"] != ckpt.structure(self.sim._stacked):
+            raise ValueError(
+                "snapshot parameter tree does not match the spec's model "
+                f"({meta['n_param_leaves']} leaves vs {len(leaves)})")
+        for i, leaf in enumerate(leaves):
+            leaf.copy_(ckpt.from_numpy(arrays[f"param_leaf_{i}"], leaf))
+        self.sampler.rng.bit_generator.state = meta["rng_sampler"]
+        self.sim.rng.bit_generator.state = meta["rng_sim"]
+        if "controller" in meta:
+            self.policy.load_state_dict(meta["controller"])
+        if self._plane is not None:
+            self._plane.restore(self.sim, arrays, meta["traffic"])
+        res = SimResult(
+            rounds=[int(x) for x in arrays["res_rounds"]],
+            clock=[float(x) for x in arrays["res_clock"]],
+            train_loss=[float(x) for x in arrays["res_train_loss"]],
+            test_loss=[float(x) for x in arrays["res_test_loss"]],
+            test_acc=[float(x) for x in arrays["res_test_acc"]],
+            b_history=[np.asarray(r) for r in arrays["res_b_history"]],
+            cut_history=[np.asarray(r) for r in arrays["res_cut_history"]],
+        )
+        self._resume = {
+            "t": int(meta["step"]),
+            "clock": float(meta["clock"]),
+            "b": np.asarray(arrays["b"]),
+            "cuts": np.asarray(arrays["cuts"]),
+            "res": res,
+        }
+
+    @classmethod
+    def resume(cls, spec: ExperimentSpec,
+               checkpoint_dir: Optional[str] = None,
+               step: Optional[int] = None, device=None) -> "Session":
+        """Rebuild a session from the latest (or given) snapshot under
+        ``checkpoint_dir`` (default: ``spec.checkpoint_dir``) on
+        ``device`` (None: the card); its `run()` then continues
+        bitwise-identically to an uninterrupted run of the same spec —
+        same decision stream, clock floats, eval losses, and final
+        parameters.  A snapshot written by a different spec is refused.
+        """
+        spec = spec.validated()
+        path = checkpoint_dir or spec.checkpoint_dir
+        if path is None:
+            raise ValueError("no checkpoint_dir on the spec or the call")
+        arrays, meta = ckpt.load_snapshot(path, step)
+        saved = dict(meta["spec"])
+        # the dir itself may legitimately differ (moved snapshots); the
+        # json round-trip normalizes containers so the comparison sees
+        # exactly what the snapshot recorded
+        saved.pop("checkpoint_dir", None)
+        ours = json.loads(json.dumps(spec.to_dict()))
+        ours.pop("checkpoint_dir", None)
+        if saved != ours:
+            raise ValueError(
+                "snapshot was written by a different spec; refusing to "
+                "resume (diff keys: "
+                f"{sorted(k for k in ours if saved.get(k) != ours[k])})")
+        sess = cls(spec, device=device)
+        sess._restore_state(arrays, meta)
+        return sess
+
+    # -- execution ----------------------------------------------------------
+
     def run(self, *, verbose: bool = False) -> SimResult:
         """Run this cell (single-shot)."""
         self._consume()
+        snapshot_cb = self._snapshot_cb if self.spec.checkpoint_every \
+            else None
         return self.sim.run(
             self.policy,
             rounds=self.spec.rounds,
             eval_every=self.spec.eval_every,
             reconfigure_every=self.spec.reconfigure_every,
             verbose=verbose,
+            scenario=self.scenario,
+            checkpoint_every=self.spec.checkpoint_every,
+            snapshot_cb=snapshot_cb,
+            resume=self._resume,
+            traffic=self._plane,
         )
 
     @classmethod
@@ -175,7 +347,7 @@ class Session:
 
         Cells sharing `ExperimentSpec.grid_key()` — same model, data
         shapes, `SFLConfig`, round segmentation, kernel impls and fault
-        mode; policy, seed and partition free — run as one folded run
+        mode; policy, scenario, seed and partition free — run as one folded run
         (`repro_torch.api.grid.run_group`).  Incompatible cells fall back
         to sequential `run()`.  Results come back in input order, each
         bitwise equal to running that cell alone.

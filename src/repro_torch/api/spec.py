@@ -1,8 +1,8 @@
 """Declarative experiment descriptions (DESIGN.md §10).  Port of
 `repro.api.spec`: the same fields and the same JSON form, so a spec file
-written for the reference loads here.  Fields of subsystems not ported
-yet (scenario, traffic, checkpointing, non-scan engines) must keep
-their defaults; anything else raises ``NotImplementedError``.
+written for the reference loads here.  The port runs the scan engine's
+semantics only: ``engine`` other than ``"scan"`` (or None) raises
+``NotImplementedError``.
 
 An `ExperimentSpec` is the *complete* recipe for one simulation cell —
 model architecture, data partition, cohort size, `SFLConfig`, scenario
@@ -21,6 +21,7 @@ from typing import Optional
 
 from repro_torch.config import SFLConfig
 from repro_torch.mesh.spec import MeshSpec
+from repro_torch.traffic.population import TrafficSpec
 
 # Bumped when fields change incompatibly; `from_dict` accepts any dict
 # whose version matches and rejects unknown keys, so stale spec files
@@ -94,7 +95,7 @@ class ExperimentSpec:
     # cell to semi-async rounds over a live population — the simulator
     # is built at pow2 slot capacity and `n_clients` becomes the active
     # cohort cap.  None is the synchronous path, bit-for-bit unchanged.
-    traffic: Optional[object] = None
+    traffic: Optional[TrafficSpec] = None
     # device-mesh scale-out (DESIGN.md §15): a `MeshSpec` shards the
     # client axis of the stacked units over a process group (one process
     # per device) with hierarchical edge->cloud aggregation;
@@ -158,6 +159,21 @@ class ExperimentSpec:
             )
         if not isinstance(self.sfl, SFLConfig):
             raise ValueError("sfl must be an SFLConfig")
+        if self.traffic is not None:
+            if not isinstance(self.traffic, TrafficSpec):
+                raise ValueError("traffic must be a TrafficSpec or None")
+            self.traffic.validated()
+            if self.resolved_engine != "scan":
+                raise ValueError(
+                    "traffic mode is a segment-boundary feature — "
+                    "engine='scan' (or None) only")
+            if self.fault_mode != "soft":
+                raise ValueError(
+                    "traffic mode owns its fault semantics — "
+                    "fault_mode='soft' only")
+            if self.n_clients > 64:
+                raise ValueError(
+                    "traffic mode caps the active cohort at 64 slots")
         if self.mesh is not None:
             if not isinstance(self.mesh, MeshSpec):
                 raise ValueError("mesh must be a MeshSpec or None")
@@ -197,20 +213,12 @@ class ExperimentSpec:
         return self
 
     def _check_ported(self) -> None:
-        """Raise ``NotImplementedError`` for fields whose subsystem the
-        port does not carry yet (each names its ROADMAP.md item)."""
-        todo = (
-            (self.engine not in (None, "scan"),
-             f"engine={self.engine!r} (legacy/vectorized engines)"),
-            (self.scenario is not None, "scenario (scenarios)"),
-            (self.traffic is not None, "traffic (traffic)"),
-            (bool(self.checkpoint_every), "checkpoint_every "
-             "(checkpoint/resume)"),
-        )
-        for bad, what in todo:
-            if bad:
-                raise NotImplementedError(
-                    f"{what} is not ported yet; see ROADMAP.md queue 1")
+        """Raise ``NotImplementedError`` for the engines the port does not
+        carry (ROADMAP.md §1)."""
+        if self.engine not in (None, "scan"):
+            raise NotImplementedError(
+                f"engine={self.engine!r} (legacy/vectorized engines) is "
+                f"not ported yet; see ROADMAP.md queue 1")
 
     # -- derived views ------------------------------------------------------
 
@@ -298,6 +306,8 @@ class ExperimentSpec:
             d["sfl"] = SFLConfig(**d["sfl"])
         if isinstance(d.get("mesh"), dict):
             d["mesh"] = MeshSpec(**d["mesh"])
+        if isinstance(d.get("traffic"), dict):
+            d["traffic"] = TrafficSpec(**d["traffic"])
         return cls(**d).validated()
 
     @classmethod

@@ -21,6 +21,13 @@ place — the analogue of the reference's donated scan carry — and the
 per-round losses stay on the device until the segment's eval fetches
 them.
 
+A scenario (``run(scenario=)``, DESIGN.md §9) prices each round and
+draws its participation on that round's trace state; ``checkpoint_every``
+adds segment boundaries at which ``snapshot_cb`` fires, and ``resume``
+continues a run from a restored snapshot bitwise (DESIGN.md §12); a
+traffic plane (``run(traffic=)``, DESIGN.md §14) turns the run into
+semi-async rounds over a live population (`_run_traffic`).
+
 Mesh mode (``mesh=``, DESIGN.md §15) runs the same scheduler on every
 rank of a `torch.distributed` process group: each rank holds an ``N/d``
 slice of the stacked units, replicates the host plane, and combines the
@@ -63,6 +70,14 @@ class SimResult:
     test_loss: List[float] = field(default_factory=list)
     b_history: List[np.ndarray] = field(default_factory=list)
     cut_history: List[np.ndarray] = field(default_factory=list)
+
+    def converged_time(self, window: int = 5, tol: float = 0.0002) -> float:
+        """Paper's criterion: accuracy improves < tol over `window` evals."""
+        acc = self.test_acc
+        for k in range(window, len(acc)):
+            if max(acc[k - window:k + 1]) - acc[k - window] < tol:
+                return self.clock[k]
+        return self.clock[-1] if self.clock else float("inf")
 
 
 def clip_scale_from_norm(norm, clip: float):
@@ -295,7 +310,9 @@ class SFLEdgeSimulator:
 
     # -- device pool ----------------------------------------------------------
     def set_devices(self, devices: Sequence[DeviceProfile], available=None) -> None:
-        """Inject the current device pool (size stays N)."""
+        """Inject the current (possibly trace-evolved) device pool (size
+        stays N: churn is modeled as outage — DESIGN.md §9); the latency
+        model and any controller reading ``sim.devices`` see it."""
         if len(devices) != self.n:
             raise ValueError(f"device pool must stay size {self.n}, got {len(devices)}")
         self.devices = list(devices)
@@ -304,6 +321,11 @@ class SFLEdgeSimulator:
             np.ones(self.n, bool) if available is None
             else np.asarray(available, bool)
         )
+
+    def _scenario_tick(self, scenario, t: int) -> None:
+        """Advance the environment to round ``t``'s trace state."""
+        if scenario is not None:
+            self.set_devices(scenario.profiles_at(t), scenario.available_at(t))
 
     def _fault_round(self, b, cuts):
         """(participation, t_split, t_agg) for one round under the active
@@ -327,41 +349,68 @@ class SFLEdgeSimulator:
     # -- main loop ------------------------------------------------------------
     def run(
         self, policy_fn: Callable, rounds: int, eval_every: int = 10,
-        reconfigure_every: Optional[int] = None, verbose: bool = False
+        reconfigure_every: Optional[int] = None, verbose: bool = False,
+        scenario=None, checkpoint_every: int = 0, snapshot_cb=None,
+        resume=None, traffic=None
     ) -> SimResult:
         """policy_fn(sim, rng) -> (b [N], cuts_layers [N]).
 
         The segment scheduler: chops the round range at eval /
-        reconfiguration boundaries (the every-I stage needs no boundary),
-        pre-draws each segment's gather plan from the host RNG and runs
-        the segment on the device.  Metrics, clock accounting and policy
-        calls follow the reference's scan engine exactly.
+        reconfiguration / checkpoint boundaries (the every-I stage needs
+        no boundary), pre-draws each segment's gather plan from the host
+        RNG and runs the segment on the device.  Metrics, clock accounting
+        and policy calls follow the reference's scan engine exactly.
+
+        ``scenario`` (a `repro_torch.scenarios.Scenario`) makes the
+        environment time-varying: round t is priced and its participation
+        drawn on round t's trace state, and the state is left injected
+        when ``policy_fn`` fires at a boundary.  ``checkpoint_every``
+        makes every multiple of it a segment boundary and fires
+        ``snapshot_cb(t, clock, b, cuts, res)`` there, after the
+        boundary's reconfigure/eval; ``resume`` (the dict
+        `Session.resume` assembles) continues from a restored snapshot's
+        round.  Segment boundaries do not change numerics, so a
+        checkpointed or resumed run is bitwise the uninterrupted one.
+        ``traffic`` (a `repro_torch.traffic.TrafficPlane`) switches to the
+        semi-async streaming mode (`_run_traffic`); ``None`` leaves the
+        synchronous path unchanged.
         """
         reconf = reconfigure_every or self.sfl.agg_interval
-        res = SimResult()
-        clock = 0.0
-        t = 0
-        b, cuts = policy_fn(self, self.rng)
-        self._record_policy(res, b, cuts)
-        n_units_total = len(self.units)
+        if traffic is not None:
+            return self._run_traffic(
+                policy_fn, rounds, eval_every, reconf, verbose, scenario,
+                traffic, checkpoint_every, snapshot_cb, resume)
+        ckpt = int(checkpoint_every or 0)
+        if resume is not None:
+            res = resume["res"]
+            clock = float(resume["clock"])
+            t = int(resume["t"])
+            b = np.asarray(resume["b"])
+            cuts = np.asarray(resume["cuts"])
+            # params and RNG streams were restored by the caller; re-inject
+            # the snapshot round's trace state (the scenario regenerates
+            # its history deterministically from its seed)
+            self._scenario_tick(scenario, t)
+        else:
+            res = SimResult()
+            clock = 0.0
+            t = 0
+            self._scenario_tick(scenario, 0)
+            b, cuts = policy_fn(self, self.rng)
+            self._record_policy(res, b, cuts)
 
         while t < rounds:
-            nxt = min(
-                (t // eval_every + 1) * eval_every,
-                (t // reconf + 1) * reconf, rounds
-            )
-            ucuts = self._unit_cuts(np.asarray(cuts))
-            l_c_units = int(np.max(ucuts))
-            masks = SP.client_unit_mask(self.cfg, n_units_total, l_c_units)
+            nxt = self._next_boundary(t, eval_every, reconf, rounds, ckpt)
+            masks = self._unit_masks(cuts)
             b_pad = pow2_bucket(int(np.max(b)))
             idx = self.store.segment_indices(nxt - t, b, b_pad)
             row_mask = self.store.row_mask(b, b_pad)
-            parts = self._segment_participation(t, nxt, b, cuts)
+            parts = self._segment_participation(t, nxt, b, cuts, scenario)
             seg_losses = self._segment_fn(t, idx, row_mask, masks, parts)
 
             # clock: accumulate round-by-round on host (the reference's
             # float summation order)
-            clock = self._advance_clock(clock, t, nxt, b, cuts)
+            clock = self._advance_clock(clock, t, nxt, b, cuts, scenario)
             t = nxt
 
             if self._bank is not None and t < rounds \
@@ -377,7 +426,87 @@ class SFLEdgeSimulator:
                 # the eval round is the segment's last: its losses are the
                 # final row, fetched here once
                 self._record_metrics(res, t, clock, seg_losses[-1], verbose)
+            if ckpt and snapshot_cb is not None and t % ckpt == 0:
+                # after reconfigure/eval: the snapshot captures the
+                # decisions and metrics exactly as the resumed loop needs
+                snapshot_cb(t, clock, b, cuts, res)
         return res
+
+    def _run_traffic(
+        self, policy_fn: Callable, rounds: int, eval_every: int,
+        reconf: int, verbose: bool, scenario, traffic,
+        checkpoint_every: int = 0, snapshot_cb=None, resume=None
+    ) -> SimResult:
+        """Segment scheduler of the semi-async streaming mode.
+
+        The structure of `run`, with three substitutions (DESIGN.md §14):
+        the per-round participation plan comes from the plane's event walk
+        (staleness weights, never None), the wall clock is the plane's
+        virtual clock (no Eq. 38 barrier), and segment boundaries run the
+        plane's admit/evict slot surgery before the policy fires.  Empty
+        slots train the 1-sample dummy batch at weight zero, so every
+        tensor shape matches the fixed-cohort run.  Snapshots fire after
+        the boundary's surgery/injection/reconfigure; the Session folds
+        the plane's host state (`TrafficPlane.state`) into the same
+        snapshot, so a resumed run replays the identical event walk.
+        """
+        ckpt = int(checkpoint_every or 0)
+        if resume is not None:
+            res = resume["res"]
+            t = int(resume["t"])
+            b = np.asarray(resume["b"])
+            cuts = np.asarray(resume["cuts"])
+            # the plane's state was restored by the caller; attach only
+            # validates the wiring and re-derives the construction pool
+            traffic.attach(self, scenario, resume=True)
+            traffic.inject_profiles(self, scenario, t)
+        else:
+            res = SimResult()
+            traffic.attach(self, scenario)
+            traffic.inject_profiles(self, scenario, 0)
+            t = 0
+            b, cuts = policy_fn(self, self.rng)
+            self._record_policy(res, b, cuts)
+
+        while t < rounds:
+            nxt = self._next_boundary(t, eval_every, reconf, rounds, ckpt)
+            masks = self._unit_masks(cuts)
+            b_eff = traffic.effective_batches(b)
+            b_pad = pow2_bucket(int(np.max(b_eff)))
+            idx = self.store.segment_indices(nxt - t, b_eff, b_pad)
+            row_mask = self.store.row_mask(b_eff, b_pad)
+            parts = traffic.plan_segment(self, scenario, t, nxt, b_eff, cuts)
+            seg_losses = self._segment_fn(t, idx, row_mask, masks, parts)
+            t = nxt
+
+            traffic.apply_boundary(self, t)
+            # the policy observes round-t resources for the *new* cohort
+            traffic.inject_profiles(self, scenario, t)
+            b, cuts = self._maybe_reconfigure(
+                res, policy_fn, t, reconf, rounds, b, cuts)
+            if t % eval_every == 0 or t == rounds:
+                self._record_metrics(
+                    res, t, traffic.clock, seg_losses[-1], verbose,
+                    live=traffic.live_mask())
+            if ckpt and snapshot_cb is not None and t % ckpt == 0:
+                snapshot_cb(t, traffic.clock, b, cuts, res)
+        return res
+
+    @staticmethod
+    def _next_boundary(t: int, eval_every: int, reconf: int, rounds: int,
+                       ckpt: int = 0) -> int:
+        """The end of the segment starting after round ``t``: the next
+        eval, reconfiguration or checkpoint multiple, or the last round."""
+        nxt = min((t // eval_every + 1) * eval_every,
+                  (t // reconf + 1) * reconf, rounds)
+        if ckpt:
+            nxt = min(nxt, (t // ckpt + 1) * ckpt)
+        return nxt
+
+    def _unit_masks(self, cuts) -> np.ndarray:
+        """The [U] client-specific unit mask of the decision's deepest cut."""
+        l_c_units = int(np.max(self._unit_cuts(np.asarray(cuts))))
+        return SP.client_unit_mask(self.cfg, len(self.units), l_c_units)
 
     def _record_policy(self, res: SimResult, b, cuts) -> None:
         res.b_history.append(np.asarray(b).copy())
@@ -393,22 +522,42 @@ class SFLEdgeSimulator:
             self._record_policy(res, b, cuts)
         return b, cuts
 
-    def _advance_clock(self, clock: float, t: int, nxt: int, b, cuts) -> float:
-        """Walk rounds (t, nxt] on the host wall clock (static pool: the
-        per-round latency is hoisted out of the loop)."""
-        _, t_split, t_agg = self._fault_round(b, cuts)
-        for r in range(t + 1, nxt + 1):
-            clock += t_split
-            if r % self.sfl.agg_interval == 0:
-                clock += t_agg
+    def _advance_clock(self, clock: float, t: int, nxt: int, b, cuts,
+                       scenario=None) -> float:
+        """Walk rounds (t, nxt] on the host wall clock: a static pool
+        hoists the per-round latency out of the loop, a scenario
+        re-evaluates it on each round's trace state (the reference's
+        float summation order either way)."""
+        if scenario is None:
+            _, t_split, t_agg = self._fault_round(b, cuts)
+            for r in range(t + 1, nxt + 1):
+                clock += t_split
+                if r % self.sfl.agg_interval == 0:
+                    clock += t_agg
+        else:
+            for r in range(t + 1, nxt + 1):
+                self._scenario_tick(scenario, r)
+                _, t_split, t_agg = self._fault_round(b, cuts)
+                clock += t_split
+                if r % self.sfl.agg_interval == 0:
+                    clock += t_agg
         return clock
 
     def _record_metrics(
-        self, res: SimResult, t: int, clock: float, losses, verbose: bool
+        self, res: SimResult, t: int, clock: float, losses, verbose: bool,
+        live=None
     ) -> None:
-        """Eval + metric append; the only host fetch of ``losses``."""
-        tl, ta = self._eval(self._aggregate_model(), self.test_batch)
-        mean_loss = float(np.mean(losses.cpu().numpy()))
+        """Eval + metric append; the only host fetch of ``losses``.
+
+        ``live`` ([N] bool, traffic mode) restricts both the aggregate
+        model and the train-loss mean to occupied slots — empty slots
+        train a weight-0 dummy batch whose loss is meaningless.
+        """
+        tl, ta = self._eval(self._aggregate_model(live), self.test_batch)
+        losses = losses.cpu().numpy()
+        if live is not None and live.any():
+            losses = losses[np.asarray(live, bool)]
+        mean_loss = float(np.mean(losses))
         res.rounds.append(t)
         res.clock.append(clock)
         res.train_loss.append(mean_loss)
@@ -421,17 +570,32 @@ class SFLEdgeSimulator:
                 f"acc {float(ta):.4f}", flush=True
             )
 
-    def _segment_participation(self, t: int, nxt: int, b, cuts):
-        """The ``[R, N]`` participation plan for rounds (t, nxt]; None on
-        the soft path."""
+    def _segment_participation(self, t: int, nxt: int, b, cuts,
+                               scenario=None):
+        """The ``[R, N]`` participation plan for rounds (t, nxt], each
+        round drawn on its own trace state (the states and order
+        `_advance_clock` re-walks — the scenario caches its history, so
+        both see identical floats); None on the soft path."""
         if self.fault_mode == "soft":
             return None
-        plan = [self._fault_round(b, cuts)[0] for _ in range(t + 1, nxt + 1)]
+        plan = []
+        for r in range(t + 1, nxt + 1):
+            self._scenario_tick(scenario, r)
+            plan.append(self._fault_round(b, cuts)[0])
         return np.stack(plan)
 
-    def _aggregate_model(self):
+    def _aggregate_model(self, live=None):
         """Virtual aggregated model w̄ (analysis object, Sec. IV); in mesh
-        mode the global client mean, the same on every rank."""
+        mode the global client mean, the same on every rank.  ``live``
+        ([N] bool, traffic mode) means over occupied slots only (the
+        all-slot mean when every or no slot is live)."""
         if self._shard is not None:
             return self._shard.client_mean(self._stacked)
+        if live is not None:
+            live = np.asarray(live, bool)
+            if live.any() and not live.all():
+                sel = torch.as_tensor(np.flatnonzero(live),
+                                      device=self.device)
+                return [tree_map(lambda a: a.index_select(0, sel)
+                                 .mean(dim=0), u) for u in self._stacked]
         return SP.mean_unit_trees(self._stacked)

@@ -1,9 +1,35 @@
-"""repro_torch.traffic — the slot-store pieces mesh mode needs.
+"""Streaming traffic plane (DESIGN.md §14), port of `repro.traffic`.
 
-Only the empty-slot dummy pool is ported (the cohort bank binds every
-resident slot to it before admitting its first cohort); the traffic
-plane, population and events are a later slice (ROADMAP.md queue 1).
+Event-driven arrivals over a million-user population, a resizable
+slot store on the simulator's stacked state, and semi-async
+staleness-weighted rounds — `TrafficPlane` ties the three together.
 """
-from repro_torch.traffic.store import DUMMY_BATCH, dummy_pool
+from repro_torch.traffic.events import KINDS, EventLog, EventQueue
+from repro_torch.traffic.plane import TrafficPlane
+from repro_torch.traffic.population import (
+    Population,
+    TrafficSpec,
+    staleness_weight,
+)
+from repro_torch.traffic.store import (
+    DUMMY_BATCH,
+    SlotClientStore,
+    dummy_pool,
+    live_mean,
+    write_slot,
+)
 
-__all__ = ["DUMMY_BATCH", "dummy_pool"]
+__all__ = [
+    "KINDS",
+    "EventLog",
+    "EventQueue",
+    "TrafficPlane",
+    "Population",
+    "TrafficSpec",
+    "staleness_weight",
+    "DUMMY_BATCH",
+    "SlotClientStore",
+    "dummy_pool",
+    "live_mean",
+    "write_slot",
+]

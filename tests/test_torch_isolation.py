@@ -97,8 +97,62 @@ def test_port_sources_cover_mesh_and_traffic():
                if p.is_relative_to(SRC)}
     for name in ("__init__", "spec", "topology", "sharded", "bank", "launch"):
         assert f"repro_torch/mesh/{name}.py" in covered, name
-    for name in ("__init__", "store"):
+    for name in ("__init__", "store", "population", "events", "plane"):
         assert f"repro_torch/traffic/{name}.py" in covered, name
+
+
+def test_port_sources_cover_the_dynamic_edge_slice():
+    """The per-source import check reaches every module of the dynamic
+    edge: scenarios, snapshots, the metric logger and the launcher."""
+    covered = {str(p.relative_to(SRC)) for p in _port_sources()
+               if p.is_relative_to(SRC)}
+    for name in ("__init__", "traces", "presets", "controller"):
+        assert f"repro_torch/scenarios/{name}.py" in covered, name
+    for name in ("__init__", "checkpoint", "metrics"):
+        assert f"repro_torch/training/{name}.py" in covered, name
+    assert "repro_torch/launch/train.py" in covered
+
+
+_DYNAMIC = r"""
+import dataclasses, sys, tempfile
+import repro_torch.config as C
+from repro_torch.api import ExperimentSpec, Session, TrafficSpec
+from repro_torch.launch import train
+base = C.get_config("vgg9-cifar-small")
+C.register(dataclasses.replace(base, arch_id="vgg9-iso", conv_channels=(4, 8),
+                               fc_dims=(8,), image_size=8))
+d = tempfile.mkdtemp()
+spec = ExperimentSpec(arch="vgg9-iso", n_clients=2, partition="iid",
+                      n_train=40, n_test=10, rounds=2, eval_every=1,
+                      policy="fixed(b=4,cut=1)", scenario="churn-heavy",
+                      fault_mode="deadline", checkpoint_every=1,
+                      checkpoint_dir=d)
+Session(spec, device="cpu").run()
+res = Session.resume(spec, step=1, device="cpu").run()
+assert len(res.train_loss) == 2, res
+res = Session(spec.replace(scenario=None, fault_mode="soft",
+                           checkpoint_every=0, checkpoint_dir=None,
+                           traffic=TrafficSpec(arrival_rate=50.0,
+                                               mean_dwell=0.05,
+                                               shard_size=8)),
+              device="cpu").run()
+assert len(res.train_loss) == 2, res
+train.main(["--arch", "vgg9-iso", "--clients", "2", "--rounds", "2",
+            "--eval-every", "1", "--n-train", "40", "--n-test", "10",
+            "--scenario", "straggler-bursts", "--device", "cpu"])
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro."))
+assert not bad, bad
+print("isolated")
+"""
+
+
+def test_port_dynamic_edge_imports_no_jax_and_no_reference():
+    out = subprocess.run([sys.executable, "-c", _DYNAMIC], env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "isolated" in out.stdout
 
 
 def test_port_sources_cover_the_serving_slice():

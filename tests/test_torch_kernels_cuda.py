@@ -713,3 +713,85 @@ def test_rmsnorm_plans_match_plain(shape, dtype, offset, kind):
     torch.cuda.synchronize()
     assert TRN.rmsnorm_kernel.launches == before + 1
     _close(got, want, RMSNORM_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the dynamic edge on the card: kill-and-resume and traffic runs bitwise
+# against their uninterrupted runs (small VGG; both kernels on the path)
+# ---------------------------------------------------------------------------
+
+def _dynamic_spec(**over):
+    import dataclasses
+
+    import repro_torch.config as TC
+    from repro_torch.api import ExperimentSpec
+
+    base = TC.get_config("vgg9-cifar-small")
+    TC.register(dataclasses.replace(
+        base, arch_id="vgg9-card-dynamic", conv_channels=(8, 16, 16),
+        fc_dims=(32,), image_size=16))
+    kw = dict(arch="vgg9-card-dynamic", n_clients=4, partition="iid",
+              n_train=200, n_test=50, rounds=6, eval_every=2,
+              policy="hasfl", estimate=True,
+              sfl=TC.SFLConfig(lr=0.05, agg_interval=2))
+    kw.update(over)
+    return ExperimentSpec(**kw)
+
+
+def _dynamic_bitwise(spec, ckpt_dir, step):
+    """(uninterrupted, resumed) sessions and results of ``spec`` on the
+    card, the second resumed from its snapshot at ``step``, with the
+    launch counts of the uninterrupted run."""
+    from repro_torch.api import Session
+
+    whole = Session(spec)
+    TOPS.reset_launch_counts()
+    r = whole.run()
+    launches = TOPS.launch_counts()
+    ck = spec.replace(checkpoint_every=step, checkpoint_dir=ckpt_dir)
+    Session(ck).run()
+    resumed = Session.resume(ck, step=step)
+    return whole, r, resumed, resumed.run(), launches
+
+
+def _assert_runs_bitwise(a, b, sa, sb):
+    from repro_torch.utils.tree import tree_leaves
+
+    assert a.rounds == b.rounds and a.clock == b.clock
+    assert a.train_loss == b.train_loss and a.test_loss == b.test_loss
+    assert a.test_acc == b.test_acc
+    assert all(np.array_equal(x, y) for x, y in zip(a.b_history,
+                                                     b.b_history))
+    assert all(torch.equal(x, y) for x, y in zip(
+        tree_leaves(sa.sim._stacked), tree_leaves(sb.sim._stacked)))
+
+
+@pytest.mark.cuda
+def test_kill_and_resume_is_bitwise_on_the_card(tmp_path):
+    _need_card()
+    spec = _dynamic_spec(scenario="churn-heavy", scenario_seed=7,
+                         fault_mode="deadline", deadline_factor=2.0)
+    whole, r, resumed, res, launches = _dynamic_bitwise(
+        spec, str(tmp_path / "snaps"), 2)
+    _assert_runs_bitwise(r, res, whole, resumed)
+    assert launches["batched_matmul"] > 0
+    assert launches["clip_sgd"] == spec.rounds
+
+
+@pytest.mark.cuda
+def test_traffic_run_and_resume_are_bitwise_on_the_card(tmp_path):
+    _need_card()
+    from repro_torch.api import TrafficSpec
+
+    spec = _dynamic_spec(policy="fixed", estimate=False, n_clients=3,
+                         traffic=TrafficSpec(
+                             n_users=500, arrival_rate=300.0,
+                             mean_dwell=0.02, shard_size=40, seed=3))
+    whole, r, resumed, res, launches = _dynamic_bitwise(
+        spec, str(tmp_path / "snaps"), 2)
+    _assert_runs_bitwise(r, res, whole, resumed)
+    a, b = whole.plane.log, resumed.plane.log
+    assert (a.time, a.kind, a.slot, a.user) == (b.time, b.kind, b.slot,
+                                                b.user)
+    assert a.counts()["admit"] > spec.n_clients and a.counts()["evict"] > 0
+    assert launches["clip_sgd"] == spec.rounds

@@ -40,6 +40,7 @@ from repro.mesh import MeshSpec as RMesh
 from repro.mesh.bank import CohortBank as RBank
 from repro_torch.api import ExperimentSpec as TSpec
 from repro_torch.api import Session as TSession
+from repro_torch.api import TrafficSpec as TTraffic
 from repro_torch.core import split as TSP
 from repro_torch.kernels import clip_sgd as TCS
 from repro_torch.kernels import ops as TOPS
@@ -379,7 +380,7 @@ def test_spec_validation_mirrors_reference(case):
         over = dict(BAD_SPECS[case])
         kw = _kw(pkg, **over.pop("mesh", {"n_edges": 4}))
         if over.pop("traffic", None):
-            over["traffic"] = RTraffic() if pkg == "r" else {"n_users": 10}
+            over["traffic"] = RTraffic() if pkg == "r" else TTraffic()
         kw.update(over)
         with pytest.raises(ValueError) as err:
             (RSpec if pkg == "r" else TSpec)(**kw).validated()

@@ -1,0 +1,132 @@
+"""The port's training launcher (`repro_torch.launch.train`), edge mode,
+on the CPU.
+
+- ``--mode edge --device cpu`` under a scenario writes one CSV row per
+  eval and the spec beside it; the numbers are `Session(spec).run()`'s,
+  bitwise, and the spec file reloads equal (in the port and in the
+  reference).
+- The command line parses to the reference's arguments, defaults
+  included (plus ``--device``).
+- ``--mode spmd`` and the ``legacy``/``vectorized`` engines raise
+  `NotImplementedError`; without ``--device`` and without a card the
+  launcher raises rather than fall back to the CPU.
+"""
+import csv
+import dataclasses
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro.config as RC
+import repro.launch.train as RTRAIN
+import repro_torch.config as TC
+from repro.api import ExperimentSpec as RSpec
+from repro_torch.api import ExperimentSpec, Session
+from repro_torch.launch import train as TRAIN
+
+ARCH = "vgg9-torch-cli"
+ARGS = ["--mode", "edge", "--arch", ARCH, "--clients", "4", "--rounds",
+        "6", "--agg-interval", "3", "--eval-every", "2", "--n-train", "200",
+        "--n-test", "50", "--iid", "--scenario", "straggler-bursts"]
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _register():
+    for C in (RC, TC):
+        base = C.get_config("vgg9-cifar-small")
+        C.register(dataclasses.replace(
+            base, arch_id=ARCH, conv_channels=(8, 16, 16), fc_dims=(32,),
+            image_size=16))
+
+
+def test_edge_mode_writes_csv_and_spec_matching_session(tmp_path, capsys):
+    _register()
+    path = str(tmp_path / "out" / "run.csv")
+    spec, res = TRAIN.main(ARGS + ["--device", "cpu", "--csv", path])
+    assert "final acc=" in capsys.readouterr().out
+    with open(path) as f:
+        rows = list(csv.DictReader(f))
+    assert len(rows) == len(res.rounds) == 3         # one row per eval
+    alone = Session(spec, device="cpu").run()
+    assert alone.clock == res.clock
+    assert alone.train_loss == res.train_loss
+    assert alone.test_acc == res.test_acc
+    assert [int(r["step"]) for r in rows] == alone.rounds
+    for key, col in (("clock", alone.clock), ("train_loss", alone.train_loss),
+                     ("test_acc", alone.test_acc),
+                     ("test_loss", alone.test_loss)):
+        assert [float(r[key]) for r in rows] == col, key
+    back = ExperimentSpec.load(path + ".spec.json")
+    assert back == spec
+    assert back.scenario == "straggler-bursts" and back.n_clients == 4
+    # the reference reads the port's spec file as its own
+    assert RSpec.load(path + ".spec.json").to_json() == spec.to_json()
+
+
+def test_command_line_parses_to_the_references_arguments(monkeypatch):
+    seen = {}
+    monkeypatch.setattr(RTRAIN, "run_edge",
+                        lambda args: seen.setdefault("args", args))
+    monkeypatch.setattr("repro.utils.cache.enable_compilation_cache",
+                        lambda *a, **k: None)
+    for argv in ([], ARGS + ["--csv", "x.csv", "--policy", "rbs+rms",
+                             "--no-estimate", "--scenario-seed", "3"]):
+        seen.clear()
+        monkeypatch.setattr(sys, "argv", ["train"] + argv)
+        RTRAIN.main()
+        ours = vars(TRAIN.parser().parse_args(argv))
+        assert ours.pop("device") is None
+        assert ours == vars(seen["args"])
+
+
+def test_edge_spec_matches_the_references_spec():
+    _register()
+    args = TRAIN.parser().parse_args(ARGS)
+    ours = TRAIN.edge_spec(args)
+    theirs = RSpec(
+        arch=ARCH, n_clients=4, partition="iid", n_train=200, n_test=50,
+        seed=0, policy="hasfl", estimate=True, scenario="straggler-bursts",
+        scenario_seed=7, rounds=6, eval_every=2, engine="scan",
+        sfl=RC.SFLConfig(n_devices=4, agg_interval=3, lr=0.05))
+    assert ours.to_json() == theirs.to_json()
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--mode", "spmd", "--steps", "2"], "spmd"),
+    (["--engine", "legacy"], "legacy"),
+    (["--engine", "vectorized"], "vectorized"),
+])
+def test_unported_modes_raise(argv, match):
+    with pytest.raises(NotImplementedError, match=match):
+        TRAIN.main(argv + ["--device", "cpu"])
+
+
+def test_edge_mode_without_device_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the launcher would run on it")
+    _register()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TRAIN.main(ARGS)
+
+
+def test_result_converged_time_matches_reference():
+    """The launcher's summary reads `SimResult.converged_time`, the
+    reference's criterion."""
+    from repro.core.sfl import SimResult as RResult
+    from repro_torch.core.sfl import SimResult
+
+    acc = [0.1, 0.2, 0.25, 0.25, 0.25, 0.25, 0.25, 0.3, 0.3]
+    clock = list(np.arange(1.0, 10.0))
+    for a in (acc, acc[:3], []):
+        ours = SimResult(test_acc=a, clock=clock[:len(a)])
+        theirs = RResult(test_acc=a, clock=clock[:len(a)])
+        assert ours.converged_time() == theirs.converged_time()
