@@ -94,23 +94,42 @@ nothing of the reference package.  Phases, each printing one JSON line:
 15. ``serve_ssm``: the same on xlstm-350m at full width (24 layers, bf16):
    20 mLSTM-scan launches (prefill only), all 20 on the tensor-core
    parallel form and none on the recurrence, 49 RMSNorms per forward.
-16. ``serve_cross``: the card with its kernels against the CPU with the
-   plain versions, on the same fp32 weights (TF32 off): qwen3 cut to 2
-   layers and xlstm to one period of 6, full width otherwise; 2 prompts of
-   64 tokens, then 8 decode steps teacher-forced with the CPU's greedy
-   tokens.  Prefill and decode logits within 1e-4 for qwen3 and 2e-4 for
-   xlstm (rtol = atol; see ``SERVE_CROSS``), greedy ids equal, every fp32
-   mLSTM launch on the recurrence.  For xlstm
-   the phase also reports the same card run with the mLSTM scan's plain
-   version in place of the kernel, against the CPU and against the
-   kernel run: the witness of xlstm's bar.
+16. ``serve_glm4``, ``serve_phi3``, ``serve_dbrx``, ``serve_llama4``,
+   ``serve_jamba``, ``serve_whisper``, ``serve_internvl2``
+   (`FAMILY_SERVES`): the same for every other token family at its
+   published widths, whole where 80 GB allows (glm4 40 layers, phi3 32 at
+   hd 96, whisper 24 + 24 encoder layers over 1500 frames, internvl2 24
+   with GQA group 7) and cut to whole super-blocks where it does not
+   (dbrx 4 of 40 layers, 16 experts top-4; llama4 2 of 48, a dense and a
+   128-expert top-1 layer; jamba 8 of 32: 7 mamba, 1 attention, 4 MoE),
+   each with the family's modality stubs.  Flash attention once per
+   attention block (self, cross, and the encoder's in prefill) and
+   RMSNorm once per norm (mamba's ``norm_in`` and ``enc_final_norm``
+   included); the MoE phases print each forward's dropped share (from the
+   warm-up run).  Each model is freed before the next is built; each
+   phase reports its own peak memory and weight bytes.
+17. ``serve_cross``: the card with its kernels against the CPU with the
+   plain versions, on the same fp32 weights (TF32 off), every token
+   family cut as ``SERVE_CROSS`` says (qwen3 to 2 layers, xlstm to one
+   period of 6, the MoE families in depth and llama4/jamba in experts),
+   full width otherwise; 2 prompts of 64 tokens, then 8 decode steps
+   teacher-forced with the CPU's greedy tokens.  Prefill and decode
+   logits within 1e-4 (2e-4 for xlstm; rtol = atol), greedy ids equal,
+   the MoE families' chosen experts equal in every MoE call, every fp32
+   mLSTM launch on the recurrence.  For xlstm the phase also reports the
+   same card run with the mLSTM scan's plain version in place of the
+   kernel, against the CPU and against the kernel run: the witness of
+   xlstm's bar.
 
 The GEMM's split-K (conv1.dW, conv2.dW) must repeat bitwise.  The
 ``kernels`` phase also holds the token-model kernels against their
 plain versions on the card — flash attention (the reference's cases,
 the tensor-core prefill at hd 64 and 32, off its 128-row tile and with a
 window and ``sk_valid``, the split-KV decode at ``sk_valid`` 1 and at
-qwen3's decode shape, bitwise repeatable there, each call on its path),
+qwen3's decode shape, bitwise repeatable there, each call on its path;
+then the other families' shapes, timed as their forward's calls: phi3's
+hd 96 in bf16 and fp32, whisper's encoder, cross-attention and decode
+cross step, the GQA groups 7 and 16 of internvl2 and glm4),
 RMSNorm (the reference's cases, every norm shape of the serve phases and
 of ``serve_cross``) and the mLSTM scan (the reference's cases, the paths'
 edges in ``MLSTM_PATH_CASES`` — S off the 64-row tile, hd 64 and 32,
@@ -222,14 +241,38 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 MLSTM_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
 RMSNORM_TOL = 2e-2
 SERVE_CROSS = dict(batch=2, prompt=64, gen=8, seed=1,
-                   layers={"qwen3-1.7b": 2, "xlstm-350m": 6},
+                   # each arch's cut (fp32 weights live on the card and
+                   # again on the host): depth, and the experts of the two
+                   # MoE families whose fp32 experts would not fit
+                   cuts={"qwen3-1.7b": dict(n_layers=2),
+                         "xlstm-350m": dict(n_layers=6),
+                         "glm4-9b": dict(n_layers=2),
+                         "phi3-mini-3.8b": dict(n_layers=2),
+                         "dbrx-132b": dict(n_layers=1),
+                         "llama4-maverick-400b-a17b": dict(n_layers=2,
+                                                           n_experts=8),
+                         "jamba-v0.1-52b": dict(n_layers=8, n_experts=4),
+                         "whisper-medium": dict(n_layers=2,
+                                                n_encoder_layers=2),
+                         "internvl2-1b": dict(n_layers=2)},
                    # fp32 logits, rtol = atol.  1e-4 is the CPU parity
                    # tests' bar; xlstm takes the reference's own fp32 bar
                    # for the mLSTM recurrence (2e-4): its den = |n . q|
                    # cancels, so fp32 sums taken in another order move its
                    # logits by ~1e-4, with the scan's plain version on the
                    # card too (the phase's witness)
-                   tol={"qwen3-1.7b": 1e-4, "xlstm-350m": 2e-4})
+                   tol={"xlstm-350m": 2e-4}, default_tol=1e-4)
+# the serving phases of the other token families: (phase, arch, layers on
+# the card or None for the whole model); depth cut only where 80 GB forces
+# it, in whole super-blocks (llama4: one dense + one 128-expert layer;
+# jamba: 7 mamba + 1 attention layer, 4 of them MoE)
+FAMILY_SERVES = [("serve_glm4", "glm4-9b", None),
+                 ("serve_phi3", "phi3-mini-3.8b", None),
+                 ("serve_dbrx", "dbrx-132b", 4),
+                 ("serve_llama4", "llama4-maverick-400b-a17b", 2),
+                 ("serve_jamba", "jamba-v0.1-52b", 8),
+                 ("serve_whisper", "whisper-medium", None),
+                 ("serve_internvl2", "internvl2-1b", None)]
 
 
 class CheckFailed(Exception):
@@ -653,6 +696,55 @@ def _flash_pairs(sq, sk, causal, window, sk_valid):
     return total
 
 
+# calls per forward of each family shape record of `_flash_checks` (one
+# per attention block of that kind in the full-depth model)
+FAMILY_FLASH_CALLS = {"phi3_prefill": 32, "phi3_decode": 32,
+                      "phi3_prefill_fp32": 32, "phi3_decode_fp32": 32,
+                      "whisper_encoder": 24, "whisper_cross": 24,
+                      "whisper_decode_cross": 24, "internvl2_prefill": 24,
+                      "internvl2_decode": 24, "glm4_prefill": 40,
+                      "glm4_decode": 40}
+
+
+def _family_flash_cases(b, s, n):
+    """Kernel 4's cases at the shapes of the families the port serves
+    besides qwen3, at ``FULL_WIDTH_TRAFFIC`` (``b`` prompts of ``s``, a
+    cache of ``n``): phi3's hd 96 (bf16, and fp32 at serve_cross's
+    sizes), whisper's encoder (1500 x 1500, non-causal), its
+    cross-attention (prompt x 1500) and a decode step's cross-attention
+    (kv_end 1500), internvl2's GQA group 7 and glm4's group 16."""
+    from repro_torch.config import get_config
+
+    sc = SERVE_CROSS
+    phi3, whisper, ivl, glm4 = (get_config(a) for a in (
+        "phi3-mini-3.8b", "whisper-medium", "internvl2-1b", "glm4-9b"))
+
+    def heads(c):
+        return c.n_heads, c.n_kv_heads, c.resolved_head_dim
+
+    enc = whisper.encoder_seq
+    return [
+        (b, s, s, *heads(phi3), True, 0, "bfloat16", None, "phi3_prefill"),
+        (b, 1, n, *heads(phi3), False, 0, "bfloat16", s + 1, "phi3_decode"),
+        (sc["batch"], sc["prompt"], sc["prompt"], *heads(phi3), True, 0,
+         "float32", None, "phi3_prefill_fp32"),
+        (sc["batch"], 1, sc["prompt"] + sc["gen"], *heads(phi3), False, 0,
+         "float32", sc["prompt"] + 1, "phi3_decode_fp32"),
+        (b, enc, enc, *heads(whisper), False, 0, "bfloat16", None,
+         "whisper_encoder"),
+        (b, s, enc, *heads(whisper), False, 0, "bfloat16", None,
+         "whisper_cross"),
+        (b, 1, enc, *heads(whisper), False, 0, "bfloat16", None,
+         "whisper_decode_cross"),
+        (b, s, s, *heads(ivl), True, 0, "bfloat16", None,
+         "internvl2_prefill"),
+        (b, 1, n, *heads(ivl), False, 0, "bfloat16", s + 1,
+         "internvl2_decode"),
+        (b, s, s, *heads(glm4), True, 0, "bfloat16", None, "glm4_prefill"),
+        (b, 1, n, *heads(glm4), False, 0, "bfloat16", s + 1, "glm4_decode"),
+    ]
+
+
 def _traffic():
     from repro_torch.launch.serve import FULL_WIDTH_TRAFFIC
 
@@ -660,28 +752,61 @@ def _traffic():
 
 
 def _blocks(cfg):
-    """Block kinds of one forward of ``cfg``, in order."""
+    """Block kinds of one decoder forward of ``cfg``, in order."""
     from repro_torch.models.transformer import layer_program
 
     program, repeats = layer_program(cfg)
     return [kind for layer in program * repeats for kind in layer]
 
 
-def _norm_calls(cfg, b, s):
-    """Input shapes of the RMSNorms one forward of ``cfg`` over ``b`` x
-    ``s`` tokens runs, in order: per attention block the pre-norm and,
-    with qk-norm, the per-head q and k norms; per FFN block its pre-norm;
-    per mLSTM block its input norm and the norm of h over its 2·d inner
-    width; per sLSTM block its input norm and the norm of h over d; then
-    the final norm on the last position."""
+def _enc_blocks(cfg):
+    """Block kinds of the encoder (enc-dec models; it runs in prefill
+    only), in order."""
+    from repro_torch.models.transformer import encoder_program
+
+    if not cfg.is_enc_dec:
+        return []
+    program, repeats = encoder_program(cfg)
+    return [kind for layer in program * repeats for kind in layer]
+
+
+ATTN_KINDS = ("attn", "attn_nc", "xattn")
+
+
+def _norm_shapes(cfg, b, s, kinds):
+    """Input shapes of the RMSNorms of the blocks ``kinds`` over ``b`` x
+    ``s`` tokens, in order: per self-attention block (``attn``,
+    ``attn_nc``) the pre-norm and, with qk-norm, the per-head q and k
+    norms; per cross-attention, FFN (``ffn``, ``ffn_gelu``), MoE and mamba
+    block its pre-norm (mamba's ``norm_in``); per mLSTM block its input
+    norm and the norm of h over its 2·d inner width; per sLSTM block its
+    input norm and the norm of h over d."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     qk = [(b, s, cfg.n_heads, hd), (b, s, cfg.n_kv_heads, hd)] \
         if cfg.qk_norm else []
-    per_block = {"attn": [(b, s, d)] + qk, "ffn": [(b, s, d)],
+    per_block = {"attn": [(b, s, d)] + qk, "attn_nc": [(b, s, d)] + qk,
+                 "xattn": [(b, s, d)], "ffn": [(b, s, d)],
+                 "ffn_gelu": [(b, s, d)], "moe": [(b, s, d)],
+                 "mamba": [(b, s, d)],
                  "mlstm": [(b, s, d), (b, s, 2 * d)],
                  "slstm": [(b, s, d), (b, s, d)]}
-    return [sh for kind in _blocks(cfg) for sh in per_block[kind]] \
-        + [(b, 1, d)]
+    return [sh for kind in kinds for sh in per_block[kind]]
+
+
+def _norm_calls(cfg, b, s):
+    """Input shapes of the RMSNorms one decoder forward of ``cfg`` over
+    ``b`` x ``s`` tokens runs, in order (`_norm_shapes` of its blocks),
+    then the final norm on the last position."""
+    return _norm_shapes(cfg, b, s, _blocks(cfg)) + [(b, 1, cfg.d_model)]
+
+
+def _enc_norm_calls(cfg, b):
+    """The encoder's RMSNorms over ``b`` x ``encoder_seq`` frames (prefill
+    only): its blocks', then ``enc_final_norm``."""
+    if not cfg.is_enc_dec:
+        return []
+    se, d = cfg.encoder_seq, cfg.d_model
+    return _norm_shapes(cfg, b, se, _enc_blocks(cfg)) + [(b, se, d)]
 
 
 def _span(fn, calls: int):
@@ -707,7 +832,8 @@ def _flash_checks(detail):
     with folded rows off the 128-row tile, window with sk_valid, decode at
     sk_valid = 1 against 544 slots, so most splits are empty), and
     qwen3-1.7b's prefill and decode shapes, each of these timed as one
-    forward's calls (one per attention block).  Every call must take its
+    forward's calls (one per attention block); then the other families'
+    shapes (`_family_flash_cases`), each timed the same way.  Every call must take its
     path (tensor-core, split-KV or fp32); the split-KV decode at qwen3's
     shape must be bitwise repeatable."""
     import torch
@@ -719,7 +845,6 @@ def _flash_checks(detail):
     tf = _traffic()
     b, s, n = tf["batch"], tf["prompt"], tf["prompt"] + tf["gen"]
     heads = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
-    calls = _blocks(cfg).count("attn")
     gen = torch.Generator(device="cuda").manual_seed(21)
     worst = 0.0
     shapes = FLASH_CASES + [
@@ -739,7 +864,7 @@ def _flash_checks(detail):
         # the decode form at fp32 (serve_cross), slots past pos unused
         (SERVE_CROSS["batch"], 1, SERVE_CROSS["prompt"] + SERVE_CROSS["gen"],
          *heads, False, 0, "float32", SERVE_CROSS["prompt"] + 1, None),
-    ]
+    ] + _family_flash_cases(b, s, n)
     rows = {}
     for case in shapes:
         b, sq, sk, hq, hkv, hd, causal, window, dt = case[:9]
@@ -765,8 +890,10 @@ def _flash_checks(detail):
                   "flash decode: split-KV not bitwise repeatable")
         if role is None:
             continue
+        calls = FAMILY_FLASH_CALLS.get(role, _blocks(cfg).count("attn"))
         nv = sk if sk_valid is None else sk_valid
         itemsize = q.element_size()
+        peak = PEAK_BF16_FLOPS if dt == "bfloat16" else PEAK_FP32_FLOPS
         flops = 4.0 * b * hq * hd * _flash_pairs(sq, sk, causal, window, nv)
         nbytes = itemsize * (2.0 * b * sq * hq * hd + 2.0 * b * nv * hkv * hd)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k[:, :nv], v[:, :nv]))
@@ -779,10 +906,9 @@ def _flash_checks(detail):
                 q, k, v, **kw), calls)),
             library_ms=time_ms(_span(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, enable_gqa=True), calls)),
-            bound_ms=calls * _bound(flops, nbytes, PEAK_BF16_FLOPS),
-            bound_by="operations" if flops / PEAK_BF16_FLOPS
-            >= nbytes / PEAK_BYTES else "bytes", flops=calls * flops,
-            bytes=calls * nbytes)
+            bound_ms=calls * _bound(flops, nbytes, peak),
+            bound_by="operations" if flops / peak >= nbytes / PEAK_BYTES
+            else "bytes", flops=calls * flops, bytes=calls * nbytes)
         del q, k, v, got, want
     detail["flash_attention"] = rows
     return rows, worst
@@ -2060,12 +2186,16 @@ def phase_cli(detail):
 def _expected_launches(cfg, forwards: int) -> dict:
     """Launches of the token kernels in one ``serve`` run of ``forwards``
     forwards (one prefill, then decode steps): flash attention once per
-    attention block and forward; RMSNorm once per norm and forward
-    (`_norm_calls`); the mLSTM scan once per mLSTM block, in prefill
-    only."""
-    kinds = _blocks(cfg)
-    return {"flash_attention": kinds.count("attn") * forwards,
-            "rmsnorm": len(_norm_calls(cfg, 1, 1)) * forwards,
+    attention block (self, non-causal or cross) and forward; RMSNorm once
+    per norm and forward (`_norm_calls`); the encoder's attention and
+    norms (`_enc_norm_calls`) once, in prefill; the mLSTM scan once per
+    mLSTM block, in prefill only."""
+    kinds, enc = _blocks(cfg), _enc_blocks(cfg)
+    attn = sum(kinds.count(k) for k in ATTN_KINDS)
+    return {"flash_attention": attn * forwards
+            + sum(enc.count(k) for k in ATTN_KINDS),
+            "rmsnorm": len(_norm_calls(cfg, 1, 1)) * forwards
+            + len(_enc_norm_calls(cfg, 1)),
             "mlstm_scan": kinds.count("mlstm")}
 
 
@@ -2080,19 +2210,42 @@ def _expected_mlstm_paths(cfg) -> dict:
 
 def _expected_paths(cfg, n_gen: int) -> dict:
     """Flash attention's launches per kernel in one ``serve`` run: the
-    prefill's on the tensor-core path (bf16; fp32 takes the CUDA-core
-    kernel), every decode step's on the split-KV path."""
-    attn = _blocks(cfg).count("attn")
+    prefill's (the encoder's included) on the tensor-core path (bf16; fp32
+    takes the CUDA-core kernel), every decode step's self- and
+    cross-attention on the split-KV path."""
+    attn = sum(_blocks(cfg).count(k) for k in ATTN_KINDS)
+    enc = sum(_enc_blocks(cfg).count(k) for k in ATTN_KINDS)
     paths = {"tc": 0, "split_kv": attn * n_gen, "fp32": 0}
-    paths["tc" if cfg.dtype == "bfloat16" else "fp32"] += attn
+    paths["tc" if cfg.dtype == "bfloat16" else "fp32"] += attn + enc
     return paths
 
 
-def phase_serve(arch: str, name: str):
+def _dropped_shares(records, cfg):
+    """The MoE router's dropped share per forward (prefill, then each
+    decode step), from `models.moe.RECORD`: the mean over the forward's
+    MoE blocks of each block's ``dropped_frac``, and its per-block values."""
+    import torch
+
+    per_fwd = _blocks(cfg).count("moe")
+    if not per_fwd:
+        return None
+    drops = torch.stack([a["dropped_frac"] for a in records]).cpu()
+    drops = drops.reshape(-1, per_fwd)
+    return {"prefill": drops[0].tolist(),
+            "decode_mean": drops[1:].mean(dim=1).tolist(),
+            "decode_max": float(drops[1:].max())}
+
+
+def phase_serve(arch: str, name: str, layers=None):
     """`launch.serve.serve` at full width on the card (bf16, the port's
-    seeded init): a first run at the same traffic warms the library
-    handles and the allocator, the second is reported, with the launch
-    counters zeroed just before it and read just after."""
+    seeded init, the family's modality stubs), cut to ``layers`` layers
+    where the card's memory forces it: a first run at the same traffic
+    warms the library handles and the allocator (and records the MoE
+    router's dropped shares, `models.moe.RECORD`), the second is reported,
+    with the launch counters zeroed just before it and read just after.
+    The model's weights and caches are freed before it returns."""
+    import dataclasses
+
     import numpy as np
     import torch
     from repro_torch.config import get_config
@@ -2100,12 +2253,24 @@ def phase_serve(arch: str, name: str):
     from repro_torch.kernels import mlstm_scan as MS
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import seeded_inputs, serve
+    from repro_torch.models import moe as M
+    from repro_torch.utils.tree import tree_leaves
 
-    cfg = get_config(arch)
+    published = get_config(arch)
+    cfg = published if layers is None else dataclasses.replace(
+        published, n_layers=layers)
     tf = _traffic()
     b, s, n_gen = tf["batch"], tf["prompt"], tf["gen"]
+    torch.cuda.reset_peak_memory_stats()
     params, prompts = seeded_inputs(cfg, b, s, tf["seed"], "cuda")
-    serve(cfg, params, prompts, n_gen)                # warm-up
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(params))
+    M.RECORD = []
+    try:
+        serve(cfg, params, prompts, n_gen)            # warm-up
+        drops = _dropped_shares(M.RECORD, cfg)
+    finally:
+        M.RECORD = None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -2113,6 +2278,10 @@ def phase_serve(arch: str, name: str):
     launches = ops.launch_counts()
     paths = FA.path_launches()
     mlstm_paths = MS.path_launches()
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     expected = _expected_launches(cfg, n_gen + 1)
     expected_paths = _expected_paths(cfg, n_gen)
     expected_mlstm = _expected_mlstm_paths(cfg)
@@ -2123,12 +2292,18 @@ def phase_serve(arch: str, name: str):
            "prefill_ms": res.prefill_s * 1e3,
            "decode_ms_per_step": res.decode_s * 1e3 / n_gen,
            "tokens_per_s": res.tokens_per_s,
-           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "max_memory_allocated": peak,
            "launches": launches, "expected_launches": expected,
            "flash_paths": paths, "expected_flash_paths": expected_paths,
            "mlstm_paths": mlstm_paths, "expected_mlstm_paths": expected_mlstm,
            "sample": res.tokens[0][:16].tolist(),
-           "logits_finite": bool(np.isfinite(res.logits).all())}
+           "logits_finite": bool(np.isfinite(res.logits).all()),
+           "reduced": ({"n_layers": [layers, published.n_layers]}
+                       if layers is not None else {}),
+           "n_encoder_layers": cfg.n_encoder_layers,
+           "weight_bytes": weight_bytes}
+    if drops is not None:
+        out["dropped_frac"] = drops
     emit(out)
     check(res.tokens.shape == (b, n_gen + 1), f"{name}: tokens "
           f"{res.tokens.shape}")
@@ -2150,16 +2325,20 @@ def phase_serve(arch: str, name: str):
 
 
 def _forced(model, params, prompts, steps: int, feed=None):
-    """Prefill, then ``steps`` decode steps, each fed ``feed[:, i]`` (or
-    the greedy token when ``feed`` is None); returns the fp32 logits
-    [B, steps + 1, V] and the greedy ids [B, steps + 1]."""
+    """Prefill (with the family's `stub_inputs`), then ``steps`` decode
+    steps, each fed ``feed[:, i]`` (or the greedy token when ``feed`` is
+    None); returns the fp32 logits [B, steps + 1, V] and the greedy ids
+    [B, steps + 1]."""
     import numpy as np
     import torch
+
+    from repro_torch.launch.serve import stub_inputs
 
     dev = params["embed"].device
     b, s = prompts.shape
     logits, cache = model.prefill(
-        params, {"tokens": torch.as_tensor(prompts, device=dev)},
+        params, {"tokens": torch.as_tensor(prompts, device=dev),
+                 **stub_inputs(model.cfg, b, s, dev)},
         cache_len=s + steps)
     outs = [logits[:, 0].float().cpu().numpy()]
     for i in range(steps):
@@ -2183,13 +2362,30 @@ def _errors(logits, ref, tol):
             "over_bar": float((diff - tol * (1 + np.abs(ref))).max())}
 
 
+def _routed(model, params, prompts, steps, feed=None):
+    """`_forced`, also returning each MoE call's chosen experts (host
+    copies, in call order; [] without MoE blocks)."""
+    from repro_torch.models import moe as M
+
+    M.RECORD = []
+    try:
+        logits, ids = _forced(model, params, prompts, steps, feed=feed)
+        experts = [a["expert_idx"].cpu() for a in M.RECORD]
+    finally:
+        M.RECORD = None
+    return logits, ids, experts
+
+
 def phase_serve_cross():
     """The card (kernels) against the CPU (plain versions) on the same fp32
-    weights, qwen3 and xlstm at full width cut in depth.  For xlstm also
-    the witness of its bar: the same card run with the mLSTM scan's plain
-    version in place of kernel 6, against the CPU and against the kernel
-    run, and the card runs with RMSNorm's plain version in place of kernel
-    5, with each scan, against the CPU (which kernel the error follows)."""
+    weights, every token family at full width cut as ``SERVE_CROSS``
+    says; for the MoE families also the chosen experts of every MoE call,
+    card against CPU.  For xlstm also the witness of its bar: the same
+    card run with the mLSTM scan's plain version in place of kernel 6,
+    against the CPU and against the kernel run, and the card runs with
+    RMSNorm's plain version in place of kernel 5, with each scan, against
+    the CPU (which kernel the error follows).  Each model is freed before
+    the next is built."""
     import dataclasses
 
     import numpy as np
@@ -2205,9 +2401,9 @@ def phase_serve_cross():
     disable_tf32()
     c = SERVE_CROSS
     out = {"phase": "serve_cross"}
-    for arch, layers in c["layers"].items():
-        cfg = dataclasses.replace(get_config(arch), n_layers=layers,
-                                  dtype="float32")
+    for arch, cut in c["cuts"].items():
+        published = get_config(arch)
+        cfg = dataclasses.replace(published, dtype="float32", **cut)
         model = build_model(cfg)
         on_card = model.init(
             torch.Generator(device="cuda").manual_seed(c["seed"]), "cuda")
@@ -2215,17 +2411,26 @@ def phase_serve_cross():
         prompts = np.random.default_rng(c["seed"]).integers(
             0, cfg.vocab_size, (c["batch"], c["prompt"]))
         ops.reset_launch_counts()
-        cpu_logits, cpu_ids = _forced(model, on_cpu, prompts, c["gen"])
+        cpu_logits, cpu_ids, cpu_experts = _routed(model, on_cpu, prompts,
+                                                   c["gen"])
         check(sum(ops.launch_counts().values()) == 0,
               f"serve_cross {arch}: a kernel launched on the CPU run")
-        card_logits, card_ids = _forced(model, on_card, prompts, c["gen"],
-                                        feed=cpu_ids)
-        tol = c["tol"][arch]
-        res = {"n_layers": layers, **_errors(card_logits, cpu_logits, tol),
+        card_logits, card_ids, card_experts = _routed(
+            model, on_card, prompts, c["gen"], feed=cpu_ids)
+        tol = c["tol"].get(arch, c["default_tol"])
+        res = {"n_layers": cfg.n_layers,
+               **_errors(card_logits, cpu_logits, tol),
                "max_abs_logit": float(np.abs(cpu_logits).max()),
                "tol": tol, "ids_equal": bool((card_ids == cpu_ids).all()),
                "launches": ops.launch_counts(),
                "mlstm_paths": MS.path_launches()}
+        res["reduced"] = {k: [v, getattr(published, k)]
+                          for k, v in cut.items()}
+        if cpu_experts:
+            res["moe_calls"] = len(cpu_experts)
+            res["experts_equal"] = len(card_experts) == len(cpu_experts) \
+                and all(torch.equal(a, b)
+                        for a, b in zip(card_experts, cpu_experts))
         if "mlstm" in _blocks(cfg):
             witness = {}
             for norm, scan in (("kernel", "plain"), ("plain", "kernel"),
@@ -2249,6 +2454,9 @@ def phase_serve_cross():
                     witness["plain", scan], cpu_logits, tol)}
                 for scan in ("kernel", "plain")}
         out[arch] = res
+        del on_card, on_cpu
+        gc.collect()
+        torch.cuda.empty_cache()
     emit(out)
     for arch, res in out.items():
         if arch == "phase":
@@ -2256,8 +2464,10 @@ def phase_serve_cross():
         check(res["over_bar"] <= 0, f"serve_cross {arch}: logits differ by "
               f"{max(res['prefill_err'], res['decode_err'])}")
         check(res["ids_equal"], f"serve_cross {arch}: greedy ids")
-        kernels = ["rmsnorm"] + (["flash_attention"] if arch == "qwen3-1.7b"
-                                 else ["mlstm_scan"])
+        check(res.get("experts_equal", True),
+              f"serve_cross {arch}: chosen experts differ")
+        kernels = ["rmsnorm"] + (["mlstm_scan"] if arch == "xlstm-350m"
+                                 else ["flash_attention"])
         for kernel in kernels:
             check(res["launches"][kernel] > 0,
                   f"serve_cross {arch}: {kernel} never launched on the card")
@@ -2311,6 +2521,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     serve = phase_serve("qwen3-1.7b", "serve")
     serve_ssm = phase_serve("xlstm-350m", "serve_ssm")
+    families = {name: phase_serve(arch, name, layers)
+                for name, arch, layers in FAMILY_SERVES}
     phase_serve_cross()
 
     launches = train["launches"]
@@ -2357,11 +2569,19 @@ def main(argv=None) -> int:
          "bound_by": flash["prefill"]["bound_by"],
          "library_ms": flash["prefill"]["library_ms"],
          "decode": {k: flash["decode"][k] for k in (
-             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         "launches_families": {name: r["launches"]["flash_attention"]
+                               for name, r in families.items()},
+         "shapes": {role: {k: flash[role][k] for k in (
+             "shape", "calls", "path", "max_abs_err", "ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms")}
+             for role in FAMILY_FLASH_CALLS}},
         {"name": "rmsnorm", "route": "cuda",
          "source": "src/repro_torch/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm.py:11",
          "launches": serve["launches"]["rmsnorm"],
+         "launches_families": {name: r["launches"]["rmsnorm"]
+                               for name, r in families.items()},
          "calls": norm["prefill"]["calls"],
          "max_abs_err": norm["max_abs_err"], "ms": norm["prefill"]["ms"],
          "device_ms": norm["prefill"]["device_ms"],
@@ -2394,6 +2614,7 @@ def main(argv=None) -> int:
     detail["mesh"] = mesh
     detail["serve"] = serve
     detail["serve_ssm"] = serve_ssm
+    detail.update(families)
     detail["seconds"] = time.perf_counter() - t_start
     path = Path(args.detail)
     path.parent.mkdir(parents=True, exist_ok=True)

@@ -15,8 +15,11 @@ import torch
 from repro_torch.utils.tree import tree_map
 
 # token-model leaves that stay fp32 whatever ``cfg.dtype`` is: the mLSTM
-# gate projection, the sLSTM recurrence weights, and every norm scale
-FP32_LEAVES = frozenset({"w_if", "b_if", "w_zifo", "r_zifo", "b_zifo"})
+# gate projection, the sLSTM recurrence weights, the MoE router, the mamba
+# conv, B/C, dt, A and skip parameters, and every norm scale (by name)
+FP32_LEAVES = frozenset({"w_if", "b_if", "w_zifo", "r_zifo", "b_zifo",
+                         "w_router", "conv_w", "conv_b", "w_bc", "w_dt",
+                         "b_dt", "a_log", "d_skip"})
 
 
 def units_from_numpy(units, device) -> list:
@@ -49,8 +52,8 @@ def params_from_numpy(tree, cfg, device) -> dict:
     """The reference's token-model parameter dict (numpy leaves; bf16 as
     any array type numpy can turn into fp32) -> the port's, on ``device``.
 
-    Norm scales, ``w_if``/``b_if`` and the sLSTM ``*_zifo`` weights are
-    fp32; every other leaf takes ``cfg.dtype``, as the model's init does.
+    Norm scales and the `FP32_LEAVES` are fp32; every other leaf takes
+    ``cfg.dtype``, as the model's init does.
     Always copies.
     """
     from repro_torch.models.transformer import torch_dtype

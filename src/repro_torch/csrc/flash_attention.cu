@@ -9,7 +9,7 @@
 // contract (GQA folded into a block's rows, row = position * G +
 // head-in-group, so K/V is never copied per head; masked scores -1e30
 // before the row max; KV tiles wholly masked are skipped; the output is
-// acc / max(l, 1e-30) in q's type; hd in {32, 64, 128}):
+// acc / max(l, 1e-30) in q's type; hd in {32, 64, 96, 128}):
 //
 // 1. `tc::flash_tc_kernel`, bf16 with Sq > 1 (prefill).  Bound: operations
 //    on the tensor cores (4 * B * Hq * pairs * hd flops at 989 TFLOP/s; at
@@ -36,10 +36,11 @@
 //    bf16 for the PV product (about 2^-9 relative) is the one departure
 //    from the TPU kernel, which kept P in fp32; l sums the unrounded p.
 //    Row tiles are launched heaviest first (latest positions under a
-//    causal mask).  hd = 32 is held padded to 64 in shared memory.  What
-//    holds it above its bound on the H100 (PERF.md): with 8 warps on an SM,
-//    the load path alone (cp.async, barriers, stores) and the math alone
-//    each take longer than a library call takes for both.
+//    causal mask).  hd = 32 is held padded to 64 in shared memory, and
+//    hd = 96 padded to 128 (`hdp`).  What holds it above its bound on the
+//    H100 (PERF.md): with 8 warps on an SM, the load path alone (cp.async,
+//    barriers, stores) and the math alone each take longer than a library
+//    call takes for both.
 // 2. `dec::flash_decode_split_kernel` + `dec::flash_decode_combine_kernel`,
 //    Sq == 1 (decode), fp32 or bf16.  Bound: bytes (the valid cache rows
 //    are read once).  One (b, kv head) has too few keys for one block to
@@ -288,6 +289,9 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* out,
     case 64:
       return launch<T, 64>(q, k, v, out, b, sq, sk, hq, hkv, causal, window,
                            sk_valid, scale, stream);
+    case 96:
+      return launch<T, 96>(q, k, v, out, b, sq, sk, hq, hkv, causal, window,
+                           sk_valid, scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, out, b, sq, sk, hq, hkv, causal, window,
                             sk_valid, scale, stream);
@@ -311,6 +315,13 @@ constexpr int ROWS = 64 * WG;     // GQA-folded query rows per block
 constexpr int KT = 64;            // keys per K/V tile
 constexpr int STAGES = 4;         // K/V ring depth
 
+// The head dim as held in shared memory: whole [rows][64 bf16] column
+// blocks, so the wgmma descriptors and the PV product (m64n64 or m64n128)
+// see 64 or 128 dims.  hd 32 is held as 64 and hd 96 as 128: the padded
+// Q and K columns are zero-filled (they add nothing to S), the padded V
+// columns are zero too, and PV's extra output columns are never written.
+__host__ __device__ constexpr int hdp(int hd) { return hd <= 64 ? 64 : 128; }
+
 template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
@@ -319,7 +330,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 __nv_bfloat16* __restrict__ out, int64_t sq, int64_t sk,
                 int64_t hq, int64_t hkv, int causal, int64_t window,
                 int64_t sk_valid, float scale_log2, int64_t row_tiles) {
-  constexpr int HDP = HD < 64 ? 64 : HD;  // head dim as held in shared memory
+  constexpr int HDP = hdp(HD);            // head dim as held in shared memory
   constexpr int CPR = HDP / 8;            // 16-byte chunks per row
   constexpr uint32_t Q_BYTES = ROWS * HDP * 2;
   constexpr uint32_t KV_BYTES = KT * HDP * 2;
@@ -603,7 +614,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int64_t b,
            int64_t sq, int64_t sk, int64_t hq, int64_t hkv, int causal,
            int64_t window, int64_t sk_valid, float scale,
            cudaStream_t stream) {
-  constexpr int HDP = HD < 64 ? 64 : HD;
+  constexpr int HDP = hdp(HD);
   constexpr int SMEM = 1024 + ROWS * HDP * 2 + 2 * STAGES * KT * HDP * 2;
   static bool smem_set = false;  // the attribute holds for the process
   if (!smem_set) {
@@ -900,6 +911,9 @@ int dispatch_hd(int64_t hd, const void* q, const void* k, const void* v,
     case 64:
       return launch<T, 64, GR>(q, k, v, out, ws, b, sk, hq, hkv, kv_end,
                                splits, chunk, scale, st);
+    case 96:
+      return launch<T, 96, GR>(q, k, v, out, ws, b, sk, hq, hkv, kv_end,
+                               splits, chunk, scale, st);
     case 128:
       return launch<T, 128, GR>(q, k, v, out, ws, b, sk, hq, hkv, kv_end,
                                 splits, chunk, scale, st);
@@ -948,6 +962,9 @@ extern "C" int repro_flash_attention_tc(const void* q, const void* k,
                             sk_valid, scale, s);
     case 64:
       return tc::launch<64>(q, k, v, out, b, sq, sk, hq, hkv, c, window,
+                            sk_valid, scale, s);
+    case 96:
+      return tc::launch<96>(q, k, v, out, b, sq, sk, hq, hkv, c, window,
                             sk_valid, scale, s);
     case 128:
       return tc::launch<128>(q, k, v, out, b, sq, sk, hq, hkv, c, window,

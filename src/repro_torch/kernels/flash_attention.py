@@ -27,7 +27,8 @@ wrapper picks one of three kernels by the inputs, and counts each path:
   ``wgmma`` with fp32 accumulators, the online softmax on the accumulator
   fragments.  P is rounded to bf16 for the PV product (about 2⁻⁹
   relative, the one departure from the TPU kernel, which kept P fp32;
-  inside the bf16 bar 2e-2).  Bound: bytes at qwen3's prefill shape,
+  inside the bf16 bar 2e-2).  hd 32 and 96 sit zero-padded to 64 and
+  128 dims in shared memory.  Bound: bytes at qwen3's prefill shape,
   operations (989 TFLOP/s) at longer ones.
 - ``Sq == 1`` (decode), fp32 or bf16 — split-KV (``launches_split_kv``):
   the valid keys are cut into `decode_splits` chunks so that the grid
@@ -54,7 +55,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.launch import device_scope, raw_stream
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 96, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -130,7 +131,7 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
                            sk_valid=None):
     """Attention on the card.  q ``[B, Sq, Hq, hd]``, k/v ``[B, Sk, Hkv,
     hd]``, contiguous and 16-byte aligned, all fp32 or all bf16, hd in
-    32/64/128; ``sk_valid`` a Python int in ``[0, Sk]``.  Returns a new
+    32/64/96/128; ``sk_valid`` a Python int in ``[0, Sk]``.  Returns a new
     tensor in q's type; raises on anything else and on a refused launch.
     One call is one counted launch (``launches``), and one of the path
     counts ``launches_tc``, ``launches_split_kv``, ``launches_fp32``."""

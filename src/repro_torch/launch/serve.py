@@ -8,7 +8,9 @@ Port of `repro.launch.serve`, with the same flags and printout, plus
 the kernels' plain versions).  As in the reference, ``--reduce`` is a
 ``store_true`` flag that defaults to True, so the CLI always serves the
 reduced config; a full-width run calls `serve` directly (as
-``chip_smoke.py`` does).
+``chip_smoke.py`` does).  As the reference's ``main``, the prefill batch
+carries the family's modality stubs (whisper's audio frames, internvl2's
+patches and mask) from ``concrete_inputs`` at seed 0.
 """
 from __future__ import annotations
 
@@ -55,27 +57,40 @@ def seeded_inputs(cfg, batch: int, prompt: int, seed: int, device):
     return params, prompts
 
 
+def stub_inputs(cfg, batch: int, prompt: int, device) -> dict:
+    """The prefill batch's modality stubs, as the reference's ``main``
+    adds them: `concrete_inputs` of a ``batch`` x ``prompt`` prefill at
+    seed 0, every key but ``tokens``, as tensors on ``device``."""
+    from repro_torch.config import InputShape
+    from repro_torch.configs.input_shapes import concrete_inputs
+
+    shape = InputShape("serve", prompt, batch, "prefill")
+    return {k: torch.as_tensor(v, device=device)
+            for k, v in concrete_inputs(cfg, shape).items() if k != "tokens"}
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
 def serve(cfg, params, tokens, gen: int, device=None) -> ServeResult:
-    """Prefill ``tokens`` ([B, S] ids), then ``gen`` greedy decode steps
-    against a cache of ``S + gen`` positions, with ``params`` already on
-    ``device``.  The two stages run in the profiler spans ``serve.prefill``
-    and ``serve.decode``, each ending in a device sync."""
+    """Prefill ``tokens`` ([B, S] ids, with the family's `stub_inputs`),
+    then ``gen`` greedy decode steps against a cache of ``S + gen``
+    positions, with ``params`` already on ``device``.  The two stages run
+    in the profiler spans ``serve.prefill`` and ``serve.decode``, each
+    ending in a device sync; the stubs are made before either."""
     from repro_torch.models import build_model
 
     device = resolve(device)
     model = build_model(cfg)
     toks = torch.as_tensor(np.asarray(tokens), device=device)
     b, s = toks.shape
+    batch = {"tokens": toks, **stub_inputs(cfg, b, s, device)}
     _sync(device)
     t0 = time.perf_counter()
     with record_function("serve.prefill"):
-        logits, cache = model.prefill(params, {"tokens": toks},
-                                      cache_len=s + gen)
+        logits, cache = model.prefill(params, batch, cache_len=s + gen)
         _sync(device)
     t_prefill = time.perf_counter() - t0
 

@@ -9,6 +9,7 @@ with `repro_torch.convert.params_from_numpy`).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -28,6 +29,18 @@ def dense_init(gen, in_dim: int, out_dim: int, dtype, device=None, lead=()):
     """``N(0, 1/in_dim)`` weights ``[*lead, in_dim, out_dim]`` in ``dtype``."""
     w = _normal(gen, (*lead, in_dim, out_dim), device) / math.sqrt(in_dim)
     return w.to(dtype)
+
+
+def stacked_normal_init(gen, shape, scale: float, dtype, device=None):
+    """``N(0, scale²)`` weights of ``shape`` in ``dtype``, drawn one
+    trailing ``[in, out]`` matrix at a time straight into the leaf, so the
+    fp32 transient is one matrix and not the whole leaf (an expert stack
+    ``[R, E, d, d_ff]`` is tens of GB in bf16)."""
+    w = torch.empty(shape, dtype=dtype, device=device)
+    flat = w.view(-1, *shape[-2:])
+    for i in range(flat.shape[0]):
+        flat[i] = _normal(gen, shape[-2:], device) * scale
+    return w
 
 
 def embed_init(gen, vocab: int, d: int, dtype, device=None):
@@ -61,13 +74,66 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(seq: int, d: int) -> np.ndarray:
+    pos = np.arange(seq)[:, None]
+    dim = np.arange(0, d, 2)[None, :]
+    ang = pos / (10000 ** (dim / d))
+    out = np.zeros((seq, d), np.float32)
+    out[:, 0::2] = np.sin(ang)
+    out[:, 1::2] = np.cos(ang)
+    return out
+
+
+SINUSOIDAL_ROWS = 8192   # rows of the cached table (decode's, in the reference)
+
+
+@functools.lru_cache(maxsize=8)
+def _sinusoidal_table(seq: int, d: int, dtype, device) -> torch.Tensor:
+    return torch.tensor(sinusoidal_positions(seq, d), device=device).to(dtype)
+
+
+def sinusoidal_table(seq: int, d: int, dtype, device) -> torch.Tensor:
+    """``sinusoidal_positions(seq, d)`` as a tensor in ``dtype`` on
+    ``device``: the first ``seq`` rows of one table of at least
+    ``SINUSOIDAL_ROWS`` rows, built once per (d, dtype, device) and cached
+    (a row does not depend on the table's length)."""
+    rows = max(seq, SINUSOIDAL_ROWS)
+    return _sinusoidal_table(rows, d, dtype, torch.device(device))[:seq]
+
+
 # --- feed-forward ------------------------------------------------------------
 
+def swiglu_init(gen, d: int, d_ff: int, dtype, device=None, lead=()) -> dict:
+    return {
+        "w_gate": dense_init(gen, d, d_ff, dtype, device, lead),
+        "w_up": dense_init(gen, d, d_ff, dtype, device, lead),
+        "w_down": dense_init(gen, d_ff, d, dtype, device, lead),
+    }
+
+
+def silu(x):
+    """``x · 1/(1 + exp(-x))`` op by op, each op rounded to x's type: the
+    reference's ``jax.nn.silu`` as it lowers (negate, exp, add, divide,
+    multiply), so bf16 rounds where the reference rounds.  ``F.silu``
+    rounds once, one bf16 ulp off it in ~40 % of elements, which the MoE
+    and mamba stacks carry past the bf16 parity bar."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 def swiglu(params: dict, x):
-    g = F.silu(x @ params["w_gate"])
+    g = silu(x @ params["w_gate"])
     return (g * (x @ params["w_up"])) @ params["w_down"]
 
 
 def gelu(x):
     """The reference's ``jax.nn.gelu`` (its default: the tanh form)."""
     return F.gelu(x, approximate="tanh")
+
+
+def gelu_mlp_init(gen, d: int, d_ff: int, dtype, device=None, lead=()) -> dict:
+    return {"w_up": dense_init(gen, d, d_ff, dtype, device, lead),
+            "w_down": dense_init(gen, d_ff, d, dtype, device, lead)}
+
+
+def gelu_mlp(params: dict, x):
+    return gelu(x @ params["w_up"]) @ params["w_down"]

@@ -1,5 +1,5 @@
-"""Layered decoder stacks built from typed blocks.  Port of
-`repro.models.transformer` for the families the port serves (DENSE, SSM).
+"""Layered decoder/encoder stacks built from typed blocks.  Port of
+`repro.models.transformer`.
 
 A model is a **program**: a super-block (a short list of typed layers)
 repeated ``R`` times.  Parameters keep the reference's nested dict,
@@ -7,19 +7,20 @@ repeated ``R`` times.  Parameters keep the reference's nested dict,
 carries weights across leaf for leaf; the stack is a plain Python loop
 over the R repeats (no scan).  Caches have the same ``[R, ...]`` layout.
 
-Block types ported: ``attn`` (causal self-attention, GQA + RoPE + qk-norm
-+ sliding window), ``ffn`` (SwiGLU), ``mlstm``, ``slstm``.  The MOE,
-HYBRID, AUDIO and VLM families and the ``moe``/``mamba``/``xattn``/
-``ffn_gelu``/``attn_nc`` blocks raise `NotImplementedError`
-(ROADMAP queue 1 item 7).
+Block types: ``attn`` (self, causal or not, GQA + RoPE + qk-norm +
+sliding window), ``attn_nc`` (the encoder's non-causal self-attention),
+``xattn`` (cross-attention to the encoder output), ``ffn`` (SwiGLU),
+``ffn_gelu``, ``moe``, ``mamba``, ``mlstm``, ``slstm``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.config import ModelConfig, DENSE, SSM
+from repro_torch.config import ModelConfig, AUDIO, HYBRID, MOE, SSM
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as MB
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.utils.tree import tree_map
 
@@ -29,12 +30,6 @@ TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return TORCH_DTYPES[cfg.dtype]
-
-
-def _unported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1 item 7: MoE, "
-        "hybrid/mamba, enc-dec and VLM token models)")
 
 
 # ---------------------------------------------------------------------------
@@ -52,14 +47,35 @@ def layer_program(cfg: ModelConfig) -> tuple:
                 pattern += [(name,)] * int(cnt)
             else:
                 pattern += [(part,)]
-        period = len(pattern)
-        if cfg.n_layers % period:
-            raise ValueError(f"{cfg.n_layers} layers is not a multiple of "
-                             f"the pattern period {period}")
-        return pattern, cfg.n_layers // period
-    if cfg.family == DENSE:
-        return [("attn", "ffn")], cfg.n_layers
-    raise _unported(f"the {cfg.family!r} family")
+        return pattern, _repeats(cfg, len(pattern))
+    if cfg.family == HYBRID:
+        period = cfg.attn_every
+        sb = []
+        for i in range(period):
+            mixer = "attn" if i == period - 1 else "mamba"
+            ffn = "moe" if (cfg.n_experts and i % cfg.moe_every == 1) else "ffn"
+            sb.append((mixer, ffn))
+        return sb, _repeats(cfg, period)
+    if cfg.family == MOE:
+        period = cfg.moe_every
+        sb = [("attn", "moe" if i == period - 1 else "ffn")
+              for i in range(period)]
+        return sb, _repeats(cfg, period)
+    if cfg.family == AUDIO:  # decoder program (encoder: `encoder_program`)
+        return [("attn", "xattn", "ffn_gelu")], cfg.n_layers
+    # dense / vlm
+    return [("attn", "ffn")], cfg.n_layers
+
+
+def _repeats(cfg: ModelConfig, period: int) -> int:
+    if cfg.n_layers % period:
+        raise ValueError(f"{cfg.n_layers} layers is not a multiple of "
+                         f"the pattern period {period}")
+    return cfg.n_layers // period
+
+
+def encoder_program(cfg: ModelConfig) -> tuple:
+    return [("attn_nc", "ffn_gelu")], cfg.n_encoder_layers
 
 
 # ---------------------------------------------------------------------------
@@ -85,20 +101,28 @@ def block_init(gen, kind: str, cfg: ModelConfig, device=None, lead=()) -> dict:
     """One block's parameters, each leaf stacked ``[*lead, ...]``."""
     dtype = torch_dtype(cfg)
     d = cfg.d_model
-    if kind == "attn":
+    norm = {"norm": torch.ones((*lead, d), dtype=F32, device=device)}
+    if kind in ("attn", "attn_nc", "xattn"):
         return _attn_init(gen, cfg, dtype, device, lead)
     if kind == "ffn":
-        return {
-            "w_gate": L.dense_init(gen, d, cfg.d_ff, dtype, device, lead),
-            "w_up": L.dense_init(gen, d, cfg.d_ff, dtype, device, lead),
-            "w_down": L.dense_init(gen, cfg.d_ff, d, dtype, device, lead),
-            "norm": torch.ones((*lead, d), dtype=F32, device=device),
-        }
+        return {**L.swiglu_init(gen, d, cfg.d_ff, dtype, device, lead),
+                **norm}
+    if kind == "ffn_gelu":
+        return {**L.gelu_mlp_init(gen, d, cfg.d_ff, dtype, device, lead),
+                **norm}
+    if kind == "moe":
+        return {**M.moe_init(gen, d, cfg.resolved_d_ff_expert, cfg.n_experts,
+                             dtype, device, lead), **norm}
+    if kind == "mamba":
+        return MB.mamba_init(gen, d, expand=cfg.ssm_expand,
+                             state_dim=cfg.ssm_state_dim,
+                             conv_dim=cfg.ssm_conv_dim, dtype=dtype,
+                             device=device, lead=lead)
     if kind == "mlstm":
         return S.mlstm_init(gen, d, cfg.n_heads, dtype, device, lead)
     if kind == "slstm":
         return S.slstm_init(gen, d, cfg.n_heads, dtype, device, lead)
-    raise _unported(f"the {kind!r} block")
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -120,22 +144,58 @@ def _qkv(p, cfg, x, positions):
     return q, k, v
 
 
+def _xattn_kv(p, cfg, enc):
+    """Cross-attention K, V ``[B, Senc, Hkv, hd]`` of the encoder output."""
+    b, se, _ = enc.shape
+    hd = cfg.resolved_head_dim
+    return ((enc @ p["wk"]).reshape(b, se, cfg.n_kv_heads, hd),
+            (enc @ p["wv"]).reshape(b, se, cfg.n_kv_heads, hd))
+
+
+def _xattn(p, cfg, x, k, v):
+    b, s, _ = x.shape
+    xn = L.rmsnorm(x, p["norm"], cfg.norm_eps)
+    q = (xn @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.resolved_head_dim)
+    o = A.attention(q, k, v, causal=False, window=0)
+    return o.reshape(b, s, -1) @ p["wo"]
+
+
+def _moe(p, cfg, x):
+    record = M.RECORD is not None
+    out, aux = M.moe_ffn(p, L.rmsnorm(x, p["norm"], cfg.norm_eps),
+                         top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+                         return_aux=record)
+    if record:
+        M.RECORD.append(aux)
+    return out
+
+
 def block_fwd(kind: str, p: dict, x, cfg: ModelConfig, ctx: dict):
     """Returns the block's delta; the caller adds the residual."""
     b, s, _ = x.shape
-    if kind == "attn":
+    if kind in ("attn", "attn_nc"):
+        causal = kind == "attn" and cfg.causal
         q, k, v = _qkv(p, cfg, x, ctx["positions"])
         window = ctx.get("window", cfg.sliding_window)
-        o = A.attention(q, k, v, causal=cfg.causal,
-                        window=window if cfg.causal else 0)
+        o = A.attention(q, k, v, causal=causal,
+                        window=window if causal else 0)
         return o.reshape(b, s, -1) @ p["wo"]
+    if kind == "xattn":
+        return _xattn(p, cfg, x, *_xattn_kv(p, cfg, ctx["enc_out"]))
     if kind == "ffn":
         return L.swiglu(p, L.rmsnorm(x, p["norm"], cfg.norm_eps))
+    if kind == "ffn_gelu":
+        return L.gelu_mlp(p, L.rmsnorm(x, p["norm"], cfg.norm_eps))
+    if kind == "moe":
+        return _moe(p, cfg, x)
+    if kind == "mamba":
+        return MB.mamba_block(p, x, state_dim=cfg.ssm_state_dim,
+                              eps=cfg.norm_eps)
     if kind == "mlstm":
         return S.mlstm_block(p, x, cfg.n_heads, cfg.norm_eps)
     if kind == "slstm":
         return S.slstm_block(p, x, cfg.n_heads, cfg.norm_eps)
-    raise _unported(f"the {kind!r} block")
+    raise ValueError(kind)
 
 
 def layer_fwd(layer: tuple, params: dict, x, cfg: ModelConfig, ctx: dict):
@@ -199,10 +259,20 @@ def layer_cache_init(layer: tuple, cfg: ModelConfig, batch: int,
                      lead=()) -> dict:
     out = {}
     eff_len = min(cache_len, window) if window else cache_len
+    hd = cfg.resolved_head_dim
     for bi, kind in enumerate(layer):
         if kind == "attn":
             out[f"b{bi}"] = _attn_cache_init(cfg, batch, eff_len, dtype,
                                              device, lead)
+        elif kind == "xattn":
+            shape = (*lead, batch, cfg.encoder_seq, cfg.n_kv_heads, hd)
+            out[f"b{bi}"] = {
+                "k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+        elif kind == "mamba":
+            out[f"b{bi}"] = MB.mamba_decode_init(
+                batch, cfg.ssm_expand * cfg.d_model, cfg.ssm_state_dim,
+                cfg.ssm_conv_dim, device, lead)
         elif kind == "mlstm":
             d_in = 2 * cfg.d_model
             out[f"b{bi}"] = S.mlstm_decode_init(
@@ -210,8 +280,6 @@ def layer_cache_init(layer: tuple, cfg: ModelConfig, batch: int,
         elif kind == "slstm":
             out[f"b{bi}"] = S.slstm_decode_init(
                 batch, cfg.n_heads, cfg.d_model // cfg.n_heads, device, lead)
-        elif kind != "ffn":
-            raise _unported(f"the {kind!r} block's cache")
     return out
 
 
@@ -255,13 +323,19 @@ def block_decode(kind: str, p: dict, x, cache, cfg: ModelConfig, ctx: dict):
         o = A.decode_attention(q, cache["k"], cache["v"], cache["pos"], pos,
                                window=window, kv_len=ctx.get("kv_len"))
         return o.reshape(b, 1, -1) @ p["wo"], cache
-    if kind == "ffn":
+    if kind == "xattn":
+        return _xattn(p, cfg, x, cache["k"], cache["v"]), cache
+    if kind in ("ffn", "ffn_gelu", "moe"):
         return block_fwd(kind, p, x, cfg, ctx), cache
+    if kind == "mamba":
+        return MB.mamba_block_decode(p, x, cache,
+                                     state_dim=cfg.ssm_state_dim,
+                                     eps=cfg.norm_eps)
     if kind == "mlstm":
         return S.mlstm_block_decode(p, x, cache, cfg.n_heads, cfg.norm_eps)
     if kind == "slstm":
         return S.slstm_block_decode(p, x, cache, cfg.n_heads, cfg.norm_eps)
-    raise _unported(f"the {kind!r} block")
+    raise ValueError(kind)
 
 
 def stack_decode(stacked: dict, caches: dict, x, cfg: ModelConfig, program,
@@ -288,10 +362,12 @@ def stack_decode(stacked: dict, caches: dict, x, cfg: ModelConfig, program,
 
 def stack_prefill(stacked: dict, caches: dict, x, cfg: ModelConfig, program,
                   ctx: dict):
-    """Run the full sequence and write the attention caches (in place).
+    """Run the full sequence and write the attention caches and the
+    cross-attention K/V of the encoder output (in place).
 
-    As in the reference, the mLSTM/sLSTM caches are left as initialized:
-    decode after prefill starts those blocks from the empty state."""
+    As in the reference (its `stack_prefill` quirk, kept on purpose), the
+    mamba, mLSTM and sLSTM caches are left as initialized: decode after
+    prefill starts those blocks from the empty state."""
     b, s, _ = x.shape
     for r in range(n_repeats(stacked)):
         rep, rep_cache = repeat_slice(stacked, r), repeat_slice(caches, r)
@@ -310,6 +386,11 @@ def stack_prefill(stacked: dict, caches: dict, x, cfg: ModelConfig, program,
                     cache_b["v"][:, :take] = v[:, s - take:]
                     cache_b["pos"][:, :take] = torch.arange(
                         s - take, s, dtype=torch.int32, device=x.device)
+                elif kind == "xattn" and cache_b is not None:
+                    k, v = _xattn_kv(p, cfg, ctx["enc_out"])
+                    cache_b["k"].copy_(k)
+                    cache_b["v"].copy_(v)
+                    delta = _xattn(p, cfg, x, k, v)
                 else:
                     delta = block_fwd(kind, p, x, cfg, ctx)
                 x = x + delta

@@ -1,7 +1,8 @@
 """Where one training run's (or one serving run's) time goes on the card.
 
     PYTHONPATH=src python3 -m repro_torch.trace [--rounds 6] [--mesh] [--out DIR]
-    PYTHONPATH=src python3 -m repro_torch.trace --serve [--arch xlstm-350m]
+    PYTHONPATH=src python3 -m repro_torch.trace --serve [--arch xlstm-350m] \
+        [--layers N]
 
 Runs the main path of ``chip_smoke.py``'s ``train`` phase (VGG-16 at full
 width, N=8, the HASFL controller) — or, with ``--mesh``, its ``mesh``
@@ -18,7 +19,9 @@ trace goes to ``DIR/trace.json`` (default ``build/trace``).
 
 With ``--serve`` it traces ``chip_smoke.py``'s ``serve`` phase instead
 (``--arch``, default qwen3-1.7b, at full width in its own dtype, with
-`launch.serve.FULL_WIDTH_TRAFFIC`): after a warm-up run and an untraced
+`launch.serve.FULL_WIDTH_TRAFFIC`; ``--layers`` cuts the depth, as
+``chip_smoke.py`` does for the MoE and hybrid families that do not fit
+the card whole): after a warm-up run and an untraced
 run (its prefill and per-step decode times are reported), one
 `launch.serve.serve` runs under the profiler, and the JSON line gives,
 for each of its spans ``serve.prefill`` and ``serve.decode``, the wall
@@ -110,10 +113,12 @@ def _device_times(events):
 SERVE_SPANS = ("serve.prefill", "serve.decode")
 
 
-def trace_serve(arch: str, out_dir: Path) -> dict:
+def trace_serve(arch: str, out_dir: Path, layers=None) -> dict:
     """The ``serve`` phase's traffic: a warm-up run, an untraced run, then
     one `serve` under the profiler, split by its prefill and decode
-    spans."""
+    spans.  ``layers`` cuts the model's depth."""
+    import dataclasses
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -124,6 +129,8 @@ def trace_serve(arch: str, out_dir: Path) -> dict:
 
     t = FULL_WIDTH_TRAFFIC
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     params, prompts = seeded_inputs(cfg, t["batch"], t["prompt"], t["seed"],
                                     "cuda")
     serve(cfg, params, prompts, t["gen"])                 # warm-up
@@ -138,7 +145,7 @@ def trace_serve(arch: str, out_dir: Path) -> dict:
              if ev.device_type == DeviceType.CPU and ev.name in SERVE_SPANS}
     device = _cuda_events(prof, skip=SERVE_SPANS)
     report = {"gpu": _smi(), "spec": "serve", "arch": arch,
-              "dtype": cfg.dtype, **t,
+              "n_layers": cfg.n_layers, "dtype": cfg.dtype, **t,
               "untraced_prefill_ms": untraced.prefill_s * 1e3,
               "untraced_decode_ms_per_step":
                   untraced.decode_s * 1e3 / t["gen"],
@@ -166,12 +173,14 @@ def main(argv=None) -> dict:
                     help="trace the serving path (prefill + decode)")
     ap.add_argument("--arch", default="qwen3-1.7b",
                     help="the token model of --serve")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut --serve's model to this many layers")
     ap.add_argument("--out", default="build/trace")
     args = ap.parse_args(argv)
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     if args.serve:
-        report = trace_serve(args.arch, out_dir)
+        report = trace_serve(args.arch, out_dir, args.layers)
         print(json.dumps(report), flush=True)
         return report
     make_spec = mesh_spec if args.mesh else train_spec

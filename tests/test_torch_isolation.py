@@ -157,16 +157,21 @@ def test_port_dynamic_edge_imports_no_jax_and_no_reference():
 
 def test_port_sources_cover_the_serving_slice():
     """The per-source import check reaches every module of the token-model
-    serving path: the launcher, the models and the three kernels."""
+    serving path: the launcher, the models (MoE, mamba, enc-dec and VLM
+    included), every token config and the three kernels."""
     covered = {str(p.relative_to(SRC)) for p in _port_sources()
                if p.is_relative_to(SRC)}
     for name in ("__init__", "serve"):
         assert f"repro_torch/launch/{name}.py" in covered, name
-    for name in ("layers", "attention", "transformer", "ssm", "factory"):
+    for name in ("layers", "attention", "transformer", "ssm", "factory",
+                 "moe", "mamba"):
         assert f"repro_torch/models/{name}.py" in covered, name
     for name in ("flash_attention", "rmsnorm", "mlstm_scan", "ops", "ref"):
         assert f"repro_torch/kernels/{name}.py" in covered, name
-    for name in ("qwen3_1_7b", "smollm_135m", "xlstm_350m", "input_shapes"):
+    for name in ("qwen3_1_7b", "smollm_135m", "xlstm_350m", "glm4_9b",
+                 "phi3_mini_3_8b", "dbrx_132b", "llama4_maverick_400b_a17b",
+                 "jamba_v0_1_52b", "whisper_medium", "internvl2_1b",
+                 "input_shapes"):
         assert f"repro_torch/configs/{name}.py" in covered, name
 
 
@@ -177,7 +182,8 @@ import torch
 from repro_torch.config import get_config, reduced
 from repro_torch.launch.serve import serve
 from repro_torch.models import build_model
-for arch in ("qwen3-1.7b", "xlstm-350m"):
+for arch in ("qwen3-1.7b", "xlstm-350m", "dbrx-132b", "jamba-v0.1-52b",
+             "whisper-medium", "internvl2-1b"):
     cfg = reduced(get_config(arch))
     params = build_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
     toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 6))

@@ -43,6 +43,7 @@ from repro_torch.models import attention as TATT
 from repro_torch.models import build_model
 from repro_torch.utils.tree import tree_leaves, tree_map
 from test_torch_kernels_cuda import (CONV_CASES, DECODE_CASES, FLASH_CASES,
+                                     FLASH_FAMILY_CASES,
                                      FLASH_TOL, GAMMA, MLSTM_CASES, MLSTM_TOL,
                                      RMSNORM_CASES, RMSNORM_TOL, CLIP_TOL,
                                      LEAF_DS, LEAF_KEEPS, clip_cases,
@@ -379,7 +380,7 @@ def _assert_close(t, j, tol):
 
 
 @pytest.mark.parametrize("b,sq,sk,hq,hkv,hd,causal,window,dtype",
-                         FLASH_CASES)
+                         FLASH_CASES + FLASH_FAMILY_CASES)
 def test_flash_attention_matches_reference_kernel(b, sq, sk, hq, hkv, hd,
                                                   causal, window, dtype):
     rng = np.random.default_rng(0)

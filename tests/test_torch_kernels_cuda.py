@@ -68,7 +68,19 @@ RMSNORM_CASES = [
 # the decode form: (b, cache, hq, hkv, hd, pos) — one query token at
 # position ``pos`` against a cache whose slots past ``pos`` are empty
 DECODE_CASES = [(2, 16, 4, 2, 32, 9), (3, 40, 6, 3, 64, 0),
-                (1, 33, 2, 1, 128, 32)]
+                (1, 33, 2, 1, 128, 32), (2, 20, 4, 4, 96, 13)]
+# the shapes the last serving slice added, small: hd 96 (phi3), a
+# non-causal encoder, a cross-attention with Sk != Sq, GQA groups 7
+# (internvl2) and 16 (glm4): (b, sq, sk, hq, hkv, hd, causal, window,
+# dtype)
+FLASH_FAMILY_CASES = [
+    (1, 128, 128, 4, 2, 96, True, 0, "float32"),
+    (2, 70, 70, 4, 4, 96, True, 0, "bfloat16"),
+    (1, 150, 150, 4, 4, 64, False, 0, "float32"),
+    (2, 48, 150, 4, 4, 64, False, 0, "bfloat16"),
+    (1, 64, 64, 14, 2, 64, True, 0, "float32"),
+    (1, 64, 64, 32, 2, 128, True, 0, "bfloat16"),
+]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 MLSTM_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
 RMSNORM_TOL = 2e-2
@@ -423,7 +435,7 @@ def _close(got, want, tol):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,sq,sk,hq,hkv,hd,causal,window,dtype",
-                         FLASH_CASES + [
+                         FLASH_CASES + FLASH_FAMILY_CASES + [
                              # qwen3-1.7b prefill at full width
                              (8, 512, 512, 16, 8, 128, True, 0, "bfloat16")])
 def test_flash_attention_kernel_matches_plain(b, sq, sk, hq, hkv, hd, causal,
@@ -544,6 +556,21 @@ FLASH_PATH_CASES = [
     (2, 1, 300, 9, 3, 64, False, 0, 257, "bfloat16", "split_kv"),
     (1, 1, 100, 16, 1, 64, False, 0, 99, "float32", "split_kv"),
     (2, 1, 64, 4, 2, 64, True, 0, None, "bfloat16", "split_kv"),
+    # the token families of the last serving slice at full width: phi3's
+    # hd 96 (prefill, decode; fp32 prefill), whisper's encoder (1500 x
+    # 1500, non-causal), its cross-attention (512 x 1500) and its decode
+    # cross step (kv_end 1500), internvl2's group 7 and glm4's group 16
+    (8, 512, 512, 32, 32, 96, True, 0, None, "bfloat16", "tc"),
+    (8, 1, 544, 32, 32, 96, False, 0, 513, "bfloat16", "split_kv"),
+    (2, 64, 64, 32, 32, 96, True, 0, None, "float32", "fp32"),
+    (2, 1, 72, 32, 32, 96, False, 0, 65, "float32", "split_kv"),
+    (8, 1500, 1500, 16, 16, 64, False, 0, None, "bfloat16", "tc"),
+    (8, 512, 1500, 16, 16, 64, False, 0, None, "bfloat16", "tc"),
+    (8, 1, 1500, 16, 16, 64, False, 0, None, "bfloat16", "split_kv"),
+    (8, 512, 512, 14, 2, 64, True, 0, None, "bfloat16", "tc"),
+    (8, 1, 544, 14, 2, 64, False, 0, 513, "bfloat16", "split_kv"),
+    (8, 512, 512, 32, 2, 128, True, 0, None, "bfloat16", "tc"),
+    (8, 1, 544, 32, 2, 128, False, 0, 513, "bfloat16", "split_kv"),
 ]
 
 
