@@ -121,6 +121,45 @@ nothing of the reference package.  Phases, each printing one JSON line:
    kernel, against the CPU and against the kernel run: the witness of
    xlstm's bar.
 
+18. ``train_lm``: the simulator's token cell at full width (`TRAIN_LM`:
+   smollm-135m, 30 layers, vocab 49152, bf16; N=8, IID, S=128, 4096
+   training sequences, HASFL with the online G²/σ² estimate, I=3, 12
+   rounds); counters zeroed and read around the run.  Seconds a round,
+   the policy calls' share of the wall, peak memory, and a round's
+   launches of flash attention forward and backward, RMSNorm forward and
+   backward and kernel 2, each > 0; the test loss falls; every parameter
+   leaf has moved from its start (a leaf cut from the graph would not).
+   A witness records the shape of every backward call of kernels 4 and
+   5 and the inputs of the last kernel-2 call.
+19. ``spmd``: `make_hasfl_train_step` at full width (`SPMD`: qwen3-1.7b,
+   N=2, cut_reps=1, b=4, S=512, Adam, 6 steps), remat off and then on:
+   seconds a step, tokens/s, peak memory, the loss a step (it falls), and
+   both backward kernels launched; the same witness.
+20. ``kernels_train``: the training kernels at what the two runs ran:
+   kernel 4's ``lse`` and backward against their plain versions at the
+   reference's cases and at every shape the witnesses recorded (dQ, dK,
+   dV within 2e-5·(1+|plain|) at fp32 and 3e-2·max|plain| at bf16,
+   bitwise repeatable), each run's most frequent shape timed as one
+   backward's calls (a call a layer) beside SDPA's backward (its forward
+   + backward minus its forward); kernel 5's grouped scale and backward
+   at the reference's cases and every recorded shape, each recorded
+   shape timed beside ``F.rms_norm``'s backward; kernel 2 on copies of
+   ``train_lm``'s last round (the session's own bf16 and fp32 leaves,
+   gradients, clip factors and keep flags) against its plain version
+   leaf by leaf (bf16 within one bf16 ulp).
+21. ``train_cross``: card against CPU from the same fp32 weights, on an
+   fp32 copy of smollm-tiny and on qwen3 cut to 2 layers: a 6-round token
+   `Session` (decisions, clocks and plans bitwise; losses and parameters
+   within 1e-4) and 3 SPMD steps with SGD (parameters within 1e-4).
+22. ``cli_spmd``: ``python -m repro_torch.launch.train --mode spmd`` in
+   process on the card (`SPMD_CLI`): a row a step, finite losses.
+
+The summary line gives the two backward kernels rows of their own
+(``flash_attention_bwd``, ``rmsnorm_bwd``, at ``train_lm``'s most
+frequent shape, with the others under ``shapes``), with their launches
+in ``train_lm`` (and per round) and in ``spmd``; kernel 2's row carries
+the token round under ``token_round``.
+
 The GEMM's split-K (conv1.dW, conv2.dW) must repeat bitwise.  The
 ``kernels`` phase also holds the token-model kernels against their
 plain versions on the card — flash attention (the reference's cases,
@@ -152,8 +191,10 @@ detail goes to ``--detail`` (default ``build/chip_smoke.json``).
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -361,8 +402,8 @@ def phase_build():
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    sources = ["batched_matmul", "clip_sgd", "flash_attention", "rmsnorm",
-               "mlstm_scan"]
+    sources = ["batched_matmul", "clip_sgd", "flash_attention",
+               "flash_attention_bwd", "rmsnorm", "mlstm_scan"]
     build.build(sources)
     seconds = time.perf_counter() - t0
     ptxas = {name: _ptxas_lines(build.BUILD_LOGS.get(name, ""))
@@ -2319,7 +2360,8 @@ def phase_serve(arch: str, name: str, layers=None):
     for path, want in expected_mlstm.items():
         check(mlstm_paths[path] == want, f"{name}: {mlstm_paths[path]} "
               f"mLSTM launches on the {path} path, expected {want}")
-    for kernel in ("batched_matmul", "clip_sgd", "clip_sgd_ext"):
+    for kernel in ("batched_matmul", "clip_sgd", "clip_sgd_ext",
+                   "flash_attention_bwd", "rmsnorm_bwd"):
         check(launches[kernel] == 0, f"{name}: {kernel} launched")
     return out
 
@@ -2478,6 +2520,607 @@ def phase_serve_cross():
     return out
 
 
+# ---------------------------------------------------------------------------
+# Training: kernels 4 and 5 backward, kernel 2 on bf16 leaves, and the two
+# training paths of the dense token models
+# ---------------------------------------------------------------------------
+
+TRAIN_LM = dict(arch="smollm-135m", n_clients=8, partition="iid",
+                seq_len=128, n_train=4096, n_test=512, rounds=12,
+                eval_every=4, policy="hasfl", estimate=True, seed=0)
+# the step size of train_lm: at the CNN phases' 0.05 the clipped steps
+# moved smollm's test loss by 4e-5 in 12 rounds on the H100 (PERF.md); at
+# 1.0 it visibly learns
+TRAIN_LM_LR = 1.0
+SPMD = dict(arch="qwen3-1.7b", n_clients=2, cut_reps=1, batch=4, seq=512,
+            steps=6, lr=3e-4, agg_interval=3)
+SPMD_CLI = ["--mode", "spmd", "--steps", "4", "--seq", "128", "--layers",
+            "4", "--d-model", "256", "--clients", "2", "--batch", "2",
+            "--eval-every", "0"]
+BWD_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+
+
+def _dtype_name(t) -> str:
+    return str(t.dtype).replace("torch.", "")
+
+
+@contextlib.contextmanager
+def _witness(clip_call: int = 0):
+    """While a training path runs: the signature of every backward that
+    `FlashAttentionFn` and `RMSNormFn` run (what they hand kernels 4's and
+    5's backward), counted, and the inputs of kernel 2's ``clip_call``-th
+    call (its leaves copied before their in-place update), so that
+    `phase_kernels_train` checks and times the kernels at what the path
+    ran.  Each wrapper runs what it wraps as the path would; the launch
+    counters stay the kernels' own."""
+    from collections import Counter
+    from repro_torch.kernels import clip_sgd as CS
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rmsnorm as RN
+
+    seen = {"flash": Counter(), "norm": Counter(), "clip": None,
+            "clip_calls": 0}
+    fns = {fn: (fn.forward, fn.backward)
+           for fn in (FA.FlashAttentionFn, RN.RMSNormFn)}
+    cs = CS.clip_sgd_leaves_kernel
+
+    # the forward notes the signature on ctx (the backward must not
+    # unpack the saved tensors a second time: remat allows one unpack)
+    def flash_fwd(ctx, q, k, v, causal, window):
+        b, sq, hq, hd = q.shape
+        ctx.witness = ("flash", (b, sq, k.shape[1], hq, k.shape[2], hd,
+                                 bool(causal), int(window), _dtype_name(q)))
+        return fns[FA.FlashAttentionFn][0](ctx, q, k, v, causal, window)
+
+    def norm_fwd(ctx, x, scale, eps):
+        groups = scale.shape[0] if scale.dim() == 2 else 1
+        ctx.witness = ("norm", (tuple(x.shape), groups, _dtype_name(x),
+                                float(eps)))
+        return fns[RN.RMSNormFn][0](ctx, x, scale, eps)
+
+    def backward(fn):
+        def bwd(ctx, grad):
+            kind, sig = ctx.witness
+            seen[kind][sig] += 1
+            return fns[fn][1](ctx, grad)
+        return bwd
+
+    def clip(ps, gs, scale, keep_specs, participation=None, **kw):
+        seen["clip_calls"] += 1
+        if seen["clip_calls"] == clip_call:
+            seen["clip"] = dict(ps=[p.clone() for p in ps], gs=list(gs),
+                                scale=scale, keep_specs=keep_specs,
+                                participation=participation, kw=kw)
+        return cs(ps, gs, scale, keep_specs, participation, **kw)
+
+    for fn, fwd in ((FA.FlashAttentionFn, flash_fwd),
+                    (RN.RMSNormFn, norm_fwd)):
+        fn.forward = staticmethod(fwd)
+        fn.backward = staticmethod(backward(fn))
+    CS.clip_sgd_leaves_kernel = clip
+    try:
+        yield seen
+    finally:
+        for fn, (fwd, bwd) in fns.items():
+            fn.forward, fn.backward = staticmethod(fwd), staticmethod(bwd)
+        CS.clip_sgd_leaves_kernel = cs
+
+
+def _bwd_compare(got, want, dtype, what):
+    """Max |got - want|; the bar is 2e-5·(1+|plain|) at fp32 and
+    3e-2·max|plain| at bf16."""
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    if dtype == "float32":
+        bar = BWD_TOL[dtype] * (1 + want.float().abs())
+    else:
+        bar = BWD_TOL[dtype] * want.float().abs().max()
+    check(bool((diff <= bar).all()),
+          f"{what}: max|kernel-plain| {err} over the bar")
+    return err
+
+
+def _flash_work(sig) -> int:
+    b, sq, sk, hq = sig[:4]
+    return b * sq * sk * hq
+
+
+def _norm_work(sig) -> int:
+    return math.prod(sig[0])
+
+
+def _path_cases(runs, key, work):
+    """[(signature, [(run, layers, launches at it, heaviest)] for each run
+    that recorded it)] over every signature the runs recorded under
+    ``key``; a run's heaviest signature carries the most of its work
+    (launches × ``work(signature)``)."""
+    cases = {}
+    for run, (seen, layers) in runs.items():
+        top = max(seen[key], key=lambda sig: seen[key][sig] * work(sig))
+        for sig, count in seen[key].items():
+            cases.setdefault(sig, []).append((run, layers, count,
+                                              sig == top))
+    return list(cases.items())
+
+
+def _flash_bwd_checks(detail, runs):
+    """Kernel 4's training forward (lse) and backward against their plain
+    versions at the reference's cases and at every shape the training
+    paths ran (``runs``: run -> (witness, layers)), each bitwise
+    repeatable; each recorded shape timed as one backward's calls (a call
+    a layer) beside the bound, the plain version and
+    ``F.scaled_dot_product_attention``'s forward + backward minus its
+    forward."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    cases = [(c, []) for c in FLASH_CASES] + _path_cases(runs, "flash",
+                                                         _flash_work)
+    worst, rows = 0.0, {}
+    for case, roles in cases:
+        b, sq, sk, hq, hkv, hd, causal, window, dt = case
+        q = torch.randn((b, sq, hq, hd), device="cuda", generator=gen).to(
+            _dtype(dt))
+        k, v = (torch.randn((b, sk, hkv, hd), device="cuda",
+                            generator=gen).to(_dtype(dt)) for _ in range(2))
+        do = torch.randn(q.shape, device="cuda", generator=gen).to(q.dtype)
+        o, lse = FA.flash_attention_kernel(q, k, v, causal=causal,
+                                           window=window, lse=True)
+        _, lse_plain = FA.flash_attention_plain(q, k, v, causal=causal,
+                                                window=window, lse=True)
+        _compare(lse, lse_plain, 1e-4, f"flash lse {case}")
+        kw = dict(causal=causal, window=window)
+        got = FA.flash_attention_bwd_kernel(q, k, v, o, lse, do, **kw)
+        want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        for name, g, w in zip("qkv", got, want):
+            worst = max(worst, _bwd_compare(g, w, dt,
+                                            f"flash bwd d{name} {case}"))
+        again = FA.flash_attention_bwd_kernel(q, k, v, o, lse, do, **kw)
+        check(all(torch.equal(g, a) for g, a in zip(got, again)),
+              f"flash bwd {case}: not bitwise repeatable")
+        pairs = _flash_pairs(sq, sk, causal, window, sk)
+        flops = 10.0 * b * hq * hd * pairs
+        nbytes = q.element_size() * (4.0 * b * sq * hq * hd
+                                     + 4.0 * b * sk * hkv * hd) \
+            + 8.0 * b * hq * sq
+        peak = PEAK_BF16_FLOPS if dt == "bfloat16" else PEAK_FP32_FLOPS
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                               enable_gqa=True)
+
+        def sdpa_fwd_bwd():
+            F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True).backward(dot)
+
+        for run, calls, count, heaviest in roles:
+            rows.setdefault(run, []).append(dict(
+                shape=list(case), calls=calls, launches_at_shape=count,
+                heaviest=heaviest,
+                max_abs_err=max(float((g.float() - w.float()).abs().max())
+                                for g, w in zip(got, want)),
+                ms=time_ms(_span(lambda: FA.flash_attention_bwd_kernel(
+                    q, k, v, o, lse, do, **kw), calls)),
+                fwd_lse_ms=time_ms(_span(lambda: FA.flash_attention_kernel(
+                    q, k, v, lse=True, **kw), calls)),
+                plain_ms=time_ms(_span(lambda: FA.flash_attention_bwd_plain(
+                    q, k, v, o, lse, do, **kw), calls)),
+                library_ms=time_ms(_span(sdpa_fwd_bwd, calls))
+                - time_ms(_span(sdpa_fwd, calls)),
+                bound_ms=calls * _bound(flops, nbytes, peak),
+                bound_by="operations" if flops / peak >= nbytes / PEAK_BYTES
+                else "bytes", flops=calls * flops, bytes=calls * nbytes))
+        del q, k, v, o, lse, do, got, want, again, qt, kt, vt
+    detail["flash_attention_bwd"] = rows
+    return rows, worst
+
+
+def _rmsnorm_bwd_checks(detail, runs):
+    """Kernel 5's grouped-scale forward and its backward against their
+    plain versions at the reference's cases and at every (shape, scale
+    groups) the training paths ran, the backward bitwise repeatable; each
+    recorded shape timed as one call beside the bound, the plain version and
+    ``F.rms_norm``'s forward + backward minus its forward (one [d]
+    weight: the library takes no grouped scale, so at a grouped shape it
+    is the ungrouped norm's time)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as RN
+
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    cases = [((shape, 1, dt, 1e-5), []) for shape, dt in RMSNORM_CASES] \
+        + _path_cases(runs, "norm", _norm_work)
+    worst, rows = 0.0, {}
+    for (shape, groups, dt, eps), roles in cases:
+        x = torch.randn(shape, device="cuda", generator=gen).to(_dtype(dt))
+        dy = torch.randn(shape, device="cuda", generator=gen).to(x.dtype)
+        d = shape[-1]
+        sc = torch.rand((groups, d) if groups > 1 else (d,), device="cuda",
+                        generator=gen)
+        _compare(RN.rmsnorm_kernel(x, sc, eps), RN.rmsnorm_plain(x, sc, eps),
+                 RMSNORM_TOL, f"rmsnorm {shape} {dt} groups {groups}")
+        dx, ds = RN.rmsnorm_bwd_kernel(x, sc, dy, eps)
+        pdx, pds = RN.rmsnorm_bwd_plain(x, sc, dy, eps)
+        torch.cuda.synchronize()
+        worst = max(worst, _compare(
+            dx, pdx, 2e-5 if dt == "float32" else RMSNORM_TOL,
+            f"rmsnorm bwd dx {shape} {dt}"))
+        worst = max(worst, _compare(ds, pds, 1e-4,
+                                    f"rmsnorm bwd dscale {shape} {dt}"))
+        dx2, ds2 = RN.rmsnorm_bwd_kernel(x, sc, dy, eps)
+        check(torch.equal(dx, dx2) and torch.equal(ds, ds2),
+              f"rmsnorm bwd {shape}: not bitwise repeatable")
+        rows_ = x.numel() // d
+        nbytes = 3.0 * rows_ * d * x.element_size() + 8.0 * sc.numel()
+        flops = 8.0 * rows_ * d
+        xl = x.detach().requires_grad_()
+        wl = sc.reshape(-1, d)[0].to(x.dtype).detach().requires_grad_()
+
+        def lib_fwd():
+            with torch.no_grad():
+                F.rms_norm(xl, (d,), wl, eps)
+
+        def lib_fwd_bwd():
+            F.rms_norm(xl, (d,), wl, eps).backward(dy)
+
+        for run, _, count, heaviest in roles:
+            rows.setdefault(run, []).append(dict(
+                shape=list(shape), groups=groups, launches_at_shape=count,
+                heaviest=heaviest,
+                max_abs_err=float((dx.float() - pdx.float()).abs().max()),
+                ms=time_ms(lambda: RN.rmsnorm_bwd_kernel(x, sc, dy, eps)),
+                plain_ms=time_ms(lambda: RN.rmsnorm_bwd_plain(x, sc, dy,
+                                                              eps)),
+                library_ms=time_ms(lib_fwd_bwd) - time_ms(lib_fwd),
+                bound_ms=_bound(flops, nbytes, PEAK_FP32_FLOPS),
+                bound_by="bytes", bytes=nbytes))
+    detail["rmsnorm_bwd"] = rows
+    return rows, worst
+
+
+def _clip_round_checks(rec):
+    """Kernel 2 on `train_lm`'s last round as the path ran it: the
+    session's own leaves (bf16 weights beside fp32 ones) as they stood
+    before that round's in-place update, its gradients, clip factors and
+    keep flags, in one call on copies (⌈leaves/64⌉ launches), against its
+    plain version in fp32 rounded once to each leaf's type (the kernel's
+    arithmetic), leaf by leaf: bf16 within one bf16 ulp (2^-7 relative at
+    most; the client mean's fp32 sum runs in another order, and a value
+    at a rounding boundary may round to the neighbour), fp32 within
+    `CLIP_TOL`.  The call timed on the copies (each span updating them
+    again) beside its bytes bound and the plain version at the leaves'
+    own types."""
+    import torch
+    from repro_torch.kernels import clip_sgd as CS
+
+    check(rec is not None, "clip_sgd token round: the last round's call "
+          "was not recorded")
+    ps, gs, scale, keeps, part, kw = (rec[k] for k in (
+        "ps", "gs", "scale", "keep_specs", "participation", "kw"))
+    tables = -(-len(ps) // CS.CAPACITY)
+    before = CS.clip_sgd_kernel.launches
+    got = CS.clip_sgd_leaves_kernel([p.clone() for p in ps], gs, scale,
+                                    keeps, part, **kw)
+    torch.cuda.synchronize()
+    check(CS.clip_sgd_kernel.launches == before + tables,
+          f"clip_sgd token round: not {tables} launches for {len(ps)} "
+          "leaves")
+    err, nbytes = 0.0, 4.0 * scale.numel()
+    for i, (p, g, out) in enumerate(zip(ps, gs, got)):
+        want = CS.clip_sgd_leaves_plain(
+            [p.float()], [g.float()], scale, [keeps[i]], part,
+            **kw)[0].to(p.dtype).float()
+        diff = (out.float() - want).abs()
+        err = max(err, float(diff.max()))
+        bar = 2 ** -7 * want.abs() + 1e-6 if p.dtype == torch.bfloat16 \
+            else CLIP_TOL
+        check(bool((diff <= bar).all()),
+              f"clip_sgd token round leaf {i} {p.dtype} {tuple(p.shape)}: "
+              f"{float(diff.max())} over the bar")
+        nbytes += 3.0 * p.numel() * p.element_size()
+    out = {"leaves": len(ps), "launches": tables,
+           "bf16_leaves": sum(p.dtype == torch.bfloat16 for p in ps),
+           "elements": sum(p.numel() for p in ps), "max_abs_err": err,
+           "ms": time_ms(lambda: CS.clip_sgd_leaves_kernel(
+               got, gs, scale, keeps, part, **kw)),
+           "plain_ms": time_ms(lambda: CS.clip_sgd_leaves_plain(
+               ps, gs, scale, keeps, part, **kw)),
+           "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+           "bytes": nbytes}
+    del got
+    return out
+
+
+def phase_kernels_train(detail, lm_seen, spmd_seen, clip):
+    """The training kernels at what `train_lm` and `spmd` ran (their
+    witnesses): kernel 4's and 5's backward at the reference's cases and
+    every recorded shape; ``clip`` is `_clip_round_checks` of
+    `train_lm`'s last round, run as soon as `train_lm` ended (its copies
+    would otherwise add 4.3 GB to `spmd`'s peak)."""
+    from repro_torch.config import get_config
+
+    runs = {"train_lm": (lm_seen, get_config(TRAIN_LM["arch"]).n_layers),
+            "spmd": (spmd_seen, get_config(SPMD["arch"]).n_layers)}
+    t0 = time.perf_counter()
+    flash, flash_err = _flash_bwd_checks(detail, runs)
+    norm, norm_err = _rmsnorm_bwd_checks(detail, runs)
+    emit({"phase": "kernels_train", "seconds": time.perf_counter() - t0,
+          "flash_attention_bwd": flash, "rmsnorm_bwd": norm,
+          "clip_sgd_token_round": clip,
+          "max_abs_err": {"flash_attention_bwd": flash_err,
+                          "rmsnorm_bwd": norm_err,
+                          "clip_sgd_token_round": clip["max_abs_err"]}})
+    detail["clip_sgd_token_round"] = clip
+    return (dict(flash, max_abs_err=flash_err),
+            dict(norm, max_abs_err=norm_err))
+
+
+def _training_launches(launches, per: int) -> dict:
+    keys = ("flash_attention", "flash_attention_bwd", "rmsnorm",
+            "rmsnorm_bwd", "clip_sgd")
+    return {k: launches[k] / per for k in keys}
+
+
+def phase_train_lm(detail):
+    """The simulator's token cell at full width (`TRAIN_LM`: smollm-135m,
+    N=8, 12 rounds, HASFL with the online G²/σ² estimate); counters zeroed
+    and read around the run.  Every flash attention and norm of the
+    round's backward ran on its backward kernel; the test loss falls; no
+    parameter leaf is left as it started (a leaf cut from the graph would
+    be).  Returns the phase's numbers and the run's `_witness`."""
+    import math
+    import torch
+    from repro_torch.api import ExperimentSpec, Session
+    from repro_torch.config import SFLConfig
+    from repro_torch.kernels import ops
+    from repro_torch.utils.tree import tree_leaves
+
+    spec = ExperimentSpec(**TRAIN_LM, sfl=SFLConfig(lr=TRAIN_LM_LR,
+                                                     agg_interval=3))
+    sess = Session(spec)
+    start = [t.clone() for t in tree_leaves(sess.sim._stacked)]
+    spent = _timed_policies([sess])
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    with _witness(clip_call=spec.rounds) as seen:
+        t0 = time.perf_counter()
+        res = sess.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    moved = [not torch.equal(a, b) for a, b in
+             zip(start, tree_leaves(sess.sim._stacked))]
+    out = {"phase": "train_lm", "arch": spec.arch,
+           "n_clients": spec.n_clients, "seq_len": spec.seq_len,
+           "rounds": spec.rounds, "seconds": seconds,
+           "seconds_per_round": seconds / spec.rounds,
+           "policy_share": spent[0] / seconds,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches_per_round": _training_launches(launches, spec.rounds),
+           "train_loss": res.train_loss, "test_loss": res.test_loss,
+           "test_acc": res.test_acc, "clock": res.clock,
+           "b_history": [list(map(int, b)) for b in res.b_history],
+           "cut_history": [list(map(int, c)) for c in res.cut_history],
+           "leaves": len(moved), "leaves_unchanged": moved.count(False),
+           "launches": launches}
+    emit({k: v for k, v in out.items() if k != "launches"})
+    detail["train_lm"] = out
+    check(all(math.isfinite(v) for v in res.train_loss + res.test_loss),
+          "train_lm: non-finite loss")
+    check(res.test_loss[-1] < res.test_loss[0],
+          f"train_lm: the test loss did not fall {res.test_loss}")
+    check(all(moved), f"train_lm: {moved.count(False)} parameter leaves "
+          "never moved (no gradient reached them)")
+    for k in ("flash_attention", "flash_attention_bwd", "rmsnorm",
+              "rmsnorm_bwd", "clip_sgd"):
+        check(launches[k] > 0, f"train_lm: {k} never launched")
+    check(launches["clip_sgd_ext"] == 0 and launches["mlstm_scan"] == 0,
+          "train_lm: a kernel off the path launched")
+    check(seen["clip_calls"] == spec.rounds,
+          f"train_lm: {seen['clip_calls']} update calls in {spec.rounds} "
+          "rounds")
+    del sess, start
+    return out, seen
+
+
+def _spmd_run(remat: bool):
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.core.sfl import make_hasfl_train_step
+    from repro_torch.data import make_lm_data
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+
+    cfg = get_config(SPMD["arch"])
+    n, b, s = SPMD["n_clients"], SPMD["batch"], SPMD["seq"]
+    init_state, train_step = make_hasfl_train_step(
+        build_model(cfg), n_clients=n, cut_reps=SPMD["cut_reps"],
+        agg_interval=SPMD["agg_interval"], optimizer_name="adam",
+        lr=SPMD["lr"], remat=remat)
+    state = init_state(torch.Generator(device="cuda").manual_seed(0))
+    tokens, labels = make_lm_data(cfg.vocab_size, n * b * SPMD["steps"], s,
+                                  seed=0)
+    tokens = torch.as_tensor(tokens.reshape(-1, n, b, s)).cuda()
+    labels = torch.as_tensor(labels.reshape(-1, n, b, s)).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, times = [], []
+    for t in range(SPMD["steps"]):
+        t0 = time.perf_counter()
+        state, m = train_step(state, {"tokens": tokens[t],
+                                      "labels": labels[t]})
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    launches = ops.launch_counts()
+    steady = sum(times[1:]) / (len(times) - 1)
+    out = {"remat": remat, "loss": losses, "seconds_per_step": times,
+           "steady_seconds_per_step": steady,
+           "tokens_per_s": n * b * s / steady,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches_per_step": _training_launches(launches, SPMD["steps"]),
+           "launches": launches}
+    del state, tokens, labels
+    return out
+
+
+def phase_spmd(detail):
+    """The SPMD HASFL step at full width (`SPMD`: qwen3-1.7b, N=2,
+    cut_reps=1, b=4, S=512, Adam, 6 steps), remat off and then on;
+    counters zeroed and read around each run.  The loss falls; flash
+    attention and RMSNorm ran forward and backward on their kernels.
+    Returns the phase's numbers and both runs' `_witness`."""
+    import math
+    import torch
+
+    runs = []
+    with _witness() as seen:
+        for remat in (False, True):
+            runs.append(_spmd_run(remat))
+            gc.collect()
+            torch.cuda.empty_cache()
+    out = {"phase": "spmd", **{k: SPMD[k] for k in (
+        "arch", "n_clients", "cut_reps", "batch", "seq", "steps")},
+        "runs": [{k: v for k, v in r.items() if k != "launches"}
+                 for r in runs]}
+    emit(out)
+    detail["spmd"] = {**out, "runs": runs}
+    for r in runs:
+        check(all(math.isfinite(v) for v in r["loss"]),
+              "spmd: non-finite loss")
+        check(r["loss"][-1] < r["loss"][0],
+              f"spmd: the loss did not fall {r['loss']}")
+        for k in ("flash_attention", "flash_attention_bwd", "rmsnorm",
+                  "rmsnorm_bwd"):
+            check(r["launches"][k] > 0, f"spmd: {k} never launched")
+    return {"launches": runs[0]["launches"], "runs": runs}, seen
+
+
+def _register_f32(arch, name, **cut):
+    import dataclasses
+    import repro_torch.config as C
+
+    cfg = C.get_config(arch)
+    cfg = dataclasses.replace(cfg, **cut) if arch == "smollm-tiny" \
+        else C.reduced(cfg, **cut)
+    C.register(dataclasses.replace(cfg, arch_id=name, dtype="float32"))
+    return C.get_config(name)
+
+
+def phase_train_cross(detail):
+    """The training paths on the card against the CPU, from the same fp32
+    weights: a 6-round token `Session` (decisions, clocks and gather plans
+    bitwise; losses and parameters within 1e-4) and 3 SPMD steps (SGD;
+    client and server trees within 1e-4), on an fp32 copy of smollm-tiny
+    and on qwen3 reduced to 2 layers (qk-norm, GQA)."""
+    import numpy as np
+    import torch
+    from repro_torch.api import ExperimentSpec, Session
+    from repro_torch.config import SFLConfig
+    from repro_torch.convert import units_to_numpy
+    from repro_torch.core import split as SP
+    from repro_torch.core.sfl import make_hasfl_train_step
+    from repro_torch.models import build_model
+    from repro_torch.training.optim import make_optimizer
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    out = {"phase": "train_cross"}
+    for name, arch, cut, estimate in (
+            ("smollm-tiny-f32-cross", "smollm-tiny", {}, True),
+            ("qwen3-r2-f32-cross", "qwen3-1.7b", {"n_layers": 2}, False)):
+        cfg = _register_f32(arch, name, **cut)
+        spec = ExperimentSpec(
+            arch=name, n_clients=4, partition="iid", n_train=256, n_test=32,
+            seq_len=16, rounds=6, eval_every=2, policy="hasfl",
+            estimate=estimate, sfl=SFLConfig(lr=0.05, agg_interval=3))
+        model = build_model(cfg)
+        units, _ = SP.to_units(cfg, model.init(
+            torch.Generator().manual_seed(0), "cpu"))
+        init = units_to_numpy(units)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            sess = Session(spec, device=dev, init_units=init)
+            plans = _recording(sess)
+            res = sess.run()
+            runs[dev] = (res, plans, units_to_numpy(sess.sim._stacked))
+        (rg, pg, wg), (rc, pc, wc) = runs["cuda"], runs["cpu"]
+        check(_same(rg.b_history, rc.b_history)
+              and _same(rg.cut_history, rc.cut_history),
+              f"train_cross {name}: decisions")
+        check(rg.clock == rc.clock, f"train_cross {name}: clock")
+        check(_same(pg, pc), f"train_cross {name}: gather plans")
+        loss_err = max(abs(a - b) for a, b in zip(
+            rg.train_loss + rg.test_loss, rc.train_loss + rc.test_loss))
+        param_err = max(float(np.max(np.abs(a - b))) for a, b in zip(
+            tree_leaves(wg), tree_leaves(wc)))
+        # 3 SPMD steps from the same client/server trees
+        params = model.init(torch.Generator().manual_seed(1), "cpu")
+        client, server = SP.split_stacked(params, 1)
+        client = SP.replicate_client(client, 2)
+        opt = make_optimizer("sgd", 1e-2)
+        rng = np.random.default_rng(2)
+        batches = [{k: torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (2, 4, 16))) for k in ("tokens", "labels")}
+            for _ in range(3)]
+        trees = {}
+        for dev in ("cuda", "cpu"):
+            c = tree_map(lambda a: a.to(dev, copy=True), client)
+            s_ = tree_map(lambda a: a.to(dev, copy=True).contiguous(), server)
+            state = {"client": c, "server": s_, "step": 0,
+                     "opt": opt.init({"client": c, "server": s_})}
+            _, step = make_hasfl_train_step(
+                model, n_clients=2, cut_reps=1, agg_interval=2,
+                optimizer_name="sgd", lr=1e-2, remat=False)
+            for batch in batches:
+                state, _ = step(state, {k: v.to(dev)
+                                        for k, v in batch.items()})
+            trees[dev] = units_to_numpy([state["client"], state["server"]])
+        spmd_err = max(float(np.max(np.abs(a - b))) for a, b in zip(
+            tree_leaves(trees["cuda"]), tree_leaves(trees["cpu"])))
+        out[name] = {"b_history": [list(map(int, b)) for b in rg.b_history],
+                     "clock": rg.clock, "loss_max_err": loss_err,
+                     "param_max_err": param_err,
+                     "spmd_param_max_err": spmd_err}
+        check(loss_err <= CROSS_TOL,
+              f"train_cross {name}: losses differ by {loss_err}")
+        check(param_err <= CROSS_TOL,
+              f"train_cross {name}: parameters differ by {param_err}")
+        check(spmd_err <= CROSS_TOL,
+              f"train_cross {name}: SPMD parameters differ by {spmd_err}")
+    emit(out)
+    detail["train_cross"] = out
+    return out
+
+
+def phase_cli_spmd(detail):
+    """`repro_torch.launch.train.main(SPMD_CLI)` on the card: a short
+    ``--mode spmd`` run (the reference's reduced model), one logged row a
+    step, finite losses."""
+    import math
+    from repro_torch.launch import train
+
+    t0 = time.perf_counter()
+    rows = train.main(SPMD_CLI)
+    out = {"phase": "cli_spmd", "argv": SPMD_CLI,
+           "seconds": time.perf_counter() - t0, "steps": len(rows),
+           "loss": [r["loss"] for r in rows]}
+    emit(out)
+    detail["cli_spmd"] = out
+    check(len(rows) == 4, f"cli_spmd: {len(rows)} rows for 4 steps")
+    check(all(math.isfinite(r["loss"]) for r in rows),
+          "cli_spmd: non-finite loss")
+    return out
+
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2514,6 +3157,20 @@ def main(argv=None) -> int:
     traffic = phase_traffic(detail)
     phase_dynamic_cross(detail)
     phase_cli(detail)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_lm, lm_seen = phase_train_lm(detail)
+    clip_round = _clip_round_checks(lm_seen.pop("clip"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    spmd, spmd_seen = phase_spmd(detail)
+    flash_bwd, norm_bwd = phase_kernels_train(detail, lm_seen, spmd_seen,
+                                              clip_round)
+    del lm_seen, spmd_seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_cross(detail)
+    phase_cli_spmd(detail)
     # a simulator refers to itself (its segment function is a bound
     # method), so the earlier phases' sessions and their device tensors
     # go only with a collection: free them before serving's peak is read
@@ -2547,7 +3204,11 @@ def main(argv=None) -> int:
          "max_abs_err": clip["max_abs_err"], "ms": clip["ms"],
          "device_ms": clip["device_ms"],
          "plain_ms": clip["plain_ms"], "bound_ms": clip["bound_ms"],
-         "bound_by": "bytes", "library_ms": None},
+         "bound_by": "bytes", "library_ms": None,
+         "launches_train_lm": train_lm["launches"]["clip_sgd"],
+         "token_round": {k: clip_round[k] for k in (
+             "leaves", "bf16_leaves", "launches", "max_abs_err", "ms",
+             "plain_ms", "bound_ms")}},
         {"name": "clip_sgd_ext", "route": "cuda",
          "source": "src/repro_torch/csrc/clip_sgd.cu",
          "replaces": "src/repro/kernels/clip_sgd.py:44",
@@ -2608,6 +3269,31 @@ def main(argv=None) -> int:
          "fp32": {k: mlstm["recurrent"][k] for k in (
              "shape", "ms", "plain_ms", "bound_ms", "bound_by",
              "recurrence_bound_ms")}},
+        # kernels 4's and 5's backward at the shape that carries most of
+        # train_lm's work (as the run recorded it), every other recorded
+        # shape of train_lm and spmd under "shapes"; launches in train_lm,
+        # per round and in spmd
+        *[{"name": name, "route": "cuda", "source": source,
+           "replaces": replaces,
+           "launches": train_lm["launches"][name],
+           "launches_per_round": train_lm["launches_per_round"][name],
+           "launches_spmd": spmd["launches"][name],
+           "max_abs_err": rows["max_abs_err"],
+           **{k: v for k, v in next(
+               r for r in rows["train_lm"] if r["heaviest"]).items()
+              if k in ("shape", "groups", "calls", "ms", "plain_ms",
+                       "bound_ms", "bound_by", "library_ms", "fwd_lse_ms")},
+           "shapes": [{k: v for k, v in r.items() if k in (
+               "shape", "groups", "calls", "launches_at_shape", "ms",
+               "plain_ms", "bound_ms", "library_ms")} | {"run": run}
+               for run in ("train_lm", "spmd") for r in rows[run]
+               if run == "spmd" or not r["heaviest"]]}
+          for name, source, replaces, rows in (
+              ("flash_attention_bwd",
+               "src/repro_torch/csrc/flash_attention_bwd.cu",
+               "src/repro/kernels/flash_attention.py:31", flash_bwd),
+              ("rmsnorm_bwd", "src/repro_torch/csrc/rmsnorm.cu",
+               "src/repro/kernels/rmsnorm.py:11", norm_bwd))],
     ]
     detail["kernels"] = kernels
     detail["train"] = train

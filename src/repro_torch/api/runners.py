@@ -41,6 +41,8 @@ _DEFAULT = ExecutionChoice()
 _REGISTRY = {
     ("cnn", "cuda"): ExecutionChoice("grid", conv_impl="kernel",
                                      update_impl="kernel"),
+    # the reference's ("token", "tpu") row: the fused clip+SGD update
+    ("token", "cuda"): ExecutionChoice("grid", update_impl="kernel"),
 }
 
 

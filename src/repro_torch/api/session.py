@@ -44,6 +44,7 @@ from repro_torch.core.sfl import SFLEdgeSimulator, SimResult, pow2_bucket
 from repro_torch.data import (
     ClientSampler,
     make_cifar_like,
+    make_lm_data,
     partition_iid,
     partition_noniid_shards,
 )
@@ -71,11 +72,15 @@ class Session:
         spec = spec.validated()
         self.spec = spec
         self.device = resolve(device)
+        self.cfg = get_config(spec.arch)
+        if spec.mesh is not None and not self.cfg.is_cnn:
+            raise NotImplementedError(
+                f"mesh mode on a token model ({spec.arch}) is not ported "
+                "(ROADMAP §1 item 7: token cells in run_grid and mesh mode)")
         if spec.mesh is not None:
             self.device = SH.join_group(spec.mesh, self.device)
         if self.device.type == "cuda":
             disable_tf32()
-        self.cfg = get_config(spec.arch)
         base_policy, _ = policy_registry.parse_policy(spec.policy)
         if base_policy not in policy_registry.list_policies():
             raise KeyError(
@@ -138,7 +143,7 @@ class Session:
         if init_units is not None:
             from repro_torch.convert import units_from_numpy
 
-            init_units = units_from_numpy(init_units, self.device)
+            init_units = units_from_numpy(init_units, self.device, self.cfg)
         self.sim = SFLEdgeSimulator(
             self.model,
             self.sampler,
@@ -173,16 +178,37 @@ class Session:
 
     def _build_data(self, spec: ExperimentSpec):
         """(train arrays, test batch, labels for non-IID sharding)."""
-        (xtr, ytr), (xte, yte) = make_cifar_like(
-            self.cfg.n_classes,
-            spec.n_train,
-            spec.n_test,
-            self.cfg.image_size,
+        if self.cfg.is_cnn:
+            (xtr, ytr), (xte, yte) = make_cifar_like(
+                self.cfg.n_classes,
+                spec.n_train,
+                spec.n_test,
+                self.cfg.image_size,
+                seed=spec.seed,
+            )
+            train = {"images": xtr, "labels": ytr}
+            test = {"images": xte, "labels": yte}
+            return train, test, ytr
+        if spec.partition != "iid":
+            raise ValueError(
+                "token architectures use synthetic LM data with no class "
+                "labels; only partition='iid' is supported"
+            )
+        tokens, labels = make_lm_data(
+            self.cfg.vocab_size,
+            spec.n_train + spec.n_test,
+            spec.seq_len,
             seed=spec.seed,
         )
-        train = {"images": xtr, "labels": ytr}
-        test = {"images": xte, "labels": yte}
-        return train, test, ytr
+        train = {
+            "tokens": tokens[: spec.n_train],
+            "labels": labels[: spec.n_train],
+        }
+        test = {
+            "tokens": tokens[spec.n_train :],
+            "labels": labels[spec.n_train :],
+        }
+        return train, test, None
 
     @property
     def plane(self):
@@ -361,6 +387,13 @@ class Session:
         """
         if runner not in (None, "grid", "sequential", "auto"):
             raise ValueError(f"unknown runner {runner!r}")
+        for s in specs:
+            arch = (s.spec if isinstance(s, Session) else s).arch
+            if not get_config(arch).is_cnn:
+                raise NotImplementedError(
+                    f"token cells ({arch}) in run_grid are not ported "
+                    "(ROADMAP §1 item 7: token cells in run_grid and mesh "
+                    "mode); run each with Session(spec).run()")
         if runner == "auto":
             if any(isinstance(s, Session) for s in specs):
                 raise ValueError(

@@ -3,9 +3,11 @@
 The reference initializes with ``jax.random.PRNGKey`` draws that torch
 cannot reproduce, so parity runs hand the reference's weights to the port
 as numpy: the CNN unit list (``[{name: np.ndarray}, ...]``, conv units
-with an optional nested ``"proj"`` dict) through `units_from_numpy`, and
-the token models' nested dict (``{"embed", "stack": {"l0": {"b0": ...}},
-"final_norm"}``, leaves ``[R, ...]``-stacked) through `params_from_numpy`.
+with an optional nested ``"proj"`` dict) and the token models' unit list
+through `units_from_numpy`, and the token models' nested dict (``{"embed",
+"stack": {"l0": {"b0": ...}}, "final_norm"}``, leaves ``[R, ...]``-stacked)
+and the SPMD step's ``{"client"}`` / ``{"server"}`` trees (the same leaf
+names, client leaves ``[N, c, ...]``) through `params_from_numpy`.
 """
 from __future__ import annotations
 
@@ -22,12 +24,27 @@ FP32_LEAVES = frozenset({"w_if", "b_if", "w_zifo", "r_zifo", "b_zifo",
                          "b_dt", "a_log", "d_skip"})
 
 
-def units_from_numpy(units, device) -> list:
-    """Unit list of arrays -> unit list of fp32 tensors on ``device``
-    (always copies)."""
-    return tree_map(
-        lambda a: torch.tensor(np.array(a, dtype=np.float32), device=device),
-        list(units))
+def units_from_numpy(units, device, cfg=None) -> list:
+    """Unit list of arrays -> unit list of tensors on ``device`` (always
+    copies): fp32 leaves for a CNN (or no ``cfg``); for a token model
+    (``[{"embed"}, rep_1 .. rep_R, {"final_norm"[, "head"]}]``, the
+    reference's `core.split.to_units`) each leaf takes the type the
+    model's init gives it (`_leaf_dtype`: ``cfg.dtype``, norm scales and
+    `FP32_LEAVES` fp32)."""
+    if cfg is None or cfg.is_cnn:
+        return tree_map(
+            lambda a: torch.tensor(np.array(a, dtype=np.float32),
+                                   device=device), list(units))
+    return [_named_map(lambda name, a: _tensor(a, device, cfg, name), u)
+            for u in units]
+
+
+def _tensor(a, device, cfg, name: str) -> torch.Tensor:
+    from repro_torch.models.transformer import torch_dtype
+
+    return torch.tensor(np.asarray(a, dtype=np.float32), device=device).to(
+        _leaf_dtype(name, torch_dtype(cfg)))
+
 
 
 def units_to_numpy(units) -> list:
@@ -56,14 +73,7 @@ def params_from_numpy(tree, cfg, device) -> dict:
     ``cfg.dtype``, as the model's init does.
     Always copies.
     """
-    from repro_torch.models.transformer import torch_dtype
-
-    dtype = torch_dtype(cfg)
-    return _named_map(
-        lambda name, a: torch.tensor(np.asarray(a, dtype=np.float32),
-                                     device=device).to(_leaf_dtype(name,
-                                                                   dtype)),
-        tree)
+    return _named_map(lambda name, a: _tensor(a, device, cfg, name), tree)
 
 
 def params_to_numpy(params) -> dict:

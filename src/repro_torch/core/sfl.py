@@ -34,6 +34,11 @@ slice of the stacked units, replicates the host plane, and combines the
 Eq. 4/7 mean across ranks (`core.split.two_tier_common`); the clock
 follows the tiered Eq. 28-39 model and an optional `mesh.CohortBank`
 rotates a logical population through the resident slots.
+
+A token arch runs the same scheduler on its unit list (embedding, one
+unit a super-block repetition, head) through the model's client-stacked
+``stacked_loss``; its eval is per token.  `make_hasfl_train_step` is the
+reference's SPMD HASFL step on one device.
 """
 from __future__ import annotations
 
@@ -50,6 +55,7 @@ from repro_torch.core.profiles import LayerProfile
 from repro_torch.data.pipeline import DeviceClientStore
 from repro_torch.device import resolve
 from repro_torch.models.factory import Model
+from repro_torch.training.optim import make_optimizer
 from repro_torch.utils.cells import by_cell
 from repro_torch.utils.tree import tree_leaves, tree_map
 
@@ -78,6 +84,9 @@ class SimResult:
             if max(acc[k - window:k + 1]) - acc[k - window] < tol:
                 return self.clock[k]
         return self.clock[-1] if self.clock else float("inf")
+
+
+EVAL_LOGITS = 1 << 28   # fp32 logits a chunk of a token model's eval
 
 
 def clip_scale_from_norm(norm, clip: float):
@@ -181,8 +190,9 @@ class SFLEdgeSimulator:
             gen = torch.Generator().manual_seed(seed)
             params = model.init(gen, self.device)
         else:
-            params = tree_map(lambda a: a.to(self.device, torch.float32),
-                              list(init_units))
+            # each leaf keeps its type (a token model's bf16 weights)
+            params = SP.from_units(self.cfg, tree_map(
+                lambda a: a.to(self.device), list(init_units)))
         self.units, self.rebuild = SP.to_units(self.cfg, params)
         self._segment_fn = self._run_segment
         self.n_local = self.n
@@ -213,23 +223,47 @@ class SFLEdgeSimulator:
         """((loss, aux), clipped grads) of the single-model loss at
         ``units`` on a host ``batch`` — what the HASFL controller's online
         G²/σ² estimate reads."""
-        params = _with_grad(self.rebuild(units))
+        units = _with_grad(list(units))
         batch = {k: torch.as_tensor(np.asarray(v)).to(self.device)
                  for k, v in batch.items()}
-        loss, aux = self.model.loss(params, batch)
+        loss, aux = self.model.loss(self.rebuild(units), batch)
         loss.backward()
-        grads = tree_map(lambda a: a.grad, params)
+        grads = tree_map(lambda a: a.grad, units)
         return ((loss.detach(), aux),
                 clip_by_global_norm(grads, self.sfl.clip_norm))
 
     @torch.no_grad()
     def _eval(self, units, batch):
-        logits, _ = self.model.apply(self.rebuild(units), batch)
+        """(mean test loss, accuracy) of one model: per image, or per
+        token for a token model's ``[B, S, V]`` logits.  A token model's
+        test set goes through the model `EVAL_LOGITS` logits at a time
+        (whole sequences; at least one), the sums added chunk by chunk:
+        smollm-135m's 512 × 128 test tokens are 12.9 GB of fp32 logits at
+        once."""
+        params = self.rebuild(units)
+        labels = batch["labels"]
+        if labels.dim() == 1:
+            return self._eval_terms(params, batch)
+        per_row = labels[0].numel() * self.cfg.vocab_size
+        step = max(1, EVAL_LOGITS // per_row)
+        loss = acc = 0.0
+        for r0 in range(0, labels.shape[0], step):
+            part = {k: v[r0:r0 + step] for k, v in batch.items()}
+            lc, ac = self._eval_terms(params, part, mean=False)
+            loss, acc = loss + lc, acc + ac
+        return loss / labels.numel(), acc / labels.numel()
+
+    def _eval_terms(self, params, batch, mean: bool = True):
+        """The (loss, accuracy) means of ``batch`` — or, with ``mean``
+        off, their sums."""
+        logits, _ = self.model.apply(params, batch)
         labels = batch["labels"].long()
-        acc = (logits.argmax(-1) == labels).float().mean()
+        hit = (logits.argmax(-1) == labels).float()
         logp = torch.log_softmax(logits.float(), dim=-1)
-        loss = -torch.gather(logp, 1, labels[:, None]).mean()
-        return loss, acc
+        nll = -torch.gather(logp, -1, labels[..., None])
+        if mean:
+            return nll.mean(), hit.mean()
+        return nll.sum(), hit.sum()
 
     # -- unit-space helpers ---------------------------------------------------
     def _unit_cuts(self, cuts_layers: np.ndarray) -> np.ndarray:
@@ -248,7 +282,8 @@ class SFLEdgeSimulator:
         and the clip norms then run cell by cell
         (`utils.cells.by_cell`)."""
         leaves = _with_grad(stacked)
-        cell = None if cells == 1 else leaves[0]["w"].shape[0] // cells
+        cell = None if cells == 1 \
+            else tree_leaves(leaves[0])[0].shape[0] // cells
         losses = self.model.stacked_loss(leaves, batch, cell_size=cell)
         losses.sum().backward()
         grads = tree_map(lambda a: a.grad, leaves)
@@ -599,3 +634,87 @@ class SFLEdgeSimulator:
                 return [tree_map(lambda a: a.index_select(0, sel)
                                  .mean(dim=0), u) for u in self._stacked]
         return SP.mean_unit_trees(self._stacked)
+
+
+# ---------------------------------------------------------------------------
+# SPMD HASFL train step (one device)
+# ---------------------------------------------------------------------------
+
+def make_hasfl_train_step(
+    model: Model, *, n_clients: int, cut_reps: int,
+    agg_interval: int, optimizer_name: str = "adam",
+    lr: float = 3e-4, optimizer_dtype: str = "float32",
+    grad_accum: int = 1, remat: bool = True,
+):
+    """Build ``(init_state, train_step)``: the reference's
+    `repro.core.sfl.make_hasfl_train_step` on one device (its GSPMD
+    arguments — ``shard_fn``, ``param_shardings``, ``rep_shard_fn``,
+    ``unroll`` — are left out; ROADMAP §1 item 8).
+
+    State: ``{"client": per-client stacked prefix [N, ...], "server":
+    suffix, "opt": optimizer state, "step": int}``.  Batch: ``{"tokens",
+    "labels": [N, b, S]}`` (and an optional ``loss_mask``), on the
+    state's device.
+
+    Semantics per HASFL: the loss is `Model.split_loss` (per-client
+    prefix, one concatenated server batch), whose gradient gives the
+    server part the client mean (Eq. 4, every step); the client parts
+    take their own gradients (Eq. 5-6: ``gc * n_clients`` undoes the
+    loss's 1/N) and are averaged every ``agg_interval`` steps (Eq. 7).
+    ``grad_accum`` splits each client's batch into that many
+    micro-batches whose gradients are summed in order and scaled by
+    ``1/grad_accum``, as the reference's scan.  ``remat`` recomputes each
+    super-block in the backward.  The optimizer updates the state in
+    place (`training.optim`); ``train_step`` returns the state and
+    ``{"loss": tensor}``.
+    """
+    opt = make_optimizer(optimizer_name, lr, state_dtype=optimizer_dtype)
+
+    def init_state(gen, device=None):
+        params = model.init(gen, resolve(device))
+        client, server = SP.split_stacked(params, cut_reps)
+        client = SP.replicate_client(client, n_clients)
+        return {"client": client, "server": server,
+                "opt": opt.init({"client": client, "server": server}),
+                "step": 0}
+
+    def mean_loss(client, server, batch):
+        loss, _ = model.split_loss(client, server, batch, remat=remat)
+        return loss
+
+    def train_step(state, batch):
+        client, server = _with_grad(state["client"]), \
+            _with_grad(state["server"])
+        if grad_accum > 1:
+            loss = 0.0
+            for k in range(grad_accum):
+                mb = {key: v.reshape(v.shape[0], grad_accum,
+                                     v.shape[1] // grad_accum,
+                                     *v.shape[2:])[:, k]
+                      for key, v in batch.items()}
+                lk = mean_loss(client, server, mb)
+                lk.backward()
+                loss = loss + lk.detach()
+            scale = 1.0 / grad_accum
+            gc = tree_map(lambda a: a.grad * scale, client)
+            gs = tree_map(lambda a: a.grad * scale, server)
+            loss = loss * scale
+        else:
+            loss = mean_loss(client, server, batch)
+            loss.backward()
+            loss = loss.detach()
+            gc = tree_map(lambda a: a.grad, client)
+            gs = tree_map(lambda a: a.grad, server)
+        # mean_loss scales each client's grad by 1/N; restore per-client SGD
+        gc = tree_map(lambda g: g * n_clients, gc)
+        params = {"client": state["client"], "server": state["server"]}
+        new_params, new_opt = opt.update({"client": gc, "server": gs},
+                                         state["opt"], params, state["step"])
+        step1 = state["step"] + 1
+        # every-I aggregation of the client-stacked prefix (Eq. 7)
+        new_client = SP.aggregate_where(new_params["client"],
+                                        step1 % agg_interval == 0)
+        return {"client": new_client, "server": new_params["server"],
+                "opt": new_opt, "step": step1}, {"loss": loss}
+
+    return init_state, train_step

@@ -1,10 +1,17 @@
 """Model partitioning: cut a model's parameters into client-side and
-server-side sub-models (paper Sec. III-A).  Port of `repro.core.split`,
-CNN vocabulary.
+server-side sub-models (paper Sec. III-A).  Port of `repro.core.split`.
 
-A CNN is a list of cuttable units, one per conv/fc layer (exactly the
-paper's VGG-16 splitting); client-stacked units carry a leading ``N``
-axis, and the HASFL update is expressed once per unit over all clients.
+Two granularities:
+
+- **unit lists** (edge simulator): a model is a list of cuttable units.
+  CNNs: one unit per conv/fc layer (exactly the paper's VGG-16
+  splitting).  Token models: one unit per super-block repetition, plus
+  the embedding (always client-side — it touches raw data) and the head
+  (always server).  Client-stacked units carry a leading ``N`` axis, and
+  the HASFL update is expressed once per unit over all clients.
+- **stacked split** (SPMD path): the first ``c`` repetitions of the
+  ``[R, ...]``-stacked decoder are replicated per client ``[N, c, ...]``;
+  the rest stay a single server copy.
 """
 from __future__ import annotations
 
@@ -15,27 +22,72 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.config import ModelConfig, CNN
+from repro_torch.models.transformer import (layer_program, stack_params,
+                                            unstack_params)
 from repro_torch.utils.cells import fold, rows
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 
-def _cnn_only(cfg: ModelConfig) -> None:
-    if cfg.family != CNN:
-        raise NotImplementedError(
-            f"{cfg.family!r} unit lists are not ported yet (ROADMAP: token "
-            "models); only the CNN family is")
-
-
 def to_units(cfg: ModelConfig, params) -> Tuple[list, Callable]:
     """Returns (units, rebuild) where rebuild(units) -> params."""
-    _cnn_only(cfg)
-    return list(params), lambda us: list(us)
+    if cfg.family == CNN:
+        return list(params), lambda us: list(us)
+    program, repeats = layer_program(cfg)
+    reps = unstack_params(params["stack"], repeats)
+    head_unit = {"final_norm": params["final_norm"]}
+    if "head" in params:
+        head_unit["head"] = params["head"]
+    if cfg.is_enc_dec:
+        head_unit["enc_stack"] = params["enc_stack"]
+        head_unit["enc_final_norm"] = params["enc_final_norm"]
+    units = [{"embed": params["embed"]}] + reps + [head_unit]
+    return units, _rebuild
+
+
+def _rebuild(us: list) -> dict:
+    """A token model's parameters from its unit list."""
+    out = {
+        "embed": us[0]["embed"],
+        "stack": stack_params(us[1:-1]),
+        "final_norm": us[-1]["final_norm"],
+    }
+    if "head" in us[-1]:
+        out["head"] = us[-1]["head"]
+    if "enc_stack" in us[-1]:
+        out["enc_stack"] = us[-1]["enc_stack"]
+        out["enc_final_norm"] = us[-1]["enc_final_norm"]
+    return out
+
+
+def from_units(cfg: ModelConfig, units: list):
+    """The parameters of a unit list (what `to_units`'s rebuild gives)."""
+    return list(units) if cfg.family == CNN else _rebuild(units)
+
+
+def n_cut_units(cfg: ModelConfig, units: list) -> int:
+    """Number of valid cut positions in unit space."""
+    if cfg.family == CNN:
+        return len(units)           # cut after any layer
+    return len(units) - 2           # embed fixed client, head fixed server
 
 
 def layer_cut_to_unit_cut(cfg: ModelConfig, cut_layer: int) -> int:
     """Map a profile-granularity cut (1..L) to unit granularity."""
-    _cnn_only(cfg)
-    return cut_layer
+    if cfg.family == CNN:
+        return cut_layer
+    program, repeats = layer_program(cfg)
+    period = len(program)
+    return min(repeats, max(1, -(-cut_layer // period)))
+
+
+def split_units(units: list, cut_units: int, cfg: ModelConfig):
+    """Client keeps units [0, k); server keeps the rest.
+
+    For token models k counts *repetitions*, so the client side is
+    ``units[0 .. cut_units]`` (embedding + cut_units repetitions).
+    """
+    k = cut_units if cfg.family == CNN else cut_units + 1
+    return units[:k], units[k:]
 
 
 # ---------------------------------------------------------------------------
@@ -61,11 +113,14 @@ def mean_unit_trees(stacked: list) -> list:
 
 
 def client_unit_mask(cfg: ModelConfig, n_units: int, l_c_units: int):
-    """1.0 for client-specific (every-I) units, 0.0 for server-common:
-    the first ``l_c_units`` layers of a CNN."""
-    _cnn_only(cfg)
+    """1.0 for client-specific (every-I) units, 0.0 for server-common.
+
+    CNNs: the first ``l_c_units`` layers.  Token models: the embedding
+    plus the first ``l_c_units`` repetitions (the head unit is always
+    server).
+    """
     mask = np.zeros((n_units,), np.float32)
-    mask[:l_c_units] = 1.0
+    mask[:l_c_units + (cfg.family != CNN)] = 1.0
     return mask
 
 
@@ -132,7 +187,7 @@ def hasfl_round_update(
     in one call; inline, cell by cell on its rows, the results
     concatenated into new folded tensors.
     """
-    first = stacked[0]["w"]
+    first = tree_leaves(stacked[0])[0]
     n = first.shape[0]
     ones = torch.ones(n, device=first.device)
     if cells > 1 and group is not None:
@@ -215,3 +270,50 @@ def hasfl_round_update(
 
         new_stacked.append(tree_map(upd, p_u, g_u))
     return new_stacked
+
+
+def aggregate_where(tree, do_agg: bool):
+    """Every-I aggregation (Eq. 7): when ``do_agg``, each ``[N, ...]``
+    leaf becomes its client mean broadcast back over N (new tensors);
+    otherwise the tree is returned as it is."""
+    if not do_agg:
+        return tree
+    return tree_map(lambda a: a.mean(dim=0, keepdim=True).expand_as(a)
+                    .contiguous(), tree)
+
+
+# ---------------------------------------------------------------------------
+# Stacked split (SPMD path)
+# ---------------------------------------------------------------------------
+
+def split_stacked(params: dict, c_reps: int) -> Tuple[dict, dict]:
+    """Split token-model params at super-block repetition ``c_reps``.
+
+    client part: ``{"embed", "stack_prefix"}`` — per-client replicable.
+    server part: ``{"stack_suffix", "final_norm"[, "head"]}`` (views).
+    """
+    prefix = tree_map(lambda a: a[:c_reps], params["stack"])
+    suffix = tree_map(lambda a: a[c_reps:], params["stack"])
+    client = {"embed": params["embed"], "stack_prefix": prefix}
+    server = {k: v for k, v in params.items() if k not in ("embed", "stack")}
+    server["stack_suffix"] = suffix
+    return client, server
+
+
+def merge_stacked(client: dict, server: dict) -> dict:
+    params = {k: v for k, v in server.items() if k != "stack_suffix"}
+    params["embed"] = client["embed"]
+    params["stack"] = tree_map(lambda a, b: torch.cat([a, b], dim=0),
+                               client["stack_prefix"], server["stack_suffix"])
+    return params
+
+
+def replicate_client(client: dict, n: int) -> dict:
+    """N per-client copies along a leading client axis, each in its own
+    contiguous storage."""
+    return tree_map(lambda a: a.unsqueeze(0).repeat((n,) + (1,) * a.dim()),
+                    client)
+
+
+def mean_clients(client_stacked: dict) -> dict:
+    return tree_map(lambda a: a.mean(dim=0), client_stacked)

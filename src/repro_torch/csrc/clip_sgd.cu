@@ -44,8 +44,14 @@
 // - the per-client columns (scale, keep, weights) sit in shared memory;
 //   `any(keep)` is one __syncthreads_or;
 // - products and sums round as the plain version's separate operations do
-//   (no fused multiply-add), and the mean is a division.
+//   (no fused multiply-add), and the mean is a division;
+// - a leaf is fp32 or bf16 (the token models' units), by a per-leaf flag:
+//   a bf16 leaf is read and written as 4 bf16 (8-byte vectors, or single
+//   elements), its math is fp32 and its result is rounded once on the
+//   store, as the TPU kernel's `.astype(o_ref.dtype)`.  The per-client
+//   columns and the external mean stay fp32.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -56,12 +62,13 @@ constexpr int CAPACITY = 64;   // leaves a launch (resnet18-cifar has 42)
 constexpr int MAX_N = 4096;    // clients: 3 fp32 columns in shared memory
 
 struct Leaf {
-  float* p;          // [n, d], updated in place
-  const float* g;    // [n, d]
+  void* p;           // [n, d] fp32 or bf16, updated in place
+  const void* g;     // [n, d], p's type
   const float* c;    // [d] the external mean, or null (flat update)
   int64_t d;
   int32_t start;     // the leaf's first chunk
-  int32_t flags;     // bit 0: keep_spec; bit 1: 16-byte vectors
+  int32_t flags;     // bit 0: keep_spec; bit 1: vectors of 4 elements;
+                     // bit 2: bf16 (else fp32)
   int32_t row;       // the entry's first row of the per-client columns
 };
 
@@ -91,11 +98,36 @@ __device__ __forceinline__ void load(const float* a, float (&f)[VW]) {
 }
 
 template <int VW>
+__device__ __forceinline__ void load(const __nv_bfloat16* a, float (&f)[VW]) {
+  if constexpr (VW == 4) {
+    const uint2 v = *reinterpret_cast<const uint2*>(a);
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) f[i] = __bfloat162float(e[i]);
+  } else {
+    f[0] = __bfloat162float(*a);
+  }
+}
+
+template <int VW>
 __device__ __forceinline__ void store(float* a, const float (&f)[VW]) {
   if constexpr (VW == 4) {
     *reinterpret_cast<float4*>(a) = make_float4(f[0], f[1], f[2], f[3]);
   } else {
     *a = f[0];
+  }
+}
+
+template <int VW>
+__device__ __forceinline__ void store(__nv_bfloat16* a, const float (&f)[VW]) {
+  if constexpr (VW == 4) {
+    uint2 v;
+    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) e[i] = __float2bfloat16(f[i]);
+    *reinterpret_cast<uint2*>(a) = v;
+  } else {
+    *a = __float2bfloat16(f[0]);
   }
 }
 
@@ -106,10 +138,12 @@ __device__ __forceinline__ float sgd(float p, float g, float s, float gamma) {
 
 // Columns of one chunk where the update is elementwise: a keeping row
 // takes spec, else the external mean where `use`, else stays.
-template <int R, int V, int VW>
+template <int R, int V, int VW, typename T>
 __device__ __forceinline__ void elementwise(const Leaf& L, int64_t chunk,
                                             const float* s, const float* k,
                                             int n, float gamma, bool use) {
+  T* const P = static_cast<T*>(L.p);
+  const T* const G = static_cast<const T*>(L.g);
   int64_t col[V];
   bool ok[V];
 #pragma unroll
@@ -133,8 +167,8 @@ __device__ __forceinline__ void elementwise(const Leaf& L, int64_t chunk,
 #pragma unroll
         for (int v = 0; v < V; ++v) {
           if (ok[v]) {
-            load<VW>(L.p + base + col[v], pv[r][v]);
-            load<VW>(L.g + base + col[v], gv[r][v]);
+            load<VW>(P + base + col[v], pv[r][v]);
+            load<VW>(G + base + col[v], gv[r][v]);
           }
         }
       }
@@ -143,7 +177,7 @@ __device__ __forceinline__ void elementwise(const Leaf& L, int64_t chunk,
     for (int r = 0; r < R; ++r) {
       const int row = n0 + r;
       if (row >= n) continue;
-      float* out = L.p + static_cast<int64_t>(row) * L.d;
+      T* out = P + static_cast<int64_t>(row) * L.d;
       if (k[row] != 0.f) {
 #pragma unroll
         for (int v = 0; v < V; ++v) {
@@ -165,10 +199,12 @@ __device__ __forceinline__ void elementwise(const Leaf& L, int64_t chunk,
 
 // Columns of one chunk where no client keeps and cnt > 0: every row takes
 // sum_n(w_n * spec_n) / cnt, the sum in row order.
-template <int R, int V, int VW>
+template <int R, int V, int VW, typename T>
 __device__ __forceinline__ void mean(const Leaf& L, int64_t chunk,
                                      const float* s, const float* w, int n,
                                      float gamma, float cnt) {
+  T* const P = static_cast<T*>(L.p);
+  const T* const G = static_cast<const T*>(L.g);
   int64_t col[V];
   bool ok[V];
   float acc[V][VW];
@@ -189,8 +225,8 @@ __device__ __forceinline__ void mean(const Leaf& L, int64_t chunk,
 #pragma unroll
         for (int v = 0; v < V; ++v) {
           if (ok[v]) {
-            load<VW>(L.p + base + col[v], pv[r][v]);
-            load<VW>(L.g + base + col[v], gv[r][v]);
+            load<VW>(P + base + col[v], pv[r][v]);
+            load<VW>(G + base + col[v], gv[r][v]);
           }
         }
       }
@@ -215,25 +251,25 @@ __device__ __forceinline__ void mean(const Leaf& L, int64_t chunk,
 #pragma unroll
     for (int e = 0; e < VW; ++e) acc[v][e] = __fdiv_rn(acc[v][e], cnt);
   for (int row = 0; row < n; ++row) {
-    float* out = L.p + static_cast<int64_t>(row) * L.d;
+    T* out = P + static_cast<int64_t>(row) * L.d;
 #pragma unroll
     for (int v = 0; v < V; ++v)
       if (ok[v]) store<VW>(out + col[v], acc[v]);
   }
 }
 
-template <int R, int V, int VW>
+template <int R, int V, int VW, typename T>
 __device__ __forceinline__ void update(const Leaf& L, int64_t chunk,
                                        const float* s, const float* k,
                                        const float* w, int n, float gamma,
                                        bool any, bool use) {
   if (L.c != nullptr || any) {
-    elementwise<R, V, VW>(L, chunk, s, k, n, gamma, use);
+    elementwise<R, V, VW, T>(L, chunk, s, k, n, gamma, use);
     return;
   }
   float cnt = 0.f;
   for (int i = 0; i < n; ++i) cnt = __fadd_rn(cnt, w[i]);
-  if (cnt > 0.f) mean<R, V, VW>(L, chunk, s, w, n, gamma, cnt);
+  if (cnt > 0.f) mean<R, V, VW, T>(L, chunk, s, w, n, gamma, cnt);
   // else no survivor: every row holds p
 }
 
@@ -273,10 +309,16 @@ clip_sgd_kernel(const __grid_constant__ Table t) {
     if (!any && !use) return;  // every row holds p
   }
   const int64_t chunk = b - L.start;
-  if (L.flags & 2)
-    update<R, V, 4>(L, chunk, s, k, w, n, t.gamma, any, use);
-  else
-    update<R, V, 1>(L, chunk, s, k, w, n, t.gamma, any, use);
+  if (L.flags & 4) {
+    if (L.flags & 2)
+      update<R, V, 4, __nv_bfloat16>(L, chunk, s, k, w, n, t.gamma, any, use);
+    else
+      update<R, V, 1, __nv_bfloat16>(L, chunk, s, k, w, n, t.gamma, any, use);
+  } else if (L.flags & 2) {
+    update<R, V, 4, float>(L, chunk, s, k, w, n, t.gamma, any, use);
+  } else {
+    update<R, V, 1, float>(L, chunk, s, k, w, n, t.gamma, any, use);
+  }
 }
 
 }  // namespace

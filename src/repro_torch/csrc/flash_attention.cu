@@ -53,6 +53,11 @@
 //    combine kernel merges the splits in a fixed order (no atomics, so
 //    repeated calls are bitwise equal).  A split or warp that sees no valid
 //    key keeps m = -1e30, l = 0, acc = 0 and adds exactly 0.
+// The prefill kernels (1) and (3) also write, when asked (the training
+// forward), each row's fp32 log-sum-exp lse = m + log(l) of the scaled
+// scores, [B, Hq, Sq], from which the backward (flash_attention_bwd.cu)
+// recomputes P; serving does not ask, and its launches are unchanged.
+//
 // 3. `flash_fwd_kernel`, fp32 with Sq > 1 (the fp32 parity paths), on the
 //    CUDA cores: fp32 products have no tensor-core form without TF32, which
 //    the port's fp32 parity rule excludes.  A block owns (b, kv head, 16
@@ -113,9 +118,10 @@ __device__ __forceinline__ float warp_sum(float v) {
 template <typename T, int HD>
 __global__ void __launch_bounds__(NW * 32)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int64_t sq,
-                 int64_t sk, int64_t hq, int64_t hkv, int causal,
-                 int64_t window, int64_t sk_valid, float scale) {
+                 const T* __restrict__ v, T* __restrict__ out,
+                 float* __restrict__ lse, int64_t sq, int64_t sk, int64_t hq,
+                 int64_t hkv, int causal, int64_t window, int64_t sk_valid,
+                 float scale) {
   constexpr int C = HD / 32;    // dims per lane in the PV sum
   constexpr int KP = HD + 4;    // padded K row (float4-aligned, no conflicts)
   __shared__ __align__(16) float qs[BQ][HD];
@@ -257,14 +263,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv_l = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < C; ++c) store(orow + lane + 32 * c, acc[i][c] * inv_l);
+    if (lse != nullptr && lane == 0)
+      lse[(b * hq + head) * sq + pos] = m[i] + logf(l[i]);
   }
 }
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* out,
-           int64_t b, int64_t sq, int64_t sk, int64_t hq, int64_t hkv,
-           int causal, int64_t window, int64_t sk_valid, float scale,
-           cudaStream_t stream) {
+           float* lse, int64_t b, int64_t sq, int64_t sk, int64_t hq,
+           int64_t hkv, int causal, int64_t window, int64_t sk_valid,
+           float scale, cudaStream_t stream) {
   const int64_t tiles = (sq * (hq / hkv) + BQ - 1) / BQ;
   if (tiles > 2147483647LL || hkv > 65535 || b > 65535)
     return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -272,28 +280,28 @@ int launch(const void* q, const void* k, const void* v, void* out,
                   static_cast<unsigned>(b));
   flash_fwd_kernel<T, HD><<<grid, NW * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), sq, sk, hq, hkv, causal,
-      window, sk_valid, scale);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, sq, sk, hq, hkv,
+      causal, window, sk_valid, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch_hd(const void* q, const void* k, const void* v, void* out,
-                int64_t b, int64_t sq, int64_t sk, int64_t hq, int64_t hkv,
-                int64_t hd, int causal, int64_t window, int64_t sk_valid,
-                float scale, cudaStream_t stream) {
+                float* lse, int64_t b, int64_t sq, int64_t sk, int64_t hq,
+                int64_t hkv, int64_t hd, int causal, int64_t window,
+                int64_t sk_valid, float scale, cudaStream_t stream) {
   switch (hd) {
     case 32:
-      return launch<T, 32>(q, k, v, out, b, sq, sk, hq, hkv, causal, window,
+      return launch<T, 32>(q, k, v, out, lse, b, sq, sk, hq, hkv, causal, window,
                            sk_valid, scale, stream);
     case 64:
-      return launch<T, 64>(q, k, v, out, b, sq, sk, hq, hkv, causal, window,
+      return launch<T, 64>(q, k, v, out, lse, b, sq, sk, hq, hkv, causal, window,
                            sk_valid, scale, stream);
     case 96:
-      return launch<T, 96>(q, k, v, out, b, sq, sk, hq, hkv, causal, window,
+      return launch<T, 96>(q, k, v, out, lse, b, sq, sk, hq, hkv, causal, window,
                            sk_valid, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, out, b, sq, sk, hq, hkv, causal, window,
+      return launch<T, 128>(q, k, v, out, lse, b, sq, sk, hq, hkv, causal, window,
                             sk_valid, scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -327,9 +335,10 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
-                __nv_bfloat16* __restrict__ out, int64_t sq, int64_t sk,
-                int64_t hq, int64_t hkv, int causal, int64_t window,
-                int64_t sk_valid, float scale_log2, int64_t row_tiles) {
+                __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                int64_t sq, int64_t sk, int64_t hq, int64_t hkv, int causal,
+                int64_t window, int64_t sk_valid, float scale_log2,
+                int64_t row_tiles) {
   constexpr int HDP = hdp(HD);            // head dim as held in shared memory
   constexpr int CPR = HDP / 8;            // 16-byte chunks per row
   constexpr uint32_t Q_BYTES = ROWS * HDP * 2;
@@ -365,6 +374,9 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
       if (r >= rows) continue;
       const int64_t pos = r / group, head = hk * group + r % group;
       out[((b * sq + pos) * hq + head) * HD + e % HD] = __float2bfloat16(0.f);
+      // lse = +inf: P = exp(s - lse) is 0 for every key
+      if (lse != nullptr && e % HD == 0)
+        lse[(b * hq + head) * sq + pos] = __int_as_float(0x7f800000);
     }
     return;
   }
@@ -606,13 +618,17 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
           pack_bf16(o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
       *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * quad) = pk;
     }
+    // lse (natural units) = (m + log2 l) * ln 2, m in log2 units
+    if (lse != nullptr && quad == 0)
+      lse[(b * hq + head) * sq + pos] =
+          ((h ? m_b : m_a) + log2f(h ? l_b : l_a)) * 0.6931471805599453f;
   }
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int64_t b,
-           int64_t sq, int64_t sk, int64_t hq, int64_t hkv, int causal,
-           int64_t window, int64_t sk_valid, float scale,
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int64_t b, int64_t sq, int64_t sk, int64_t hq, int64_t hkv,
+           int causal, int64_t window, int64_t sk_valid, float scale,
            cudaStream_t stream) {
   constexpr int HDP = hdp(HD);
   constexpr int SMEM = 1024 + ROWS * HDP * 2 + 2 * STAGES * KT * HDP * 2;
@@ -633,7 +649,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int64_t b,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      sq, sk, hq, hkv, causal, window, sk_valid,
+      lse, sq, sk, hq, hkv, causal, window, sk_valid,
       scale * 1.4426950408889634f, tiles);
   return static_cast<int>(cudaGetLastError());
 }
@@ -927,47 +943,52 @@ int dispatch_hd(int64_t hd, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, out: contiguous fp32 [B, Sq, Hq, hd]; k, v: contiguous fp32
-// [B, Sk, Hkv, hd].  The CUDA-core kernel (3).  Launches on `stream`, does
-// not synchronise, returns cudaGetLastError() of the launch.
+// [B, Sk, Hkv, hd].  The CUDA-core kernel (3).  `lse`, when not null, gets
+// the fp32 log-sum-exp of each row's scaled scores, [B, Hq, Sq] (the
+// training forward; the backward recomputes P from it).  Launches on
+// `stream`, does not synchronise, returns cudaGetLastError() of the launch.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int64_t b,
                                      int64_t sq, int64_t sk, int64_t hq,
                                      int64_t hkv, int64_t hd, int64_t causal,
                                      int64_t window, int64_t sk_valid,
-                                     float scale, void* stream) {
+                                     float scale, void* lse, void* stream) {
   if (b == 0 || sq == 0 || hq == 0) return 0;
   if (hkv <= 0 || hq % hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch_hd<float>(q, k, v, out, b, sq, sk, hq, hkv, hd,
+  return dispatch_hd<float>(q, k, v, out, static_cast<float*>(lse), b, sq,
+                            sk, hq, hkv, hd,
                             causal ? 1 : 0, window, sk_valid, scale,
                             static_cast<cudaStream_t>(stream));
 }
 
-// The tensor-core kernel (1): bf16 q, k, v, out as above (16-byte aligned).
+// The tensor-core kernel (1): bf16 q, k, v, out as above (16-byte aligned),
+// `lse` as above.
 extern "C" int repro_flash_attention_tc(const void* q, const void* k,
                                         const void* v, void* out, int64_t b,
                                         int64_t sq, int64_t sk, int64_t hq,
                                         int64_t hkv, int64_t hd,
                                         int64_t causal, int64_t window,
                                         int64_t sk_valid, float scale,
-                                        void* stream) {
+                                        void* lse, void* stream) {
   if (b == 0 || sq == 0 || hq == 0) return 0;
   if (hkv <= 0 || hq % hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int c = causal ? 1 : 0;
+  float* const l = static_cast<float*>(lse);
   switch (hd) {
     case 32:
-      return tc::launch<32>(q, k, v, out, b, sq, sk, hq, hkv, c, window,
+      return tc::launch<32>(q, k, v, out, l, b, sq, sk, hq, hkv, c, window,
                             sk_valid, scale, s);
     case 64:
-      return tc::launch<64>(q, k, v, out, b, sq, sk, hq, hkv, c, window,
+      return tc::launch<64>(q, k, v, out, l, b, sq, sk, hq, hkv, c, window,
                             sk_valid, scale, s);
     case 96:
-      return tc::launch<96>(q, k, v, out, b, sq, sk, hq, hkv, c, window,
+      return tc::launch<96>(q, k, v, out, l, b, sq, sk, hq, hkv, c, window,
                             sk_valid, scale, s);
     case 128:
-      return tc::launch<128>(q, k, v, out, b, sq, sk, hq, hkv, c, window,
+      return tc::launch<128>(q, k, v, out, l, b, sq, sk, hq, hkv, c, window,
                              sk_valid, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -189,7 +189,8 @@ class DeviceClientStore:
         tensor, both on the arrays' device.  Padded rows are forced to
         exact zeros (select, not multiply: a non-finite value in the
         gathered index-0 sample must not poison padded rows), and the loss
-        mask is the row mask ([N, b]).
+        mask is the row mask in the sampler's shape convention: ``[N, b,
+        S]`` for token data, ``[N, b]`` otherwise.
         """
         batch = {}
         keep = row_mask > 0
@@ -199,5 +200,8 @@ class DeviceClientStore:
             m = keep.reshape(tuple(keep.shape) + (1,) * (g.dim() - 2))
             batch[k] = torch.where(m, g, torch.zeros((), dtype=g.dtype,
                                                      device=g.device))
-        batch["loss_mask"] = row_mask.to(torch.float32)
+        mask = row_mask.to(torch.float32)
+        if "tokens" in batch:
+            mask = mask[:, :, None].expand(batch["tokens"].shape)
+        batch["loss_mask"] = mask
         return batch

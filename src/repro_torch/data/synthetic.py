@@ -4,6 +4,10 @@
 a 10/100-class, 32x32x3 dataset on which CNNs genuinely learn (accuracy
 rises well above chance), standing in for CIFAR-10/100 in the no-network
 container (documented substitution, DESIGN.md §7).
+
+`make_lm_data`: token sequences from a sparse random bigram/skip-gram
+process — a language-model dataset with real structure so LM training loss
+decreases.
 """
 from __future__ import annotations
 
@@ -36,3 +40,24 @@ def make_cifar_like(n_classes: int = 10, n_train: int = 2000,
     xtr, ytr = sample(n_train)
     xte, yte = sample(n_test)
     return (xtr, ytr), (xte, yte)
+
+
+def make_lm_data(vocab: int = 512, n_seqs: int = 512, seq_len: int = 128,
+                 seed: int = 0):
+    """Structured token stream: a random sparse Markov chain."""
+    rng = np.random.default_rng(seed)
+    # each token has a small successor set -> learnable transitions
+    n_succ = 4
+    successors = rng.integers(0, vocab, (vocab, n_succ))
+    seqs = np.zeros((n_seqs, seq_len + 1), np.int32)
+    state = rng.integers(0, vocab, n_seqs)
+    for t in range(seq_len + 1):
+        seqs[:, t] = state
+        pick = rng.integers(0, n_succ, n_seqs)
+        state = successors[state, pick]
+        # occasional random jump for entropy
+        jump = rng.random(n_seqs) < 0.05
+        state = np.where(jump, rng.integers(0, vocab, n_seqs), state)
+    tokens = seqs[:, :-1]
+    labels = seqs[:, 1:]
+    return tokens, labels

@@ -104,7 +104,7 @@ def _build_all(out_dir: Path) -> dict:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{err}{out}")
         fn = ctypes.CDLL(str(lib)).repro_flash_attention_tc
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 9
-                       + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
@@ -147,7 +147,7 @@ def main(argv=None) -> dict:
     for name, fn in fns.items():
         def call(fn=fn):
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     b, s, s, hq, hkv, hd, 1, 0, s, scale,
+                     b, s, s, hq, hkv, hd, 1, 0, s, scale, None,
                      torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"variant {name}: CUDA error {err}")

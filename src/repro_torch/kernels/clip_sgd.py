@@ -35,9 +35,14 @@ packs them into a `ctypes` table (pointers, sizes, per-leaf flags and
 first chunks under `clip_sgd_plan`), and launches on the current raw
 stream (`launch`).
 
-What bounds it on the card: memory, 12·N·ΣD bytes (p and g read, p
-written), plus 4·ΣD for the external mean rows; rows whose result does
-not depend on p and g are not read (see the source's note).
+A leaf is fp32 or bf16 (the token models' units mix bf16 weights and
+fp32 norm scales in one round): a bf16 leaf's math is fp32 and its
+result is rounded once on the store, as the TPU kernel's
+``.astype(o_ref.dtype)``; p and g of a leaf share its type.
+
+What bounds it on the card: memory, 3·itemsize·N·ΣD bytes (p and g
+read, p written), plus 4·ΣD for the external mean rows; rows whose
+result does not depend on p and g are not read (see the source's note).
 
 `clip_sgd_plain` and `clip_sgd_ext_plain` are the plain PyTorch versions
 (the reference's ``clip_sgd_ref`` algebra), and `clip_sgd_leaves_plain`
@@ -58,6 +63,7 @@ THREADS = 256    # a block (csrc/clip_sgd.cu)
 CAPACITY = 64    # (cell, leaf) entries a launch; resnet18-cifar, the
                  # port's largest CNN by leaves, has 42
 MAX_N = 4096     # clients: three fp32 columns in a block's shared memory
+LEAF_TYPES = (torch.float32, torch.bfloat16)
 ROWS = 4         # rows a thread streams at once (1, 2, 4, 8)
 VECTORS = 1      # column vectors a thread owns in a chunk (1, 2)
 
@@ -162,16 +168,17 @@ def clip_sgd_plan(ds, aligned, vectors: int = VECTORS):
     return starts, vecs, total
 
 
-def cell_entries(leaves, keep_specs, n: int):
+def cell_entries(leaves, keep_specs, n: int, sizes):
     """The table entries ``(p, g, c, d, keep_spec, row)`` of a launch, cell
     after cell: ``leaves`` holds ``(i, p, g, c, d)`` of each non-empty
-    leaf (fp32 ``[G·n, d]`` at addresses p and g; c its external mean's or
-    0), ``keep_specs[cell][i]`` the keep flag of leaf i in a cell.  Cell
+    leaf (``[G·n, d]`` at addresses p and g; c its external mean's or 0),
+    ``sizes`` their bytes an element (4 for fp32, 2 for bf16),
+    ``keep_specs[cell][i]`` the keep flag of leaf i in a cell.  Cell
     ``g``'s entry of a leaf points at its rows ``[g·n, (g+1)·n)``."""
-    return [(pp + 4 * cell * n * d, gp + 4 * cell * n * d, cp, d,
+    return [(pp + size * cell * n * d, gp + size * cell * n * d, cp, d,
              bool(keep_specs[cell][i]), cell * n)
             for cell in range(len(keep_specs))
-            for i, pp, gp, cp, d in leaves]
+            for (i, pp, gp, cp, d), size in zip(leaves, sizes)]
 
 
 def plan_code(rows: int = ROWS, vectors: int = VECTORS) -> int:
@@ -259,17 +266,19 @@ def tables(ps, gs, scale, keep_specs, participation=None, *, gamma: float,
     if commons is not None:
         cols.append(_column(use, 1, index, "use_common"))
     f32 = torch.float32
-    leaves = []
+    leaves, sizes = [], []
     for i, (p, g) in enumerate(zip(ps, gs)):
         shape = p.shape   # get_device() is -1 on the CPU
         if (p.get_device() != index or g.get_device() != index
-                or p.dtype is not f32 or g.dtype is not f32
+                or p.dtype not in LEAF_TYPES or g.dtype is not p.dtype
+                or (commons is not None and p.dtype is not f32)
                 or len(shape) != 2 or shape[0] != rows_all
                 or g.shape != shape
                 or not (p.is_contiguous() and g.is_contiguous())):
             raise ValueError(
-                f"clip_sgd takes contiguous fp32 [N={rows_all}, D] p and g "
-                f"of one shape on cuda:{index}; leaf {i}: {p.dtype} "
+                f"clip_sgd takes contiguous [N={rows_all}, D] p and g of one "
+                f"shape and type (fp32 or bf16; fp32 with an external mean) "
+                f"on cuda:{index}; leaf {i}: {p.dtype} "
                 f"{tuple(shape)} on {p.device}, {g.dtype} {tuple(g.shape)} "
                 f"on {g.device}")
         d = shape[1]
@@ -284,7 +293,9 @@ def tables(ps, gs, scale, keep_specs, participation=None, *, gamma: float,
                                  f"fp32 [{d}] on cuda:{index}")
             cp = c.data_ptr()
         leaves.append((i, p.data_ptr(), g.data_ptr(), cp, d))
-    entries = cell_entries(leaves, keep_specs, n)
+        sizes.append(p.element_size())
+    entries = cell_entries(leaves, keep_specs, n, sizes)
+    bf16 = [size == 2 for _ in keep_specs for size in sizes]
     aligned = [not (pp | gp | cp) & 15 for pp, gp, cp, *_ in entries]
     out = []
     ptr = [c.data_ptr() for c in cols]
@@ -296,8 +307,9 @@ def tables(ps, gs, scale, keep_specs, participation=None, *, gamma: float,
         starts, vecs, chunks = clip_sgd_plan(
             [e[3] for e in part], aligned[lo:lo + CAPACITY], vectors)
         table = (Leaf * CAPACITY)(*[
-            (pp, gp, cp or None, d, s, ks | v << 1, row)
-            for (pp, gp, cp, d, ks, row), s, v in zip(part, starts, vecs)])
+            (pp, gp, cp or None, d, s, ks | v << 1 | bf << 2, row)
+            for (pp, gp, cp, d, ks, row), s, v, bf
+            in zip(part, starts, vecs, bf16[lo:lo + CAPACITY])])
         out.append(Table(table, ptr[0], w, k, u, gamma, n, len(part),
                          chunks, use_is_count))
     return out, cols
@@ -321,7 +333,7 @@ def clip_sgd_leaves_kernel(ps, gs, scale, keep_specs, participation=None, *,
                            cells=1):
     """A round's update on the card, in one launch a `CAPACITY` entries
     (leaves, or (cell, leaf) pairs with ``cells``): updates the contiguous
-    fp32 CUDA leaves ``ps`` (``[N, D_i]``, or ``[G·N, D_i]``) in place and
+    fp32 or bf16 CUDA leaves ``ps`` (``[N, D_i]``, or ``[G·N, D_i]``) in place and
     returns them.  The arguments are `clip_sgd_leaves_plain`'s; ``count``
     (with ``commons``) stays on the device (no host sync).  Launches count
     on `clip_sgd_kernel` (flat) or `clip_sgd_ext_kernel` (external

@@ -40,8 +40,26 @@ wrapper picks one of three kernels by the inputs, and counts each path:
   products have no tensor-core form without TF32, which the port's fp32
   parity rule excludes.
 
+The training forward asks the prefill kernels for each row's fp32
+log-sum-exp ``lse [B, Hq, Sq]`` (``m + log l`` at finalize, in both the
+tensor-core and the fp32 kernel); serving does not, and its launches are
+unchanged.  The backward (`flash_attention_bwd_kernel`,
+``csrc/flash_attention_bwd.cu``) recomputes ``P = exp(scale·QKᵀ − lse)``
+tile by tile and returns dQ, dK, dV: ``D = rowsum(dO∘O)``, a dK/dV kernel
+with one block per (batch, kv head, key tile) that loops over the group's
+q heads and the live Q tiles (GQA's sum inside the block), and a dQ kernel
+with one block per (batch, q head, row tile); bf16 on the tensor cores
+(``mma.sync``, fp32 accumulators, P and dS rounded to bf16 for the three
+products), fp32 on the CUDA cores in fp32; no atomics (bitwise
+repeatable).  One call
+(three launches) counts one launch.  ``sk_valid`` stays decode-only: the
+backward refuses it.  `FlashAttentionFn` is the autograd `Function`
+(forward: the kernel with ``lse``; backward: this kernel), which
+`kernels.ops.flash_attention` takes when an input requires grad.
+
 `flash_attention_plain` is the plain PyTorch version (CPU tensors and
-tests): the naive attention with the same masks.
+tests): the naive attention with the same masks; `flash_attention_bwd_plain`
+the backward's formula in plain torch ops (tests).
 """
 from __future__ import annotations
 
@@ -59,25 +77,62 @@ HEAD_DIMS = (32, 64, 96, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _visible(sq: int, sk: int, causal: bool, window: int, sk_valid, device):
+    """[Sq, Sk] bool: key j counts for query i."""
+    q_pos = torch.arange(sq, device=device)[:, None]
+    k_pos = torch.arange(sk, device=device)[None, :]
+    ok = k_pos < (sk if sk_valid is None else sk_valid)
+    if causal:
+        ok = ok & (k_pos <= q_pos)
+    if window:
+        ok = ok & (k_pos > q_pos - window)
+    return ok
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                          sk_valid=None):
-    """Naive attention with the kernel's masks; fp32 math, out in q's type."""
+                          sk_valid=None, lse: bool = False):
+    """Naive attention with the kernel's masks; fp32 math, out in q's type
+    (and, with ``lse``, each row's fp32 log-sum-exp ``[B, Hq, Sq]``)."""
     b, sq, hq, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     kf = k.float().repeat_interleave(hq // hkv, dim=2)
     vf = v.float().repeat_interleave(hq // hkv, dim=2)
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) \
         * (1.0 / math.sqrt(hd))
-    q_pos = torch.arange(sq, device=q.device)[:, None]
-    k_pos = torch.arange(sk, device=q.device)[None, :]
-    ok = k_pos < (sk if sk_valid is None else sk_valid)
-    if causal:
-        ok = ok & (k_pos <= q_pos)
-    if window:
-        ok = ok & (k_pos > q_pos - window)
+    ok = _visible(sq, sk, causal, window, sk_valid, q.device)
     scores = scores + torch.where(ok, 0.0, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(q.dtype)
+    return (out, torch.logsumexp(scores, dim=-1)) if lse else out
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
+                              window: int = 0):
+    """The backward's formula in plain torch ops, fp32: ``P = exp(scale·
+    QKᵀ − lse)`` (0 where masked), ``D = rowsum(dO∘O)``, ``dV = Pᵀ dO``,
+    ``dS = P∘(dO Vᵀ − D)``, ``dQ = scale·dS K``, ``dK = scale·dSᵀ Q``, the
+    GQA group summed; returns (dq, dk, dv) in the inputs' type."""
+    b, sq, hq, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(hd)
+    qf, dof, of = q.float(), do.float(), o.float()
+    kf = k.float().repeat_interleave(g, dim=2)
+    vf = v.float().repeat_interleave(g, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    ok = _visible(sq, sk, causal, window, None, q.device)
+    p = torch.where(ok, torch.exp(s - lse[..., None]), 0.0)
+    dvec = (dof * of).sum(dim=-1).transpose(1, 2)           # [B, Hq, Sq]
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - dvec[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+
+    def fold(t):   # the GQA group's heads summed onto their kv head
+        return t.reshape(b, sk, hkv, g, hd).sum(dim=3)
+
+    return dq.to(q.dtype), fold(dk).to(k.dtype), fold(dv).to(v.dtype)
 
 
 DECODE_TILE = 32      # keys per tile of the split-KV kernel
@@ -119,7 +174,8 @@ def _symbols():
                      lib.repro_flash_decode)
     simt.argtypes = tc.argtypes = ([ctypes.c_void_p] * 4
                                    + [ctypes.c_int64] * 9
-                                   + [ctypes.c_float, ctypes.c_void_p])
+                                   + [ctypes.c_float, ctypes.c_void_p,
+                                      ctypes.c_void_p])
     dec.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 9
                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     for fn in (simt, tc, dec):
@@ -127,20 +183,15 @@ def _symbols():
     return simt, tc, dec
 
 
-def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
-                           sk_valid=None):
-    """Attention on the card.  q ``[B, Sq, Hq, hd]``, k/v ``[B, Sk, Hkv,
-    hd]``, contiguous and 16-byte aligned, all fp32 or all bf16, hd in
-    32/64/96/128; ``sk_valid`` a Python int in ``[0, Sk]``.  Returns a new
-    tensor in q's type; raises on anything else and on a refused launch.
-    One call is one counted launch (``launches``), and one of the path
-    counts ``launches_tc``, ``launches_split_kv``, ``launches_fp32``."""
+def _check(q, k, v, name: str):
+    """(b, sq, hq, hd, sk, hkv) of a kernel call; raises on what the
+    kernels do not take."""
     dev, dt = q.device, q.dtype
     if dev.type != "cuda" or k.device != dev or v.device != dev:
-        raise ValueError("flash_attention_kernel takes CUDA tensors on one "
+        raise ValueError(f"{name} takes CUDA tensors on one "
                          f"device, got {dev}, {k.device}, {v.device}")
     if dt not in _DTYPES or k.dtype != dt or v.dtype != dt:
-        raise ValueError("flash_attention_kernel takes q, k, v all fp32 or "
+        raise ValueError(f"{name} takes q, k, v all fp32 or "
                          f"all bf16, got {dt}, {k.dtype}, {v.dtype}")
     qs, ks = q.shape, k.shape
     if len(qs) != 4 or len(ks) != 4 or ks != v.shape or ks[0] != qs[0] \
@@ -148,25 +199,42 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"shapes q{tuple(qs)} k{tuple(ks)} "
                          f"v{tuple(v.shape)} are not [B,Sq,Hq,hd] and "
                          "[B,Sk,Hkv,hd] with Hkv dividing Hq")
-    b, sq, hq, hd = qs
-    sk, hkv = ks[1], ks[2]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_kernel takes hd in {HEAD_DIMS}, "
-                         f"got {hd}")
+    if qs[3] not in HEAD_DIMS:
+        raise ValueError(f"{name} takes hd in {HEAD_DIMS}, got {qs[3]}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention_kernel takes contiguous tensors")
+        raise ValueError(f"{name} takes contiguous tensors")
+    if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
+        raise ValueError(f"{name} reads q, k and v in 16-byte vectors: "
+                         "their data must be 16-byte aligned")
+    return (*qs, ks[1], ks[2])
+
+
+def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
+                           sk_valid=None, lse: bool = False):
+    """Attention on the card.  q ``[B, Sq, Hq, hd]``, k/v ``[B, Sk, Hkv,
+    hd]``, contiguous and 16-byte aligned, all fp32 or all bf16, hd in
+    32/64/96/128; ``sk_valid`` a Python int in ``[0, Sk]``.  Returns a new
+    tensor in q's type — with ``lse`` (prefill only), ``(out, lse)``, the
+    rows' fp32 log-sum-exp ``[B, Hq, Sq]`` — and raises on anything else
+    and on a refused launch.  One call is one counted launch
+    (``launches``), and one of the path counts ``launches_tc``,
+    ``launches_split_kv``, ``launches_fp32``."""
+    b, sq, hq, hd, sk, hkv = _check(q, k, v, "flash_attention_kernel")
+    dt = q.dtype
     qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
-    if (qp | kp | vp) % 16:
-        raise ValueError("flash_attention_kernel reads q, k and v in "
-                         "16-byte vectors: their data must be 16-byte "
-                         "aligned")
     sk_valid = sk if sk_valid is None else int(sk_valid)
     if not 0 <= sk_valid <= sk or window < 0:
         raise ValueError(f"sk_valid {sk_valid} outside [0, {sk}] or window "
                          f"{window} < 0")
+    if lse and sq == 1:
+        raise ValueError("flash_attention_kernel writes lse on the prefill "
+                         "paths (Sq > 1) only")
     out = torch.empty_like(q)
+    lse_t = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) \
+        if lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse_t) if lse else out
+    lp = lse_t.data_ptr() if lse else None
     simt, tc, dec = _symbols()
     scale = 1.0 / math.sqrt(hd)
     fn = flash_attention_kernel
@@ -186,11 +254,11 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
         elif dt == torch.bfloat16:
             path = "tc"
             err = tc(qp, kp, vp, out.data_ptr(), b, sq, sk, hq, hkv, hd,
-                     int(causal), int(window), sk_valid, scale, stream)
+                     int(causal), int(window), sk_valid, scale, lp, stream)
         else:
             path = "fp32"
             err = simt(qp, kp, vp, out.data_ptr(), b, sq, sk, hq, hkv, hd,
-                       int(causal), int(window), sk_valid, scale, stream)
+                       int(causal), int(window), sk_valid, scale, lp, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel ({path}) launch failed: "
                            f"CUDA error {err} at q{tuple(q.shape)} "
@@ -202,7 +270,79 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
         fn.launches_tc += 1
     else:
         fn.launches_fp32 += 1
-    return out
+    return (out, lse_t) if lse else out
+
+
+@functools.lru_cache(maxsize=1)
+def _bwd_symbol():
+    fn = build.load("flash_attention_bwd").repro_flash_attention_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int64] * 8
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention_bwd_kernel(q, k, v, o, lse, do, *, causal: bool = True,
+                               window: int = 0):
+    """dQ, dK, dV on the card from the forward's ``o`` and ``lse`` and the
+    output gradient ``do`` (q's shape and type).  Takes what the forward
+    takes, without ``sk_valid``; raises on anything else and on a refused
+    launch.  One call (three launches) is one counted launch."""
+    b, sq, hq, hd, sk, hkv = _check(q, k, v, "flash_attention_bwd_kernel")
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
+            or do.dtype != q.dtype or not (o.is_contiguous()
+                                           and do.is_contiguous()) \
+            or (o.data_ptr() | do.data_ptr()) % 16:
+        raise ValueError("o and do must be contiguous, 16-byte aligned, "
+                         "of q's shape and type")
+    if lse.shape != (b, hq, sq) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous fp32 [{b}, {hq}, {sq}]")
+    if window < 0:
+        raise ValueError(f"window {window} < 0")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    ws = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    index = q.device.index
+    with device_scope(index):
+        err = _bwd_symbol()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), ws.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, sq, sk, hq, hkv, hd,
+            int(causal), int(window), 1.0 / math.sqrt(hd),
+            _DTYPES[q.dtype], raw_stream(index))
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward launch failed: CUDA "
+                           f"error {err} at q{tuple(q.shape)} "
+                           f"k{tuple(k.shape)} {q.dtype}")
+    flash_attention_bwd_kernel.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_kernel.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with the hand-written forward (with ``lse``) and backward
+    kernels; ``apply(q, k, v, causal, window)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = flash_attention_kernel(q, k, v, causal=causal,
+                                          window=window, lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_kernel(
+            q, k, v, out, lse, do.contiguous(), causal=ctx.causal,
+            window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 PATHS = ("tc", "split_kv", "fp32")

@@ -4,16 +4,28 @@ Counterpart of `repro.kernels.ops`.  Each op goes by the device of the
 tensors it is given: a CUDA tensor launches the hand-written kernel (or
 the launch raises), a CPU tensor runs the kernel's plain PyTorch version.
 There is no impl knob and no fallback on the card.
+
+Gradients: on the CPU the plain versions carry autograd.  On the card,
+when grad mode is on and an input requires grad, flash attention and
+RMSNorm go through their autograd `Function`s (the hand-written forward
+and backward kernels); a kernel without a backward (the mLSTM scan)
+raises instead of returning a tensor cut from the graph.
 """
 from __future__ import annotations
 
 import functools
+
+import torch
 
 from repro_torch.kernels import batched_conv as BC
 from repro_torch.kernels import clip_sgd as CS
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import mlstm_scan as MS
 from repro_torch.kernels import rmsnorm as RN
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def _on_card(t) -> bool:
@@ -72,22 +84,41 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     sk_valid=None):
     """GQA attention, q ``[B, Sq, Hq, hd]`` against k, v ``[B, Sk, Hkv,
     hd]``; keys at or past ``sk_valid`` (default ``Sk``) are masked."""
-    fn = FA.flash_attention_kernel if _on_card(q) \
-        else FA.flash_attention_plain
-    return fn(q, k, v, causal=causal, window=window, sk_valid=sk_valid)
+    if not _on_card(q):
+        return FA.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window, sk_valid=sk_valid)
+    if _needs_grad(q, k, v):
+        if sk_valid is not None:
+            raise NotImplementedError(
+                "flash attention's backward takes no sk_valid (decode "
+                "only); a grad-requiring decode call is not supported")
+        return FA.FlashAttentionFn.apply(q, k, v, causal, window)
+    return FA.flash_attention_kernel(q, k, v, causal=causal, window=window,
+                                     sk_valid=sk_valid)
 
 
 def rmsnorm(x, scale, eps: float = 1e-5):
-    """``x · rsqrt(mean(x²) + eps) · scale`` over the last axis."""
-    fn = RN.rmsnorm_kernel if _on_card(x) else RN.rmsnorm_plain
-    return fn(x, scale, eps)
+    """``x · rsqrt(mean(x²) + eps) · scale`` over the last axis; ``scale``
+    ``[d]``, or ``[G, d]`` over G contiguous groups of x's rows."""
+    if not _on_card(x):
+        return RN.rmsnorm_plain(x, scale, eps)
+    if _needs_grad(x, scale):
+        return RN.RMSNormFn.apply(x, scale, eps)
+    return RN.rmsnorm_kernel(x, scale, eps)
 
 
 def mlstm_scan(q, k, v, i_gate, f_gate):
     """The mLSTM recurrence from an empty state; q, k, v ``[B, S, H, hd]``,
-    gate pre-activations ``[B, S, H]``."""
-    fn = MS.mlstm_scan_kernel if _on_card(q) else MS.mlstm_scan_plain
-    return fn(q, k, v, i_gate, f_gate)
+    gate pre-activations ``[B, S, H]``.  On the card it has no backward:
+    a grad-requiring input raises (ROADMAP: xlstm training)."""
+    if not _on_card(q):
+        return MS.mlstm_scan_plain(q, k, v, i_gate, f_gate)
+    if _needs_grad(q, k, v, i_gate, f_gate):
+        raise NotImplementedError(
+            "the mLSTM scan kernel has no backward; differentiating through "
+            "it on the card is not ported (ROADMAP §1 item 7: xlstm "
+            "training, a backward for kernel 6)")
+    return MS.mlstm_scan_kernel(q, k, v, i_gate, f_gate)
 
 
 KERNELS = {
@@ -95,7 +126,9 @@ KERNELS = {
     "clip_sgd": CS.clip_sgd_kernel,
     "clip_sgd_ext": CS.clip_sgd_ext_kernel,
     "flash_attention": FA.flash_attention_kernel,
+    "flash_attention_bwd": FA.flash_attention_bwd_kernel,
     "rmsnorm": RN.rmsnorm_kernel,
+    "rmsnorm_bwd": RN.rmsnorm_bwd_kernel,
     "mlstm_scan": MS.mlstm_scan_kernel,
 }
 

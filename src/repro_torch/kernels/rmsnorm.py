@@ -23,7 +23,24 @@ needs, allocates once, caches the plan and the ``ctypes`` symbol, reads
 the raw stream handle and enters no device context when the card is
 current (`launch`).  One call is one launch; the qwen3 forward runs 113.
 
-`rmsnorm_plain` is the plain PyTorch version (CPU tensors and tests).
+The scale is ``[d]`` (serving) or ``[G, d]``: the rows then fall into G
+contiguous groups, each taking its own scale row — the client-stacked
+training forward, where every client has its own norm (``[N, b, S, d]``
+rows against an ``[N, d]`` scale; qwen3's qk-norm over ``[N, b, S, H,
+hd]``).
+
+The backward (`rmsnorm_bwd_kernel`, ``csrc/rmsnorm.cu``'s
+``repro_rmsnorm_bwd``) computes in fp32, as the reference's jnp
+``rmsnorm`` is differentiated: with ``r = 1/sqrt(mean(x²) + eps)``,
+``dx = r·(dy∘s) − x·r³·mean(dy∘s∘x)`` in x's type and ``dscale`` the
+per-group sum of ``dy∘x·r`` in fp32, as per-block partial sums reduced
+in a fixed order (no atomics: repeated calls are bitwise equal).  Three
+launches a call, counted as one.  `RMSNormFn` is the autograd
+`Function` whose forward is the kernel and whose backward is this one;
+`kernels.ops.rmsnorm` takes it when an input requires grad.
+
+`rmsnorm_plain` and `rmsnorm_bwd_plain` are the plain PyTorch versions
+(CPU tensors and tests).
 """
 from __future__ import annotations
 
@@ -38,11 +55,33 @@ from repro_torch.kernels.launch import device_scope, raw_stream
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _grouped(t, scale):
+    """``t [..., d]`` as ``[G, rows/G, d]`` and the scale as ``[G, 1, d]``
+    (G = 1 for a ``[d]`` scale)."""
+    s = scale.float().reshape(-1, 1, scale.shape[-1])
+    return t.reshape(s.shape[0], -1, t.shape[-1]), s
+
+
 def rmsnorm_plain(x, scale, eps: float = 1e-5):
-    """``x: [..., d]``, ``scale: [d]`` -> ``[..., d]`` in x's type."""
+    """``x: [..., d]``, ``scale: [d]`` or ``[G, d]`` (rows grouped
+    contiguously) -> ``[..., d]`` in x's type."""
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+    y, s = _grouped(xf * torch.rsqrt(var + eps), scale)
+    return (y * s).reshape(x.shape).to(x.dtype)
+
+
+def rmsnorm_bwd_plain(x, scale, dy, eps: float = 1e-5):
+    """The backward's formula in plain torch ops (tests): ``(dx in x's
+    type, dscale fp32 in scale's shape)``."""
+    xf, gf = x.float(), dy.float()
+    r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    g3, s = _grouped(gf, scale)
+    gs = (g3 * s).reshape(x.shape)
+    dx = r * gs - xf * r ** 3 * (gs * xf).mean(dim=-1, keepdim=True)
+    n3, _ = _grouped(xf * r, scale)
+    dscale = (g3 * n3).sum(dim=1).reshape(scale.shape)
+    return dx.to(x.dtype), dscale
 
 
 THREADS_TO_FILL = 132 * 128   # a quarter of the H100's resident threads
@@ -88,40 +127,50 @@ def _code(rows: int, d: int, dtype: int, itemsize: int, aligned: bool):
 @functools.lru_cache(maxsize=1)
 def _symbol():
     fn = build.load("rmsnorm").repro_rmsnorm
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def rmsnorm_kernel(x, scale, eps: float = 1e-5):
-    """RMSNorm on the card.  ``x``: contiguous ``[..., d]`` fp32 or bf16;
-    ``scale``: contiguous fp32 ``[d]`` on the same device.  Returns a new
-    tensor in x's type; raises on anything else and on a refused launch."""
+def _checked(x, scale, name: str):
+    """(type code, d, rows, rows a scale row) of a kernel call; raises on
+    what the kernels do not take."""
     dev = x.device
     if dev.type != "cuda" or scale.device != dev:
-        raise ValueError("rmsnorm_kernel takes CUDA tensors on one device, "
+        raise ValueError(f"{name} takes CUDA tensors on one device, "
                          f"got {dev} and {scale.device}")
     dtype = _DTYPES.get(x.dtype)
     if dtype is None or scale.dtype != torch.float32:
-        raise ValueError(f"rmsnorm_kernel takes fp32/bf16 x and an fp32 "
+        raise ValueError(f"{name} takes fp32/bf16 x and an fp32 "
                          f"scale, got {x.dtype} and {scale.dtype}")
     d = x.shape[-1]
-    if scale.shape != (d,):
-        raise ValueError(f"scale {tuple(scale.shape)} does not match the "
-                         f"last axis of x {tuple(x.shape)}")
+    rows = x.numel() // d if d else 0
+    groups = scale.shape[0] if scale.dim() == 2 else 1
+    if scale.shape[-1] != d or scale.dim() not in (1, 2) \
+            or (rows and rows % groups):
+        raise ValueError(f"scale {tuple(scale.shape)} is not [d] or [G, d] "
+                         f"with G dividing the rows of x {tuple(x.shape)}")
     if not (x.is_contiguous() and scale.is_contiguous()):
-        raise ValueError("rmsnorm_kernel takes contiguous tensors")
+        raise ValueError(f"{name} takes contiguous tensors")
+    return dtype, d, rows, max(rows // groups, 1)
+
+
+def rmsnorm_kernel(x, scale, eps: float = 1e-5):
+    """RMSNorm on the card.  ``x``: contiguous ``[..., d]`` fp32 or bf16;
+    ``scale``: contiguous fp32 ``[d]`` or ``[G, d]`` (x's rows grouped
+    contiguously by G) on the same device.  Returns a new tensor in x's
+    type; raises on anything else and on a refused launch."""
+    dtype, d, rows, group_rows = _checked(x, scale, "rmsnorm_kernel")
     out = torch.empty_like(x)
-    n = x.numel()
-    if n == 0:
+    if rows == 0:
         return out
     xp, sp, op = x.data_ptr(), scale.data_ptr(), out.data_ptr()
-    rows = n // d
     code = _code(rows, d, dtype, x.element_size(), not (xp | sp | op) & 15)
-    index = dev.index
+    index = x.device.index
     with device_scope(index):
-        err = _symbol()(xp, sp, op, rows, d, eps, code, raw_stream(index))
+        err = _symbol()(xp, sp, op, rows, d, group_rows, eps, code,
+                        raw_stream(index))
     if err != 0:
         raise RuntimeError(f"rmsnorm kernel launch failed: CUDA error {err} "
                            f"at x{tuple(x.shape)} {x.dtype} plan {code:#x}")
@@ -130,3 +179,66 @@ def rmsnorm_kernel(x, scale, eps: float = 1e-5):
 
 
 rmsnorm_kernel.launches = 0
+
+BWD_CHUNK = 64   # rows a partial-sum block of the backward covers
+
+
+@functools.lru_cache(maxsize=1)
+def _bwd_symbol():
+    fn = build.load("rmsnorm").repro_rmsnorm_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def rmsnorm_bwd_kernel(x, scale, dy, eps: float = 1e-5):
+    """The backward on the card: ``(dx, dscale)`` of `rmsnorm_kernel`'s
+    output against ``dy`` (x's shape and type; contiguous).  ``dx`` is in
+    x's type, ``dscale`` fp32 in scale's shape.  One call (three launches)
+    is one counted launch."""
+    dtype, d, rows, group_rows = _checked(x, scale, "rmsnorm_bwd_kernel")
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device \
+            or not dy.is_contiguous():
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} must match x "
+                         f"{tuple(x.shape)} {x.dtype}, contiguous")
+    dx = torch.empty_like(x)
+    dscale = torch.empty(scale.shape, dtype=torch.float32, device=x.device)
+    if rows == 0:
+        return dx, dscale.zero_()
+    groups = rows // group_rows
+    chunks = groups * -(-group_rows // BWD_CHUNK)
+    ws = torch.empty(rows + chunks * d, dtype=torch.float32, device=x.device)
+    ptrs = (x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr())
+    aligned = not (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) & 15
+    code = _code(rows, d, dtype, x.element_size(), aligned)
+    index = x.device.index
+    with device_scope(index):
+        err = _bwd_symbol()(*ptrs, dscale.data_ptr(), ws.data_ptr(), rows, d,
+                            group_rows, eps, code, raw_stream(index))
+    if err != 0:
+        raise RuntimeError(f"rmsnorm backward launch failed: CUDA error "
+                           f"{err} at x{tuple(x.shape)} {x.dtype} plan "
+                           f"{code:#x}")
+    rmsnorm_bwd_kernel.launches += 1
+    return dx, dscale
+
+
+rmsnorm_bwd_kernel.launches = 0
+
+
+class RMSNormFn(torch.autograd.Function):
+    """RMSNorm with the hand-written forward and backward kernels."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        x, scale = x.contiguous(), scale.contiguous()
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rmsnorm_kernel(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd_kernel(x, scale, dy.contiguous(), ctx.eps)
+        return dx, dscale, None

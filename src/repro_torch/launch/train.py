@@ -1,24 +1,33 @@
-"""Training launcher (port of `repro.launch.train`, edge mode).
+"""Training launcher (port of `repro.launch.train`).
 
-``--mode edge`` runs the paper-faithful HASFL edge simulation (N
-heterogeneous clients, BS+MS controller, latency model) on a CNN through
-`repro_torch.api.Session`, with the reference's flags and defaults, plus
-``--device`` (default: the CUDA card, raising without one; ``cpu`` runs
-the plain PyTorch paths).  With ``--csv`` it writes one row per eval and
-the spec beside it (``<csv>.spec.json``), so the run is replayable.
+Two modes, with the reference's flags and defaults, plus ``--device``
+(default: the CUDA card, raising without one; ``cpu`` runs the plain
+PyTorch paths):
 
-``--mode spmd`` (the pod-style token-model step) and the ``legacy`` /
-``vectorized`` engines are not ported yet (ROADMAP.md §1): they raise
-``NotImplementedError``.
+- ``edge`` runs the paper-faithful HASFL edge simulation (N heterogeneous
+  clients, BS+MS controller, latency model) through
+  `repro_torch.api.Session`.  With ``--csv`` it writes one row per eval
+  and the spec beside it (``<csv>.spec.json``), so the run is replayable.
+- ``spmd`` runs the HASFL SPMD step (`core.sfl.make_hasfl_train_step`:
+  client-stacked prefix + server tier, Adam) on a dense token model, on
+  one device.  As in the reference, ``--reduce`` cannot be turned off
+  (the model is cut to ``--layers``/``--d-model``/``--vocab``), and the
+  default arch ``vgg9-cifar-small`` maps to ``smollm-135m``.
+
+The ``legacy`` / ``vectorized`` engines are not ported (ROADMAP.md §1):
+they raise ``NotImplementedError``, as does ``--mode spmd`` on a family
+other than the dense one.
 
 Examples:
     PYTHONPATH=src python -m repro_torch.launch.train --mode edge --arch vgg9-cifar-small --rounds 100
     PYTHONPATH=src python -m repro_torch.launch.train --mode edge --device cpu --clients 4 --rounds 12 --scenario straggler-bursts
+    PYTHONPATH=src python -m repro_torch.launch.train --mode spmd --device cpu --steps 6 --seq 32 --layers 2 --d-model 64 --clients 2 --batch 2 --eval-every 2
 """
 from __future__ import annotations
 
 import argparse
 import os
+import time
 
 
 def edge_spec(args):
@@ -68,6 +77,62 @@ def run_edge(args):
     return spec, res
 
 
+def spmd_config(args):
+    """The model configuration of an spmd-mode command line: the
+    reference's cut of ``--arch`` (``--reduce`` is always on)."""
+    from repro_torch.config import get_config, reduced
+
+    return reduced(get_config(args.arch), n_layers=args.layers,
+                   d_model=args.d_model,
+                   n_heads=max(2, args.d_model // 64),
+                   n_kv_heads=max(1, args.d_model // 128),
+                   d_ff=args.d_model * 4, vocab_size=args.vocab,
+                   head_dim=0) if args.reduce else get_config(args.arch)
+
+
+def run_spmd(args):
+    """Train with the SPMD HASFL step on synthetic LM data; returns the
+    `MetricLogger`'s rows (step, loss, steps_per_s)."""
+    import torch
+
+    from repro_torch.config import DENSE
+    from repro_torch.core.sfl import make_hasfl_train_step
+    from repro_torch.data import make_lm_data
+    from repro_torch.device import disable_tf32, resolve
+    from repro_torch.models import build_model
+    from repro_torch.training.metrics import MetricLogger
+
+    cfg = spmd_config(args)
+    if cfg.family != DENSE:
+        raise NotImplementedError(
+            f"--mode spmd trains the dense token models only; {args.arch} "
+            f"is {cfg.family!r} (ROADMAP.md §1 item 7)")
+    device = resolve(args.device)
+    if device.type == "cuda":
+        disable_tf32()
+    model = build_model(cfg)
+    n, b, s = args.clients, args.batch, args.seq
+    init_state, train_step = make_hasfl_train_step(
+        model, n_clients=n, cut_reps=max(1, args.layers // 4),
+        agg_interval=args.agg_interval, optimizer_name="adam", lr=args.lr,
+        grad_accum=args.grad_accum, remat=False)
+    state = init_state(torch.Generator().manual_seed(args.seed), device)
+    tokens, labels = make_lm_data(cfg.vocab_size, n * b * 64, s,
+                                  seed=args.seed)
+    tokens = torch.as_tensor(tokens.reshape(-1, n, b, s)).to(device)
+    labels = torch.as_tensor(labels.reshape(-1, n, b, s)).to(device)
+    log = MetricLogger(args.csv, print_every=args.eval_every)
+    t0 = time.time()
+    for t in range(args.steps):
+        i = t % tokens.shape[0]
+        state, m = train_step(state, {"tokens": tokens[i],
+                                      "labels": labels[i]})
+        log.log(t + 1, loss=float(m["loss"]),
+                steps_per_s=(t + 1) / (time.time() - t0))
+    log.close()
+    return log.rows
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=["edge", "spmd"], default="edge")
@@ -96,8 +161,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--n-train", type=int, default=2000, dest="n_train")
     ap.add_argument("--n-test", type=int, default=400, dest="n_test")
     ap.add_argument("--csv", default=None)
-    # spmd extras (parsed so the reference's command lines parse; spmd
-    # mode itself raises)
+    # spmd extras
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--layers", type=int, default=4)
@@ -112,12 +176,12 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     """Parse ``argv`` (None: the command line) and run; returns edge
-    mode's (spec, `SimResult`)."""
+    mode's (spec, `SimResult`) or spmd mode's logged rows."""
     args = parser().parse_args(argv)
     if args.mode == "spmd":
-        raise NotImplementedError(
-            "--mode spmd (token-model training) is not ported yet; see "
-            "ROADMAP.md §1 item 7")
+        if args.arch == "vgg9-cifar-small":
+            args.arch = "smollm-135m"
+        return run_spmd(args)
     if args.engine != "scan":
         raise NotImplementedError(
             f"--engine {args.engine} is not ported yet (the port runs the "

@@ -5,8 +5,11 @@ models) and every token family: ``init``, ``apply``, ``init_cache``,
 ``prefill`` and ``decode_step``.  The AUDIO family's encoder runs at
 prefill on the batch's ``frame_embeddings`` (its cross-attention K/V go
 into the cache); the VLM family merges ``patch_embeddings`` at the
-``patch_mask`` positions.  The token models' ``loss``/``split_loss`` wait
-for the training slice (ROADMAP queue 1 item 7).
+``patch_mask`` positions.  The dense token models also train: ``loss``
+(one model), ``stacked_loss`` (the simulator's client-stacked units,
+per-client losses) and ``split_loss`` (the SPMD step's client prefix and
+server suffix); every other token family raises `NotImplementedError`
+there (ROADMAP §1 item 7).
 """
 from __future__ import annotations
 
@@ -14,11 +17,13 @@ from dataclasses import dataclass
 from typing import Callable
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.config import ModelConfig, CNN, VLM
+from repro_torch.config import ModelConfig, CNN, DENSE, VLM
 from repro_torch.models import cnn as C
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.utils.tree import tree_map
 
 
 @dataclass
@@ -33,6 +38,57 @@ class Model:
     # per-client losses [N] over [N, ...]-stacked params/batches; takes
     # ``cell_size=`` (a grid's N where cells fold into the leading axis)
     stacked_loss: Callable = None
+    # HASFL split loss (client-stacked prefix, one server suffix; dense
+    # token models only)
+    split_loss: Callable = None
+
+
+# the reference's fold size of the cross-entropy (tokens of a sequence a
+# chunk), as its ``REPRO_CE_CHUNK`` default
+CE_CHUNK = 512
+# the ROADMAP line each family's training waits on
+TRAINING_LINE = {
+    "ssm": "xlstm training, a backward for kernel 6",
+    "moe": "MoE training with its lb_loss aux",
+    "hybrid": "mamba training", "audio": "whisper training",
+    "vlm": "internvl2 training"}
+
+
+def _client_embed(emb, tokens):
+    """Each client's rows of its own table: ``emb [N, V, d]``, ``tokens
+    [N, b, S]`` -> ``[N, b, S, d]``, one gather over the flattened tables."""
+    n, vocab, d = emb.shape
+    offs = torch.arange(n, device=tokens.device)[:, None, None] * vocab
+    return F.embedding(tokens.long() + offs, emb.reshape(n * vocab, d))
+
+
+def _chunked_ce(x, head, labels, mask, per_client: bool = False):
+    """Masked mean cross-entropy of ``x [..., S, d] @ head``, folded over
+    `CE_CHUNK` positions at a time (the reference's ``_chunked_ce``;
+    logits in fp32).  ``head`` is ``[d, V]``, or ``[N, d, V]`` with
+    ``x [N, b, S, d]`` and ``per_client``: then each client's own mean,
+    ``[N]``.  The mean is over the mask's ones (at least 1), or over every
+    token without a mask."""
+    s = x.shape[-2]
+    cs = min(CE_CHUNK, s)
+    if s % cs:
+        cs = s
+    lead = x.shape[0] if per_client else 1
+    nll_sum = 0.0
+    for c0 in range(0, s, cs):
+        logits = L.mm(x[..., c0:c0 + cs, :], head).float()
+        tgt = torch.gather(logits, -1,
+                           labels[..., c0:c0 + cs, None].long())[..., 0]
+        nll = torch.logsumexp(logits, dim=-1) - tgt
+        if mask is not None:
+            nll = nll * mask[..., c0:c0 + cs]
+        nll_sum = nll_sum + nll.reshape(lead, -1).sum(dim=1)
+    if mask is None:
+        total = float(labels[0].numel() if per_client else labels.numel())
+    else:
+        total = torch.clamp(mask.reshape(lead, -1).sum(dim=1), min=1.0)
+    ce = nll_sum / total
+    return ce if per_client else ce[0]
 
 
 def _merge_patches(x, patch_embeddings, patch_mask):
@@ -91,8 +147,8 @@ def _build_transformer(cfg: ModelConfig) -> Model:
         dev = params["enc_final_norm"].device
         x = torch.as_tensor(frame_embeddings, device=dev).to(dtype) \
             + _positions(s, dev)[None]
-        x = T.stack_fwd(params["enc_stack"], x, cfg, enc_prog,
-                        {"positions": torch.arange(s, device=dev)[None, :]})
+        x, _ = T.stack_fwd(params["enc_stack"], x, cfg, enc_prog,
+                           {"positions": torch.arange(s, device=dev)[None, :]})
         return L.rmsnorm(x, params["enc_final_norm"], cfg.norm_eps)
 
     def _embed_inputs(params, batch):
@@ -120,17 +176,92 @@ def _build_transformer(cfg: ModelConfig) -> Model:
         return ctx
 
     def apply(params, batch, window=None):
+        x, aux = _hidden(params, batch, window=window)
+        head = params["embed"].T if cfg.tie_embeddings else params["head"]
+        return x @ head, {"lb_loss": aux}
+
+    def _hidden(params, batch, window=None):
         tokens = batch["tokens"]
         x = _embed_inputs(params, batch)
-        x = T.stack_fwd(params["stack"], x, cfg, program,
-                        _ctx(params, batch, tokens.shape[1], x.device,
-                             window))
-        return _logits(params, x), {}
+        x, aux = T.stack_fwd(params["stack"], x, cfg, program,
+                             _ctx(params, batch, tokens.shape[1], x.device,
+                                  window))
+        return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
+
+    def _dense_only(what):
+        if cfg.family != DENSE:
+            raise NotImplementedError(
+                f"{what} of the {cfg.family!r} family ({cfg.arch_id}) is not "
+                "ported: only the dense token models train in the port "
+                f"(ROADMAP §1 item 7: {TRAINING_LINE.get(cfg.family, '')})")
 
     def loss(params, batch):
-        raise NotImplementedError(
-            "token-model training is not ported yet (ROADMAP queue 1 item 7: "
-            "loss, split_loss and the SPMD step)")
+        """Cross-entropy through `_chunked_ce` (the reference's ``loss``);
+        returns ``(ce + lb, {"ce", "lb_loss"})``."""
+        _dense_only("training")
+        x, aux = _hidden(params, batch)
+        head = params["embed"].T if cfg.tie_embeddings else params["head"]
+        ce = _chunked_ce(x, head, batch["labels"], batch.get("loss_mask"))
+        lb = 0.01 * aux / max(1, repeats)
+        return ce + lb, {"ce": ce, "lb_loss": aux}
+
+    def stacked_loss(units, batch, cell_size=None):
+        """Per-client losses ``[N]`` of the simulator's client-stacked
+        unit list (``[{"embed"}, rep_1 .. rep_R, {"final_norm"[,
+        "head"]}]``, every leaf ``[N, ...]``) on a ``[N, b, S]`` batch:
+        client i's loss is ``loss`` of its own slice — the reference's
+        vmap of ``loss`` over clients, written as one forward whose
+        products run per client (`layers.mm`), whose norms take a
+        grouped ``[N, d]`` scale and whose attention folds the clients
+        into its batch.  ``cell_size`` (the grid runner's folded cells)
+        is not taken: token cells in `run_grid` are not ported."""
+        _dense_only("training")
+        if cell_size is not None:
+            raise NotImplementedError(
+                "token cells in run_grid are not ported (ROADMAP §1 item 7)")
+        tokens = batch["tokens"]
+        s = tokens.shape[2]
+        emb = units[0]["embed"]                               # [N, V, d]
+        x = _client_embed(emb, tokens)
+        ctx = {"positions": torch.arange(s, device=x.device)[None, :]}
+        x, _ = T.stack_fwd(list(units[1:-1]), x, cfg, program, ctx)
+        head_u = units[-1]
+        x = L.rmsnorm(x, head_u["final_norm"], cfg.norm_eps)
+        head = emb.transpose(1, 2) if cfg.tie_embeddings else head_u["head"]
+        return _chunked_ce(x, head, batch["labels"], batch.get("loss_mask"),
+                           per_client=True)
+
+    def split_loss(client_stacked, server, batch, *, remat=False):
+        """HASFL split-training loss (paper Sec. III-B), as the
+        reference's: each client's embedding and prefix repetitions run
+        per client (client-stacked ``[N, c, ...]`` leaves, one product a
+        client), the server concatenates every client's activations into
+        one batch of ``N·b`` sequences and runs the suffix once.  The tied
+        head is the client-mean embedding, transposed.  Batch: tokens,
+        labels ``[N, b, S]`` (and an optional ``loss_mask``)."""
+        _dense_only("training")
+        tokens = batch["tokens"]
+        n, bsz, s = tokens.shape
+        positions = torch.arange(s, device=tokens.device)[None, :]
+        emb = client_stacked["embed"]                         # [N, V, d]
+        x = _client_embed(emb, tokens)
+        prefix = client_stacked["stack_prefix"]
+        c_reps = T.n_repeats(prefix, axis=1)
+        if c_reps:
+            reps = [tree_map(lambda a, r=r: a[:, r], prefix)
+                    for r in range(c_reps)]
+            x, _ = T.stack_fwd(reps, x, cfg, program,
+                               {"positions": positions}, remat=remat)
+        # activation hand-off: the client batches concatenated
+        x = x.reshape(n * bsz, s, x.shape[-1])
+        x, _ = T.stack_fwd(server["stack_suffix"], x, cfg, program,
+                           {"positions": positions}, remat=remat)
+        x = L.rmsnorm(x, server["final_norm"], cfg.norm_eps)
+        head = emb.mean(dim=0).T if cfg.tie_embeddings else server["head"]
+        mask = batch.get("loss_mask")
+        ce = _chunked_ce(x, head, batch["labels"].reshape(n * bsz, s),
+                         None if mask is None else mask.reshape(n * bsz, s))
+        return ce, {"ce": ce}
 
     def init_cache(batch, cache_len, window=None, device=None):
         return T.cache_init(cfg, batch, cache_len, window, device)
@@ -173,7 +304,8 @@ def _build_transformer(cfg: ModelConfig) -> Model:
                                   ctx)
         return _logits(params, x), cache
 
-    return Model(cfg, init, apply, loss, init_cache, prefill, decode_step)
+    return Model(cfg, init, apply, loss, init_cache, prefill, decode_step,
+                 stacked_loss=stacked_loss, split_loss=split_loss)
 
 
 # ---------------------------------------------------------------------------

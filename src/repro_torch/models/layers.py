@@ -43,6 +43,17 @@ def stacked_normal_init(gen, shape, scale: float, dtype, device=None):
     return w
 
 
+def mm(x, w):
+    """``x @ w`` for ``w [in, out]``; for client-stacked ``w [N, in, out]``
+    and ``x [N, ..., in]``, one product per client as a single `torch.bmm`
+    (the reference's vmap over clients)."""
+    if w.dim() == 2:
+        return x @ w
+    n = w.shape[0]
+    return torch.bmm(x.reshape(n, -1, x.shape[-1]), w).reshape(
+        *x.shape[:-1], w.shape[-1])
+
+
 def embed_init(gen, vocab: int, d: int, dtype, device=None):
     return (_normal(gen, (vocab, d), device) * 0.02).to(dtype)
 
@@ -121,8 +132,8 @@ def silu(x):
 
 
 def swiglu(params: dict, x):
-    g = silu(x @ params["w_gate"])
-    return (g * (x @ params["w_up"])) @ params["w_down"]
+    g = silu(mm(x, params["w_gate"]))
+    return mm(g * mm(x, params["w_up"]), params["w_down"])
 
 
 def gelu(x):
@@ -136,4 +147,4 @@ def gelu_mlp_init(gen, d: int, d_ff: int, dtype, device=None, lead=()) -> dict:
 
 
 def gelu_mlp(params: dict, x):
-    return gelu(x @ params["w_up"]) @ params["w_down"]
+    return mm(gelu(mm(x, params["w_up"])), params["w_down"])

@@ -15,6 +15,7 @@ sliding window), ``attn_nc`` (the encoder's non-causal self-attention),
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig, AUDIO, HYBRID, MOE, SSM
 from repro_torch.models import attention as A
@@ -130,18 +131,26 @@ def block_init(gen, kind: str, cfg: ModelConfig, device=None, lead=()) -> dict:
 # ---------------------------------------------------------------------------
 
 def _qkv(p, cfg, x, positions):
-    b, s, _ = x.shape
+    """q, k, v ``[*lead, S, H, hd]`` of ``x [*lead, S, d]``; with
+    client-stacked weights (``[N, ...]``) ``lead`` is ``(N, b)``."""
+    *lead, s, _ = x.shape
     hd = cfg.resolved_head_dim
     xn = L.rmsnorm(x, p["norm"], cfg.norm_eps)
-    q = (xn @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = (xn @ p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (xn @ p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    q = L.mm(xn, p["wq"]).reshape(*lead, s, cfg.n_heads, hd)
+    k = L.mm(xn, p["wk"]).reshape(*lead, s, cfg.n_kv_heads, hd)
+    v = L.mm(xn, p["wv"]).reshape(*lead, s, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = L.rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = L.rmsnorm(k, p["k_norm"], cfg.norm_eps)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _fold(t):
+    """``[*lead, S, H, hd]`` -> ``[prod(lead), S, H, hd]``: the client axis
+    folds into attention's batch, one kernel launch for every client."""
+    return t.reshape(-1, *t.shape[-3:])
 
 
 def _xattn_kv(p, cfg, enc):
@@ -171,15 +180,17 @@ def _moe(p, cfg, x):
 
 
 def block_fwd(kind: str, p: dict, x, cfg: ModelConfig, ctx: dict):
-    """Returns the block's delta; the caller adds the residual."""
-    b, s, _ = x.shape
+    """Returns the block's delta; the caller adds the residual.  ``attn``,
+    ``attn_nc``, ``ffn`` and ``ffn_gelu`` also take client-stacked
+    weights (leaves ``[N, ...]``) with ``x [N, b, S, d]``: the port's form
+    of the reference's vmap over clients."""
     if kind in ("attn", "attn_nc"):
         causal = kind == "attn" and cfg.causal
         q, k, v = _qkv(p, cfg, x, ctx["positions"])
         window = ctx.get("window", cfg.sliding_window)
-        o = A.attention(q, k, v, causal=causal,
+        o = A.attention(_fold(q), _fold(k), _fold(v), causal=causal,
                         window=window if causal else 0)
-        return o.reshape(b, s, -1) @ p["wo"]
+        return L.mm(o.reshape(*x.shape[:-1], -1), p["wo"])
     if kind == "xattn":
         return _xattn(p, cfg, x, *_xattn_kv(p, cfg, ctx["enc_out"]))
     if kind == "ffn":
@@ -223,19 +234,51 @@ def repeat_slice(stacked: dict, r: int) -> dict:
     return tree_map(lambda a: a[r], stacked)
 
 
-def n_repeats(stacked: dict) -> int:
+def n_repeats(stacked: dict, axis: int = 0) -> int:
+    """R of a stacked tree (its leaves' size along ``axis``: 1 for a
+    client-stacked ``[N, R, ...]`` tree)."""
     leaf = stacked
     while isinstance(leaf, dict):
         leaf = leaf[next(iter(leaf))]
-    return leaf.shape[0]
+    return leaf.shape[axis]
 
 
-def stack_fwd(stacked: dict, x, cfg: ModelConfig, program, ctx: dict):
-    for r in range(n_repeats(stacked)):
-        rep = repeat_slice(stacked, r)
+def unstack_params(stacked: dict, repeats: int) -> list:
+    """``[R, ...]``-stacked tree -> list of R per-repetition trees (views)."""
+    return [repeat_slice(stacked, r) for r in range(repeats)]
+
+
+def stack_params(reps: list) -> dict:
+    """List of per-repetition trees -> one ``[R, ...]``-stacked tree."""
+    return tree_map(lambda *xs: torch.stack(xs), *reps)
+
+
+def stack_fwd(stacked, x, cfg: ModelConfig, program, ctx: dict,
+              remat: bool = False):
+    """The stack over ``x``; returns ``(x, aux)``.
+
+    ``stacked`` is the ``[R, ...]`` tree or a list of per-repetition
+    trees (the simulator's units).  With ``x [N, b, S, d]`` every leaf
+    carries the client axis ``[N, ...]`` (the dense blocks only).
+    ``remat`` recomputes each super-block in the backward
+    (`torch.utils.checkpoint`, non-reentrant), as the reference's
+    ``jax.checkpoint(superblock)``.  ``aux`` is the reference's summed MoE
+    load-balance loss slot; the port's stacks carry none (0.0), since MoE
+    training is not ported (ROADMAP §1 item 7)."""
+    reps = stacked if isinstance(stacked, list) \
+        else unstack_params(stacked, n_repeats(stacked))
+
+    def superblock(x, rep):
         for li, layer in enumerate(program):
             x = layer_fwd(layer, rep[f"l{li}"], x, cfg, ctx)
-    return x
+        return x
+
+    for rep in reps:
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(superblock, x, rep, use_reentrant=False)
+        else:
+            x = superblock(x, rep)
+    return x, 0.0
 
 
 # ---------------------------------------------------------------------------

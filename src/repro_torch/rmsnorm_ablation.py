@@ -93,7 +93,7 @@ def main(argv=None) -> int:
                 for i in range(CALLS):
                     j = i % len(xs)
                     err = fn(xs[j].data_ptr(), sc.data_ptr(),
-                             outs[j].data_ptr(), rows, d, eps, code,
+                             outs[j].data_ptr(), rows, d, rows, eps, code,
                              raw_stream(x.device.index))
                     if err:
                         raise RuntimeError(f"CUDA error {err}, plan "

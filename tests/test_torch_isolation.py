@@ -260,3 +260,60 @@ def test_mesh_session_without_device_raises_without_a_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         Session(ExperimentSpec(n_clients=4, mesh=MeshSpec(n_edges=2)))
     assert dist.is_initialized() == had_group
+
+
+def test_port_sources_cover_the_training_slice():
+    """The per-source import check reaches every module of the token
+    training paths: the SPMD step and the simulator's token cells."""
+    covered = {str(p.relative_to(SRC)) for p in _port_sources()
+               if p.is_relative_to(SRC)}
+    for name in ("training/optim", "data/synthetic", "data/pipeline",
+                 "core/profiles", "core/split", "core/sfl", "launch/train",
+                 "models/factory", "models/transformer", "convert",
+                 "kernels/flash_attention", "kernels/rmsnorm",
+                 "kernels/clip_sgd", "kernels/ops"):
+        assert f"repro_torch/{name}.py" in covered, name
+    assert (SRC / "repro_torch/csrc/flash_attention_bwd.cu").exists()
+
+
+_TRAIN = r"""
+import dataclasses, sys
+import repro_torch.config as C
+from repro_torch.api import ExperimentSpec, Session
+from repro_torch.launch import train
+C.register(dataclasses.replace(C.get_config("smollm-tiny"),
+                               arch_id="smollm-iso", dtype="float32"))
+res = Session(ExperimentSpec(arch="smollm-iso", n_clients=2, partition="iid",
+                             n_train=32, n_test=4, seq_len=8, rounds=2,
+                             eval_every=1, policy="fixed(b=4,cut=1)"),
+              device="cpu").run()
+assert len(res.test_loss) == 2, res
+rows = train.main(["--mode", "spmd", "--device", "cpu", "--steps", "2",
+                   "--seq", "8", "--layers", "2", "--d-model", "64",
+                   "--clients", "2", "--batch", "2", "--eval-every", "0"])
+assert len(rows) == 2, rows
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro."))
+assert not bad, bad
+print("isolated")
+"""
+
+
+def test_port_token_training_imports_no_jax_and_no_reference():
+    out = subprocess.run([sys.executable, "-c", _TRAIN], env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "isolated" in out.stdout
+
+
+def test_spmd_cli_without_device_raises_without_a_card():
+    import torch
+    from repro_torch.launch import train as TR
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the launcher would run on it")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TR.main(["--mode", "spmd", "--steps", "1", "--seq", "8",
+                 "--layers", "2", "--d-model", "64", "--clients", "2",
+                 "--batch", "2"])

@@ -334,7 +334,8 @@ def test_cpu_tensors_take_the_plain_versions():
     TOPS.mlstm_scan(q, q, q, torch.zeros((1, 4, 2)), torch.zeros((1, 4, 2)))
     assert TOPS.launch_counts() == {
         "batched_matmul": 0, "clip_sgd": 0, "clip_sgd_ext": 0,
-        "flash_attention": 0, "rmsnorm": 0, "mlstm_scan": 0}
+        "flash_attention": 0, "flash_attention_bwd": 0, "rmsnorm": 0,
+        "rmsnorm_bwd": 0, "mlstm_scan": 0}
 
 
 def test_kernel_launchers_refuse_cpu_tensors():
@@ -636,7 +637,7 @@ def test_clip_sgd_plan_covers_every_cell_entry_once(cells):
               for i, d in enumerate(ds)]
     keep_specs = [[(i + c) % 3 == 0 for i in range(len(ds))]
                   for c in range(cells)]
-    entries = TCS.cell_entries(leaves, keep_specs, n)
+    entries = TCS.cell_entries(leaves, keep_specs, n, [4] * len(leaves))
     assert len(entries) == cells * len(ds)
     for e, (pp, gp, cp, d, ks, row) in enumerate(entries):
         c, i = divmod(e, len(ds))

@@ -822,3 +822,193 @@ def test_traffic_run_and_resume_are_bitwise_on_the_card(tmp_path):
                                                 b.user)
     assert a.counts()["admit"] > spec.n_clients and a.counts()["evict"] > 0
     assert launches["clip_sgd"] == spec.rounds
+
+
+# ---------------------------------------------------------------------------
+# The training kernels: kernel 4's lse and backward, kernel 5's grouped
+# scale and backward, kernel 2 on bf16 leaves.  Tolerances: dQ, dK, dV
+# within 2e-5·(1+|plain|) at fp32 (sums in another order) and
+# 3e-2·max|plain| at bf16 (the gradients rounded once to bf16, the plain
+# version's inputs the same bf16 values); RMSNorm's dx within
+# 2e-5·(1+|plain|) at fp32 and the forward's 2e-2 at bf16, dscale within
+# 1e-4·(1+|plain|) (fp32 sums over thousands of rows in another order);
+# kernel 2 on bf16 leaves within one bf16 ulp (2^-7 relative at most) of
+# its plain version run in fp32 and rounded once, as the kernel computes
+# (the client mean's fp32 sum runs in another order, so a value at a
+# rounding boundary may round to its neighbour).
+# ---------------------------------------------------------------------------
+
+FLASH_BWD_CASES = FLASH_CASES + [
+    (1, 128, 128, 4, 4, 96, True, 0, "float32"),     # phi3's hd 96
+    (2, 70, 70, 4, 4, 96, True, 0, "bfloat16"),
+    (2, 48, 100, 16, 1, 64, True, 0, "float32"),     # GQA group 16, sq < sk
+    (1, 100, 60, 4, 2, 32, True, 16, "float32"),     # sq > sk with a window:
+                                                     # rows 75-99 see no key
+    # smollm-135m and qwen3-1.7b training shapes
+    (128, 128, 128, 9, 3, 64, True, 0, "bfloat16"),
+    (8, 512, 512, 16, 8, 128, True, 0, "bfloat16"),
+]
+
+
+def _rel_close(got, want, dtype):
+    g, w = got.float(), want.float()
+    if dtype == "float32":
+        bad = (g - w).abs() > 2e-5 * (1 + w.abs())
+    else:
+        bad = (g - w).abs() > 3e-2 * w.abs().max()
+    assert not bool(bad.any()), float((g - w).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,hd,causal,window,dtype",
+                         FLASH_BWD_CASES)
+def test_flash_attention_bwd_kernel_matches_plain(b, sq, sk, hq, hkv, hd,
+                                                  causal, window, dtype):
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dt = DTYPES[dtype]
+    q = _randn(gen, (b, sq, hq, hd), dt)
+    k, v = (_randn(gen, (b, sk, hkv, hd), dt) for _ in range(2))
+    do = _randn(gen, (b, sq, hq, hd), dt)
+    o, lse = TFA.flash_attention_kernel(q, k, v, causal=causal,
+                                        window=window, lse=True)
+    _, lse_plain = TFA.flash_attention_plain(q, k, v, causal=causal,
+                                             window=window, lse=True)
+    # a row with no visible key has lse -inf on the kernel and
+    # -1e30 + log Sk on the plain version: compared on the live rows only
+    live = TFA._visible(sq, sk, causal, window, None,
+                        q.device).expand(sq, sk).any(-1)
+    _close(lse[..., live], lse_plain[..., live],
+           1e-4 if dtype == "float32" else 2e-3)
+    before = TFA.flash_attention_bwd_kernel.launches
+    got = TFA.flash_attention_bwd_kernel(q, k, v, o, lse, do, causal=causal,
+                                         window=window)
+    want = TFA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         window=window)
+    torch.cuda.synchronize()
+    assert TFA.flash_attention_bwd_kernel.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == dt and g.shape == w.shape
+        _rel_close(g, w, dtype)
+    # the rows that see no key get no gradient
+    assert bool((got[0][:, ~live] == 0).all())
+    again = TFA.flash_attention_bwd_kernel(q, k, v, o, lse, do,
+                                           causal=causal, window=window)
+    for g, a in zip(got, again):     # no atomics: bitwise repeatable
+        assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_function_carries_the_gradient(dtype):
+    """`ops.flash_attention` on grad-requiring inputs goes through
+    `FlashAttentionFn`: one forward and one backward launch, gradients
+    equal to autograd through the plain version."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    dt = DTYPES[dtype]
+    q = _randn(gen, (2, 64, 4, 64), dt).requires_grad_()
+    k, v = (_randn(gen, (2, 64, 2, 64), dt).requires_grad_()
+            for _ in range(2))
+    do = _randn(gen, (2, 64, 4, 64), dt)
+    fwd = TFA.flash_attention_kernel.launches
+    bwd = TFA.flash_attention_bwd_kernel.launches
+    TOPS.flash_attention(q, k, v, causal=True).backward(do)
+    got = [t.grad.clone() for t in (q, k, v)]
+    assert TFA.flash_attention_kernel.launches == fwd + 1
+    assert TFA.flash_attention_bwd_kernel.launches == bwd + 1
+    for t in (q, k, v):
+        t.grad = None
+    TFA.flash_attention_plain(q, k, v, causal=True).backward(do)
+    for g, t in zip(got, (q, k, v)):
+        _rel_close(g, t.grad, dtype)
+
+
+RMSNORM_BWD_CASES = [(s, d, 1) for s, d in RMSNORM_CASES] + [
+    ((8, 128, 576), "bfloat16", 8),          # smollm-135m, scale [N, d]
+    ((2, 4, 512, 16, 128), "bfloat16", 2),   # qwen3's qk-norm, [N, hd]
+    ((4096, 2048), "bfloat16", 1),
+    ((5, 1000), "float32", 5),
+    ((3, 7, 50), "float32", 3),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,groups", RMSNORM_BWD_CASES)
+def test_rmsnorm_bwd_kernel_matches_plain(shape, dtype, groups):
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = _randn(gen, shape, DTYPES[dtype])
+    dy = _randn(gen, shape, DTYPES[dtype])
+    d = shape[-1]
+    scale = torch.rand((groups, d) if groups > 1 else (d,), generator=gen,
+                       device="cuda")
+    _close(TRN.rmsnorm_kernel(x, scale), TRN.rmsnorm_plain(x, scale),
+           RMSNORM_TOL)
+    before = TRN.rmsnorm_bwd_kernel.launches
+    dx, ds = TRN.rmsnorm_bwd_kernel(x, scale, dy)
+    pdx, pds = TRN.rmsnorm_bwd_plain(x, scale, dy)
+    torch.cuda.synchronize()
+    assert TRN.rmsnorm_bwd_kernel.launches == before + 1
+    assert dx.dtype == x.dtype and ds.shape == scale.shape
+    if dtype == "float32":
+        assert not bool(((dx - pdx).abs() > 2e-5 * (1 + pdx.abs())).any())
+    else:
+        _close(dx, pdx, RMSNORM_TOL)
+    assert not bool(((ds - pds).abs() > 1e-4 * (1 + pds.abs())).any())
+    dx2, ds2 = TRN.rmsnorm_bwd_kernel(x, scale, dy)
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+
+
+@pytest.mark.cuda
+def test_grad_requiring_inputs_take_the_functions_or_raise():
+    """RMSNorm with a grad-requiring input runs `RMSNormFn` (a forward and
+    a backward launch); the mLSTM scan has no backward and raises."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x = _randn(gen, (4, 16, 64), torch.bfloat16).requires_grad_()
+    scale = torch.rand((4, 64), generator=gen,
+                       device="cuda").requires_grad_()
+    fwd, bwd = TRN.rmsnorm_kernel.launches, TRN.rmsnorm_bwd_kernel.launches
+    TOPS.rmsnorm(x, scale).float().sum().backward()
+    assert TRN.rmsnorm_kernel.launches == fwd + 1
+    assert TRN.rmsnorm_bwd_kernel.launches == bwd + 1
+    assert x.grad is not None and scale.grad is not None
+    q = torch.zeros((1, 8, 2, 32), device="cuda", requires_grad=True)
+    g = torch.zeros((1, 8, 2), device="cuda")
+    before = TMS.mlstm_scan_kernel.launches
+    with pytest.raises(NotImplementedError, match="backward"):
+        TOPS.mlstm_scan(q, q, q, g, g)
+    assert TMS.mlstm_scan_kernel.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,part", [(8, None), (4, [1.0, 0.0, 1.0, 0.5])])
+def test_clip_sgd_leaves_kernel_takes_bf16_leaves(n, part):
+    """A token round's leaves: bf16 weights (ragged and vector widths)
+    beside fp32 norm scales in one launch, past the table's capacity."""
+    _need_card()
+    rng = np.random.default_rng(9)
+    ds = [576, 10, 4096, 300] * 20
+    dts = [torch.bfloat16, torch.float32, torch.bfloat16, torch.bfloat16] * 20
+    keeps = [bool(i % 3 == 0) for i in range(len(ds))]
+    ps = [torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+          .to("cuda", dt) for d, dt in zip(ds, dts)]
+    gs = [torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+          .to("cuda", dt) for d, dt in zip(ds, dts)]
+    scale = torch.from_numpy(rng.uniform(0.2, 1.0, n).astype(np.float32)) \
+        .cuda()
+    w = None if part is None else torch.tensor(part, device="cuda")
+    want = TCS.clip_sgd_leaves_plain(
+        [p.float() for p in ps], [g.float() for g in gs], scale, keeps, w,
+        gamma=GAMMA)
+    before = TCS.clip_sgd_kernel.launches
+    got = TCS.clip_sgd_leaves_kernel([p.clone() for p in ps], gs, scale,
+                                     keeps, w, gamma=GAMMA)
+    torch.cuda.synchronize()
+    assert TCS.clip_sgd_kernel.launches == before + 2   # 80 leaves, 64 a table
+    for g, wv, dt in zip(got, want, dts):
+        assert g.dtype == dt
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   wv.to(dt).float().cpu().numpy(),
+                                   rtol=2 ** -7, atol=1e-6)

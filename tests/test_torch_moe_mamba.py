@@ -307,8 +307,8 @@ def _encode_port(cfg, params, frames):
     s = frames.shape[1]
     x = frames.to(torch.float32) + TL.sinusoidal_table(
         s, cfg.d_model, torch.float32, "cpu")[None]
-    x = TT.stack_fwd(params["enc_stack"], x, cfg, prog,
-                     {"positions": torch.arange(s)[None, :]})
+    x, _ = TT.stack_fwd(params["enc_stack"], x, cfg, prog,
+                        {"positions": torch.arange(s)[None, :]})
     return TL.rmsnorm(x, params["enc_final_norm"], cfg.norm_eps)
 
 

@@ -101,7 +101,7 @@ def test_edge_spec_matches_the_references_spec():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mode", "spmd", "--steps", "2"], "spmd"),
+    (["--mode", "spmd", "--arch", "xlstm-350m", "--steps", "2"], "spmd"),
     (["--engine", "legacy"], "legacy"),
     (["--engine", "vectorized"], "vectorized"),
 ])
