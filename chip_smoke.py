@@ -135,7 +135,26 @@ nothing of the reference package.  Phases, each printing one JSON line:
    N=2, cut_reps=1, b=4, S=512, Adam, 6 steps), remat off and then on:
    seconds a step, tokens/s, peak memory, the loss a step (it falls), and
    both backward kernels launched; the same witness.
-20. ``kernels_train``: the training kernels at what the two runs ran:
+20. ``train_moe``: the same step on dbrx-132b at its published widths
+   (`TRAIN_MOE`: d 6144, 48/8 heads at hd 128, 16 experts of 10752 top-4,
+   vocab 100352), cut to 2 of 40 layers with cut_reps=1 (an MoE layer in
+   the client-stacked prefix, one on the server), N=2, b=2, S=512, SGD, 6
+   steps: seconds a step, tokens/s, peak memory, each step's load-balance
+   loss and the router's dropped share (`models.moe.RECORD`), a step's
+   launches of kernels 4 and 5 forward and backward.  Gates: the loss is
+   finite and falls, the lb loss finite and > 0, every parameter leaf
+   moved (the routers included; fp64 fingerprints, not copies, at 23 GB
+   of weights), kernels 4 and 5 forward and backward launched.
+21. ``train_families``: whisper-medium whole (24 + 24 layers over 1500
+   stub frames; Adam, remat), internvl2-1b whole with 256 patch stubs a
+   sequence (S=512, Adam) and jamba's super-block (7 mamba, 1 attention,
+   4 MoE layers at d 4096, 4 of 16 experts; cut_reps=0, SGD) through the
+   same step (`TRAIN_FAMILY_SPMD`), and internvl2 in a `Session`
+   (`TRAIN_VLM`: N=4, S=64, HASFL priors, 6 rounds, kernel 2 once a
+   round); each run's seconds and peak, gates as ``train_moe``'s.
+   llama4 at its published widths does not fit one card (one MoE layer is
+   ~16 B parameters); it trains in ``train_cross`` only.
+22. ``kernels_train``: the training kernels at what the runs ran:
    kernel 4's ``lse`` and backward against their plain versions at the
    reference's cases and at every shape the witnesses recorded (dQ, dK,
    dV within 2e-5·(1+|plain|) at fp32 and 3e-2·max|plain| at bf16,
@@ -147,18 +166,29 @@ nothing of the reference package.  Phases, each printing one JSON line:
    ``train_lm``'s last round (the session's own bf16 and fp32 leaves,
    gradients, clip factors and keep flags) against its plain version
    leaf by leaf (bf16 within one bf16 ulp).
-21. ``train_cross``: card against CPU from the same fp32 weights, on an
-   fp32 copy of smollm-tiny and on qwen3 cut to 2 layers: a 6-round token
-   `Session` (decisions, clocks and plans bitwise; losses and parameters
-   within 1e-4) and 3 SPMD steps with SGD (parameters within 1e-4).
-22. ``cli_spmd``: ``python -m repro_torch.launch.train --mode spmd`` in
+23. ``train_cross``: card against CPU from the same fp32 weights
+   (`TRAIN_CROSS`): smollm-tiny, and qwen3, glm4, phi3 (hd 96), dbrx,
+   llama4 (8 experts), jamba (one super-block, 4 experts), internvl2
+   (patch stubs) and whisper (frame stubs) reduced to 2 layers: a 6-round
+   token `Session` (decisions, clocks and plans bitwise; losses and
+   parameters within 1e-4; whisper's raises the reference's
+   ``KeyError('frame_embeddings')`` on both devices) and 3 SPMD steps with
+   SGD (parameters within 1e-4), every MoE call's experts equal on both.
+   Then smollm-tiny and dbrx at bf16 (`TRAIN_CROSS_BF16`, 6 rounds):
+   decisions and clocks bitwise, smollm's losses within 1e-3; dbrx's
+   losses recorded beside the experts that differ between the devices and
+   the loss move of one bf16 ulp on the card alone (its routers flip on
+   the kernels' other bf16 rounding).  dbrx's ``loss`` backward run twice
+   on the card records whether the MoE backward repeats bitwise.
+24. ``cli_spmd``: ``python -m repro_torch.launch.train --mode spmd`` in
    process on the card (`SPMD_CLI`): a row a step, finite losses.
 
 The summary line gives the two backward kernels rows of their own
 (``flash_attention_bwd``, ``rmsnorm_bwd``, at ``train_lm``'s most
-frequent shape, with the others under ``shapes``), with their launches
-in ``train_lm`` (and per round) and in ``spmd``; kernel 2's row carries
-the token round under ``token_round``.
+frequent shape, with every other run's shapes under ``shapes``), with
+their launches in ``train_lm`` (and per round), ``spmd``, ``train_moe``
+and each ``train_families`` run; kernel 2's row carries the token round
+under ``token_round``.
 
 The GEMM's split-K (conv1.dW, conv2.dW) must repeat bitwise.  The
 ``kernels`` phase also holds the token-model kernels against their
@@ -2838,16 +2868,13 @@ def _clip_round_checks(rec):
     return out
 
 
-def phase_kernels_train(detail, lm_seen, spmd_seen, clip):
-    """The training kernels at what `train_lm` and `spmd` ran (their
-    witnesses): kernel 4's and 5's backward at the reference's cases and
-    every recorded shape; ``clip`` is `_clip_round_checks` of
+def phase_kernels_train(detail, runs, clip):
+    """The training kernels at what the training phases ran (``runs``:
+    run -> (its `_witness`, the attention calls a backward makes at each
+    of its shapes)): kernel 4's and 5's backward at the reference's cases
+    and every recorded shape; ``clip`` is `_clip_round_checks` of
     `train_lm`'s last round, run as soon as `train_lm` ended (its copies
     would otherwise add 4.3 GB to `spmd`'s peak)."""
-    from repro_torch.config import get_config
-
-    runs = {"train_lm": (lm_seen, get_config(TRAIN_LM["arch"]).n_layers),
-            "spmd": (spmd_seen, get_config(SPMD["arch"]).n_layers)}
     t0 = time.perf_counter()
     flash, flash_err = _flash_bwd_checks(detail, runs)
     norm, norm_err = _rmsnorm_bwd_checks(detail, runs)
@@ -3004,99 +3031,559 @@ def phase_spmd(detail):
     return {"launches": runs[0]["launches"], "runs": runs}, seen
 
 
-def _register_f32(arch, name, **cut):
+# ---------------------------------------------------------------------------
+# Training of the other token families: MoE, hybrid, VLM, encoder-decoder
+# ---------------------------------------------------------------------------
+
+# the slice's full-width cell: the SPMD HASFL step on dbrx at its
+# published widths, cut to 2 of 40 layers with cut_reps=1, so one MoE
+# layer sits in the client-stacked prefix and one on the server
+TRAIN_MOE = dict(name="train_moe", arch="dbrx-132b", cut=dict(n_layers=2),
+                 n_clients=2, cut_reps=1, batch=2, seq=512, steps=6,
+                 optimizer="sgd", lr=0.3, remat=False, attn_calls=2)
+# the other families' SPMD runs, at their published widths: whisper whole
+# (24 + 24 layers over 1500 stub frames, remat on), internvl2 whole with
+# 256 patch stubs a sequence, jamba cut to one super-block (7 mamba, 1
+# attention, 4 MoE) and to 4 of 16 experts, as serve_cross cuts it.
+# ``attn_calls``: the attention calls a backward makes at each shape
+TRAIN_FAMILY_SPMD = [
+    dict(name="whisper", arch="whisper-medium", cut={}, n_clients=2,
+         cut_reps=1, batch=2, seq=128, steps=6, optimizer="adam", lr=3e-4,
+         remat=True, attn_calls=24),
+    dict(name="internvl2_spmd", arch="internvl2-1b", cut={}, n_clients=2,
+         cut_reps=1, batch=2, seq=512, steps=4, optimizer="adam", lr=3e-4,
+         remat=False, attn_calls=24),
+    dict(name="jamba", arch="jamba-v0.1-52b",
+         cut=dict(n_layers=8, n_experts=4), n_clients=2, cut_reps=0,
+         batch=1, seq=256, steps=4, optimizer="sgd", lr=0.1, remat=False,
+         attn_calls=1)]
+# internvl2 in the simulator's main path (a Session: tokens only, as the
+# reference's), N=4, HASFL priors only; S=64 keeps the fp32 logits of a
+# round (vocab 151655) to a few GB
+TRAIN_VLM = dict(arch="internvl2-1b", n_clients=4, partition="iid",
+                 seq_len=64, n_train=2048, n_test=256, rounds=6,
+                 eval_every=2, policy="hasfl", estimate=False, seed=0)
+
+
+def _fingerprints(tree):
+    """(Σx, Σx²) in fp64 of every non-empty leaf of ``tree``, a chunk at a
+    time (no copy of a whole leaf): a leaf whose fingerprint did not
+    change did not move.  Host ``[leaves, 2]``; an empty leaf (the stack
+    of a prefix of no repetitions) has nothing to move and is left out."""
+    import torch
+    from repro_torch.utils.tree import tree_leaves
+
+    out = []
+    for leaf in tree_leaves(tree):
+        if not leaf.numel():
+            continue
+        s = torch.zeros(2, dtype=torch.float64, device=leaf.device)
+        for c in leaf.detach().reshape(-1).split(1 << 26):
+            c = c.double()
+            s += torch.stack([c.sum(), (c * c).sum()])
+        out.append(s)
+    return torch.stack(out).cpu()
+
+
+def _stubs(cfg, n, b, s, gen):
+    """The family's modality stubs for an ``[n, b, s]`` batch, on the
+    card: patch embeddings at positions 1 .. P of every sequence (VLM),
+    frame embeddings (whisper); {} for the others."""
+    import torch
+
+    out = {}
+    if cfg.n_patches:
+        out["patch_embeddings"] = torch.randn(
+            (n, b, cfg.n_patches, cfg.d_model), device="cuda",
+            generator=gen).to(torch.bfloat16)
+        mask = torch.zeros((n, b, s), dtype=torch.bool, device="cuda")
+        mask[..., 1:1 + cfg.n_patches] = True
+        out["patch_mask"] = mask
+    if cfg.is_enc_dec:
+        out["frame_embeddings"] = torch.randn(
+            (n, b, cfg.encoder_seq, cfg.d_model), device="cuda",
+            generator=gen).to(torch.bfloat16)
+    return out
+
+
+def _moe_step_stats(records):
+    """A forward's summed load-balance loss (over its MoE calls and
+    clients) and its dropped share (mean over calls and clients), from
+    `models.moe.RECORD`; (None, None) without MoE blocks."""
+    import torch
+
+    if not records:
+        return None, None
+    lb = float(sum(torch.as_tensor(a["lb_loss"]).detach().sum()
+                   for a in records))
+    drops = float(torch.stack([torch.as_tensor(a["dropped_frac"]).float(
+    ).mean() for a in records]).mean())
+    return lb, drops
+
+
+def _family_spmd(run):
+    """`make_hasfl_train_step` on ``run``'s arch at its published widths
+    (cut in depth or experts as ``run["cut"]`` says), the same batch each
+    step, counters zeroed and read around the steps.  Each step's loss, seconds, the MoE calls'
+    load-balance loss and dropped share (`models.moe.RECORD`), and
+    whether every parameter leaf moved (`_fingerprints`)."""
+    import dataclasses
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.core.sfl import make_hasfl_train_step
+    from repro_torch.data import make_lm_data
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as M
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_config(run["arch"]), **run["cut"])
+    n, b, s, steps = run["n_clients"], run["batch"], run["seq"], run["steps"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    init_state, train_step = make_hasfl_train_step(
+        build_model(cfg), n_clients=n, cut_reps=run["cut_reps"],
+        agg_interval=3, optimizer_name=run["optimizer"], lr=run["lr"],
+        remat=run["remat"])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = init_state(gen)
+    before = _fingerprints([state["client"], state["server"]])
+    # one batch, taken every step: under SGD's small steps a fresh batch a
+    # step moves the loss less than one batch differs from the next
+    tokens, labels = (torch.as_tensor(a.reshape(n, b, s)).cuda()
+                      for a in make_lm_data(cfg.vocab_size, n * b, s, seed=0))
+    batch = {"tokens": tokens, "labels": labels,
+             **_stubs(cfg, n, b, s, gen)}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    losses, times, lbs, drops = [], [], [], []
+    M.RECORD = []
+    try:
+        for t in range(steps):
+            t1 = time.perf_counter()
+            state, m = train_step(state, batch)
+            losses.append(float(m["loss"]))
+            times.append(time.perf_counter() - t1)
+            lb, dr = _moe_step_stats(M.RECORD)
+            lbs.append(lb)
+            drops.append(dr)
+            M.RECORD.clear()
+    finally:
+        M.RECORD = None
+    launches = ops.launch_counts()
+    moved = (_fingerprints([state["client"], state["server"]])
+             != before).any(dim=1).tolist()
+    steady = sum(times[1:]) / (len(times) - 1)
+    out = {"phase": run["name"], "arch": run["arch"], "cut": run["cut"],
+           **{k: run[k] for k in ("n_clients", "cut_reps", "batch", "seq",
+                                  "steps", "optimizer", "lr", "remat")},
+           "init_seconds": init_s, "seconds": init_s + sum(times),
+           "loss": losses, "seconds_per_step": times,
+           "steady_seconds_per_step": steady,
+           "tokens_per_s": n * b * s / steady,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "params": sum(x.numel() for x in tree_leaves(
+               [state["client"], state["server"]])),
+           "lb_loss": lbs, "dropped_share": drops,
+           "launches_per_step": _training_launches(launches, steps),
+           "leaves": len(moved), "leaves_unchanged": moved.count(False),
+           "launches": launches}
+    del state, batch
+    return out
+
+
+def _family_gates(out, what, moe: bool):
+    """The gates of a family run: finite losses that fall, a finite
+    positive load-balance loss a step (MoE), every parameter leaf moved,
+    kernels 4 and 5 forward and backward launched."""
+    losses = out["loss"] if "loss" in out else out["test_loss"]
+    check(all(math.isfinite(v) for v in losses), f"{what}: non-finite loss")
+    check(losses[-1] < losses[0], f"{what}: the loss did not fall {losses}")
+    if moe:
+        check(all(v is not None and math.isfinite(v) and v > 0
+                  for v in out["lb_loss"]),
+              f"{what}: lb_loss not finite and > 0: {out['lb_loss']}")
+    check(out["leaves_unchanged"] == 0,
+          f"{what}: {out['leaves_unchanged']} parameter leaves never moved")
+    for k in ("flash_attention", "flash_attention_bwd", "rmsnorm",
+              "rmsnorm_bwd"):
+        check(out["launches"][k] > 0, f"{what}: {k} never launched")
+    check(out["launches"]["mlstm_scan"] == 0
+          and out["launches"]["clip_sgd_ext"] == 0,
+          f"{what}: a kernel off the path launched")
+
+
+def phase_train_moe(detail):
+    """The slice's full-width cell (`TRAIN_MOE`): the SPMD HASFL step on
+    dbrx-132b at its published widths (d 6144, 48/8 heads at hd 128, 16
+    experts of 10752 top-4, vocab 100352), 2 of 40 layers, cut_reps=1,
+    N=2, b=2, S=512, SGD, 6 steps.  Returns the run and its `_witness`."""
+    import torch
+
+    with _witness() as seen:
+        out = _family_spmd(TRAIN_MOE)
+    emit({k: v for k, v in out.items() if k != "launches"})
+    detail["train_moe"] = out
+    _family_gates(out, "train_moe", moe=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, seen
+
+
+def phase_train_families(detail):
+    """The other families on the card: the SPMD runs of
+    `TRAIN_FAMILY_SPMD` (whisper whole over 1500 frames, internvl2 with
+    patch stubs, jamba's super-block) and internvl2 in a `Session`
+    (`TRAIN_VLM`), each freed before the next.  Gates as `train_moe`'s;
+    the Session also launches kernel 2 once a round for each 64 of its
+    leaves.  Returns the runs
+    and a `_witness` a run."""
+    import torch
+    from repro_torch.api import ExperimentSpec, Session
+    from repro_torch.config import SFLConfig, get_config
+    from repro_torch.kernels import clip_sgd as CS
+    from repro_torch.kernels import ops
+
+    runs, seen = {}, {}
+    t_phase = time.perf_counter()
+    for run in TRAIN_FAMILY_SPMD:
+        with _witness() as seen[run["name"]]:
+            out = _family_spmd(run)
+        runs[run["name"]] = out
+        _family_gates(out, f"train_families {run['name']}",
+                      moe=bool(get_config(run["arch"]).n_experts))
+        gc.collect()
+        torch.cuda.empty_cache()
+    spec = ExperimentSpec(**TRAIN_VLM, sfl=SFLConfig(lr=TRAIN_LM_LR,
+                                                     agg_interval=3))
+    torch.cuda.reset_peak_memory_stats()
+    sess = Session(spec)
+    before = _fingerprints(sess.sim._stacked)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    with _witness() as seen["internvl2_session"]:
+        t0 = time.perf_counter()
+        res = sess.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    moved = (_fingerprints(sess.sim._stacked) != before).any(dim=1).tolist()
+    vlm = {"phase": "internvl2_session", "arch": spec.arch,
+           "n_clients": spec.n_clients, "seq_len": spec.seq_len,
+           "rounds": spec.rounds, "seconds": seconds,
+           "seconds_per_round": seconds / spec.rounds,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches_per_round": _training_launches(launches, spec.rounds),
+           "train_loss": res.train_loss, "test_loss": res.test_loss,
+           "b_history": [list(map(int, b)) for b in res.b_history],
+           "cut_history": [list(map(int, c)) for c in res.cut_history],
+           "leaves": len(moved), "leaves_unchanged": moved.count(False),
+           "launches": launches}
+    runs["internvl2_session"] = vlm
+    _family_gates(vlm, "train_families internvl2_session", moe=False)
+    tables = -(-len(moved) // CS.CAPACITY)
+    check(launches["clip_sgd"] == spec.rounds * tables,
+          f"train_families internvl2_session: {launches['clip_sgd']} "
+          f"update launches in {spec.rounds} rounds of {len(moved)} leaves")
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"phase": "train_families",
+           "seconds": time.perf_counter() - t_phase,
+           "llama4": "not trained on the card at its published widths: one "
+                     "MoE layer is ~16 B parameters; held in train_cross",
+           "runs": {k: {kk: vv for kk, vv in v.items() if kk != "launches"}
+                    for k, v in runs.items()}}
+    emit(out)
+    detail["train_families"] = {**out, "runs": runs}
+    return runs, seen
+
+
+def _register_cut(arch, name, dtype="float32", **cut):
+    """Register ``arch`` `reduced` (smollm-tiny as registered) with the
+    overrides ``cut`` under ``name`` in ``dtype``; returns its config."""
     import dataclasses
     import repro_torch.config as C
 
     cfg = C.get_config(arch)
     cfg = dataclasses.replace(cfg, **cut) if arch == "smollm-tiny" \
         else C.reduced(cfg, **cut)
-    C.register(dataclasses.replace(cfg, arch_id=name, dtype="float32"))
+    C.register(dataclasses.replace(cfg, arch_id=name, dtype=dtype))
     return C.get_config(name)
 
 
-def phase_train_cross(detail):
-    """The training paths on the card against the CPU, from the same fp32
-    weights: a 6-round token `Session` (decisions, clocks and gather plans
-    bitwise; losses and parameters within 1e-4) and 3 SPMD steps (SGD;
-    client and server trees within 1e-4), on an fp32 copy of smollm-tiny
-    and on qwen3 reduced to 2 layers (qk-norm, GQA)."""
+# train_cross's fp32 cells, card against CPU: (arch, cut, session) with
+# session "estimate" (HASFL with the online G²/σ² estimate), "priors", or
+# "raises" (whisper: the Session makes no frames; SPMD steps only)
+TRAIN_CROSS = [
+    ("smollm-tiny", {}, "estimate"),
+    ("qwen3-1.7b", {"n_layers": 2}, "priors"),
+    ("glm4-9b", {"n_layers": 2}, "priors"),
+    ("phi3-mini-3.8b", {"n_layers": 2, "head_dim": 96}, "priors"),
+    ("dbrx-132b", {"n_layers": 2}, "priors"),
+    ("llama4-maverick-400b-a17b", {"n_layers": 2, "n_experts": 8}, "priors"),
+    ("jamba-v0.1-52b", {"n_layers": 2}, "priors"),
+    ("internvl2-1b", {"n_layers": 2}, "priors"),
+    ("whisper-medium", {"n_layers": 2, "n_encoder_layers": 2}, "raises")]
+# bf16 cells (the registered type), priors only, 6 rounds, decisions and
+# clocks bitwise: (arch, cut, losses held at the CPU test's 1e-3).  dbrx's
+# losses are recorded, not held: its routers see bf16 activations that
+# the card's kernels round otherwise than the plain versions, and a
+# token whose top-k probabilities are that close takes other experts (the
+# experts that differ and `_bf16_chaos`, one ulp's effect on the card
+# alone, are recorded beside the losses)
+TRAIN_CROSS_BF16 = [("smollm-tiny", {}, True),
+                    ("dbrx-132b", {"n_layers": 2}, False)]
+TRAIN_CROSS_BF16_TOL = 1e-3
+
+
+@contextlib.contextmanager
+def _routing():
+    """Every MoE call's chosen experts while the block runs (host copies,
+    in call order), through `models.moe.RECORD`."""
+    from repro_torch.models import moe as M
+
+    experts = []
+    M.RECORD = []
+    try:
+        yield experts
+        experts.extend(a["expert_idx"].cpu() for a in M.RECORD)
+    finally:
+        M.RECORD = None
+
+
+def _cross_session(spec):
+    """``spec`` run on the card and on the CPU (each from the seeded init
+    drawn on the host); per device (result, gather plans, final
+    parameters, the MoE calls' experts)."""
+    from repro_torch.api import Session
+    from repro_torch.convert import units_to_numpy
+    from repro_torch.utils.tree import tree_map
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        sess = Session(spec, device=dev)
+        plans = _recording(sess)
+        with _routing() as experts:
+            res = sess.run()
+        runs[dev] = (res, plans, units_to_numpy(
+            [tree_map(lambda t: t.float(), u) for u in sess.sim._stacked]),
+            experts)
+    return runs
+
+
+def _cross_spmd(cfg, model):
+    """3 SPMD steps (SGD, cut_reps=1, N=2, b=4, S=16, the family's stubs)
+    from the same client/server trees on the card and on the CPU; per
+    device (the final trees, the MoE calls' experts)."""
     import numpy as np
     import torch
-    from repro_torch.api import ExperimentSpec, Session
-    from repro_torch.config import SFLConfig
     from repro_torch.convert import units_to_numpy
     from repro_torch.core import split as SP
     from repro_torch.core.sfl import make_hasfl_train_step
-    from repro_torch.models import build_model
     from repro_torch.training.optim import make_optimizer
-    from repro_torch.utils.tree import tree_leaves, tree_map
+    from repro_torch.utils.tree import tree_map
 
-    out = {"phase": "train_cross"}
-    for name, arch, cut, estimate in (
-            ("smollm-tiny-f32-cross", "smollm-tiny", {}, True),
-            ("qwen3-r2-f32-cross", "qwen3-1.7b", {"n_layers": 2}, False)):
-        cfg = _register_f32(arch, name, **cut)
-        spec = ExperimentSpec(
-            arch=name, n_clients=4, partition="iid", n_train=256, n_test=32,
-            seq_len=16, rounds=6, eval_every=2, policy="hasfl",
-            estimate=estimate, sfl=SFLConfig(lr=0.05, agg_interval=3))
-        model = build_model(cfg)
-        units, _ = SP.to_units(cfg, model.init(
-            torch.Generator().manual_seed(0), "cpu"))
-        init = units_to_numpy(units)
-        runs = {}
-        for dev in ("cuda", "cpu"):
-            sess = Session(spec, device=dev, init_units=init)
-            plans = _recording(sess)
-            res = sess.run()
-            runs[dev] = (res, plans, units_to_numpy(sess.sim._stacked))
-        (rg, pg, wg), (rc, pc, wc) = runs["cuda"], runs["cpu"]
-        check(_same(rg.b_history, rc.b_history)
-              and _same(rg.cut_history, rc.cut_history),
-              f"train_cross {name}: decisions")
-        check(rg.clock == rc.clock, f"train_cross {name}: clock")
-        check(_same(pg, pc), f"train_cross {name}: gather plans")
-        loss_err = max(abs(a - b) for a, b in zip(
-            rg.train_loss + rg.test_loss, rc.train_loss + rc.test_loss))
-        param_err = max(float(np.max(np.abs(a - b))) for a, b in zip(
-            tree_leaves(wg), tree_leaves(wc)))
-        # 3 SPMD steps from the same client/server trees
-        params = model.init(torch.Generator().manual_seed(1), "cpu")
-        client, server = SP.split_stacked(params, 1)
-        client = SP.replicate_client(client, 2)
-        opt = make_optimizer("sgd", 1e-2)
-        rng = np.random.default_rng(2)
-        batches = [{k: torch.from_numpy(rng.integers(
-            0, cfg.vocab_size, (2, 4, 16))) for k in ("tokens", "labels")}
-            for _ in range(3)]
-        trees = {}
-        for dev in ("cuda", "cpu"):
-            c = tree_map(lambda a: a.to(dev, copy=True), client)
-            s_ = tree_map(lambda a: a.to(dev, copy=True).contiguous(), server)
-            state = {"client": c, "server": s_, "step": 0,
-                     "opt": opt.init({"client": c, "server": s_})}
-            _, step = make_hasfl_train_step(
-                model, n_clients=2, cut_reps=1, agg_interval=2,
-                optimizer_name="sgd", lr=1e-2, remat=False)
+    params = model.init(torch.Generator().manual_seed(1), "cpu")
+    client, server = SP.split_stacked(params, 1)
+    client = SP.replicate_client(client, 2)
+    opt = make_optimizer("sgd", 1e-2)
+    rng = np.random.default_rng(2)
+    batches = []
+    for _ in range(3):
+        batch = {k: rng.integers(0, cfg.vocab_size, (2, 4, 16))
+                 for k in ("tokens", "labels")}
+        if cfg.n_patches:
+            batch["patch_embeddings"] = rng.standard_normal(
+                (2, 4, cfg.n_patches, cfg.d_model)).astype(np.float32)
+            mask = np.zeros((2, 4, 16), bool)
+            mask[..., 2:2 + cfg.n_patches] = True
+            batch["patch_mask"] = mask
+        if cfg.is_enc_dec:
+            batch["frame_embeddings"] = rng.standard_normal(
+                (2, 4, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+        batches.append({k: torch.from_numpy(v) for k, v in batch.items()})
+    out = {}
+    for dev in ("cuda", "cpu"):
+        c = tree_map(lambda a: a.to(dev, copy=True), client)
+        s_ = tree_map(lambda a: a.to(dev, copy=True).contiguous(), server)
+        state = {"client": c, "server": s_, "step": 0,
+                 "opt": opt.init({"client": c, "server": s_})}
+        _, step = make_hasfl_train_step(
+            model, n_clients=2, cut_reps=1, agg_interval=2,
+            optimizer_name="sgd", lr=1e-2, remat=False)
+        with _routing() as experts:
             for batch in batches:
                 state, _ = step(state, {k: v.to(dev)
                                         for k, v in batch.items()})
-            trees[dev] = units_to_numpy([state["client"], state["server"]])
-        spmd_err = max(float(np.max(np.abs(a - b))) for a, b in zip(
-            tree_leaves(trees["cuda"]), tree_leaves(trees["cpu"])))
-        out[name] = {"b_history": [list(map(int, b)) for b in rg.b_history],
-                     "clock": rg.clock, "loss_max_err": loss_err,
-                     "param_max_err": param_err,
-                     "spmd_param_max_err": spmd_err}
-        check(loss_err <= CROSS_TOL,
-              f"train_cross {name}: losses differ by {loss_err}")
-        check(param_err <= CROSS_TOL,
-              f"train_cross {name}: parameters differ by {param_err}")
-        check(spmd_err <= CROSS_TOL,
-              f"train_cross {name}: SPMD parameters differ by {spmd_err}")
+        out[dev] = (units_to_numpy([state["client"], state["server"]]),
+                    experts)
+    return out
+
+
+def _moe_bwd_repeat(cfg, model):
+    """Whether the MoE backward is bitwise from run to run on the card:
+    ``loss``'s gradients of the same weights and batch, twice.  The
+    combine's gather differentiates into an accumulating ``index_put_``;
+    the finding is recorded, not gated.  Returns the leaves that differ
+    and their largest difference."""
+    import torch
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    params = tree_map(lambda a: a.cuda(), model.init(
+        torch.Generator().manual_seed(3), "cpu"))
+    gen = torch.Generator().manual_seed(4)
+    batch = {k: torch.randint(0, cfg.vocab_size, (4, 64), generator=gen
+                              ).cuda() for k in ("tokens", "labels")}
+    grads = []
+    for _ in range(2):
+        leaves = tree_map(lambda a: a.detach().requires_grad_(), params)
+        loss, _ = model.loss(leaves, batch)
+        loss.backward()
+        grads.append([a.grad for a in tree_leaves(leaves)])
+    diffs = [float((a.float() - b.float()).abs().max())
+             for a, b in zip(*grads)]
+    return {"leaves": len(diffs),
+            "leaves_not_bitwise": sum(not torch.equal(a, b)
+                                      for a, b in zip(*grads)),
+            "max_abs_diff": max(diffs)}
+
+
+def _bf16_chaos(spec):
+    """How far one bf16 ulp moves a Session: ``spec`` run twice on the
+    card from its seeded init, the second time with one embedding element
+    one ulp up; the largest train/test loss difference (recorded, not
+    gated: the witness beside the bf16 MoE cell's card-vs-CPU losses)."""
+    import torch
+    from repro_torch.api import Session
+
+    losses = []
+    for bump in (0, 1):
+        sess = Session(spec)
+        if bump:
+            emb = sess.sim._stacked[0]["embed"]
+            emb.view(torch.int16)[:, 5, 3] += 1
+        res = sess.run()
+        losses.append(res.train_loss + res.test_loss)
+    return max(abs(a - b) for a, b in zip(*losses))
+
+
+def _max_err(xs, ys) -> float:
+    import numpy as np
+    from repro_torch.utils.tree import tree_leaves
+
+    return max((float(np.max(np.abs(a - b))) for a, b in zip(
+        tree_leaves(xs), tree_leaves(ys)) if a.size), default=0.0)
+
+
+def phase_train_cross(detail):
+    """The training paths on the card against the CPU, from the same
+    weights (`TRAIN_CROSS`, fp32): a 6-round token `Session` (decisions,
+    clocks and gather plans bitwise; losses and parameters within 1e-4)
+    and 3 SPMD steps with SGD (client and server trees within 1e-4), for
+    every token family but xlstm at 2 layers (llama4 at 8 experts, phi3
+    at hd 96, internvl2 and whisper with their stubs); the MoE calls'
+    experts equal on both devices.  Whisper's Session raises
+    ``KeyError('frame_embeddings')`` on both, as the reference's.  Then
+    the bf16 cells (`TRAIN_CROSS_BF16`): decisions and clocks bitwise,
+    smollm's losses within 1e-3, dbrx's recorded."""
+    from repro_torch.api import ExperimentSpec, Session
+    from repro_torch.config import SFLConfig
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    out, gates = {"phase": "train_cross"}, []
+    for arch, cut, session in TRAIN_CROSS:
+        t0 = time.perf_counter()
+        name = f"{arch}-cross-f32"
+        cfg = _register_cut(arch, name, **cut)
+        spec = ExperimentSpec(
+            arch=name, n_clients=4, partition="iid", n_train=256, n_test=32,
+            seq_len=16, rounds=6, eval_every=2, policy="hasfl",
+            estimate=session == "estimate",
+            sfl=SFLConfig(lr=0.05, agg_interval=3))
+        row = {}
+        if session == "raises":
+            for dev in ("cuda", "cpu"):
+                try:
+                    Session(spec, device=dev).run()
+                    raised = None
+                except KeyError as e:
+                    raised = str(e)
+                gates.append((raised is not None
+                              and "frame_embeddings" in raised,
+                              f"train_cross {name}: the Session did not "
+                              f"raise the reference's KeyError on {dev}"))
+            row["session"] = "KeyError('frame_embeddings') on both"
+        else:
+            runs = _cross_session(spec)
+            (rg, pg, wg, eg), (rc, pc, wc, ec) = runs["cuda"], runs["cpu"]
+            gates += [
+                (_same(rg.b_history, rc.b_history)
+                 and _same(rg.cut_history, rc.cut_history),
+                 f"train_cross {name}: decisions"),
+                (rg.clock == rc.clock, f"train_cross {name}: clock"),
+                (_same(pg, pc), f"train_cross {name}: gather plans"),
+                (_same(eg, ec), f"train_cross {name}: the Session's experts")]
+            row.update(
+                b_history=[list(map(int, b)) for b in rg.b_history],
+                clock=rg.clock, moe_calls=len(eg),
+                loss_max_err=max(abs(a - b) for a, b in zip(
+                    rg.train_loss + rg.test_loss,
+                    rc.train_loss + rc.test_loss)),
+                param_max_err=_max_err(wg, wc))
+        spmd = _cross_spmd(cfg, build_model(cfg))
+        if arch == "dbrx-132b":
+            row["moe_bwd_repeat"] = _moe_bwd_repeat(cfg, build_model(cfg))
+        gates.append((_same(spmd["cuda"][1], spmd["cpu"][1]),
+                      f"train_cross {name}: the SPMD steps' experts"))
+        row.update(spmd_param_max_err=_max_err(spmd["cuda"][0],
+                                               spmd["cpu"][0]),
+                   spmd_moe_calls=len(spmd["cuda"][1]),
+                   seconds=time.perf_counter() - t0)
+        out[name] = row
+        gates += [(row[k] <= CROSS_TOL,
+                   f"train_cross {name}: {k} {row[k]} over {CROSS_TOL}")
+                  for k in ("loss_max_err", "param_max_err",
+                            "spmd_param_max_err") if k in row]
+    for arch, cut, held in TRAIN_CROSS_BF16:
+        t0 = time.perf_counter()
+        name = f"{arch}-cross-bf16"
+        cfg = _register_cut(arch, name, dtype="bfloat16", **cut)
+        spec = ExperimentSpec(
+            arch=name, n_clients=4, partition="iid", n_train=256, n_test=32,
+            seq_len=16, rounds=6, eval_every=2, policy="hasfl",
+            estimate=False, sfl=SFLConfig(lr=0.05, agg_interval=3))
+        runs = _cross_session(spec)
+        (rg, _, wg, eg), (rc, _, wc, ec) = runs["cuda"], runs["cpu"]
+        gates += [(_same(rg.b_history, rc.b_history)
+                   and _same(rg.cut_history, rc.cut_history),
+                   f"train_cross {name}: decisions"),
+                  (rg.clock == rc.clock, f"train_cross {name}: clock")]
+        err = max(abs(a - b) for a, b in zip(rg.train_loss + rg.test_loss,
+                                             rc.train_loss + rc.test_loss))
+        out[name] = {"loss_max_err": err, "loss_held": held,
+                     "param_max_err": _max_err(wg, wc),
+                     "train_loss": [rg.train_loss, rc.train_loss],
+                     "test_loss": [rg.test_loss, rc.test_loss]}
+        if eg:
+            out[name].update(
+                moe_calls=len(eg), experts_differ=sum(
+                    int((a != b).sum()) for a, b in zip(eg, ec)),
+                expert_choices=sum(a.numel() for a in eg),
+                moe_bwd_repeat=_moe_bwd_repeat(cfg, build_model(cfg)),
+                one_ulp_loss_move=_bf16_chaos(spec))
+        out[name]["seconds"] = time.perf_counter() - t0
+        if held:
+            gates.append((err <= TRAIN_CROSS_BF16_TOL,
+                          f"train_cross {name}: losses differ by {err}"))
+    out["seconds"] = time.perf_counter() - t_phase
     emit(out)
     detail["train_cross"] = out
+    for ok, what in gates:
+        check(ok, what)
     return out
 
 
@@ -3164,9 +3651,23 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     spmd, spmd_seen = phase_spmd(detail)
-    flash_bwd, norm_bwd = phase_kernels_train(detail, lm_seen, spmd_seen,
-                                              clip_round)
-    del lm_seen, spmd_seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe, moe_seen = phase_train_moe(detail)
+    families, families_seen = phase_train_families(detail)
+    from repro_torch.config import get_config
+
+    witnesses = {"train_lm": (lm_seen,
+                              get_config(TRAIN_LM["arch"]).n_layers),
+                 "spmd": (spmd_seen, get_config(SPMD["arch"]).n_layers),
+                 "train_moe": (moe_seen, TRAIN_MOE["attn_calls"]),
+                 **{r["name"]: (families_seen[r["name"]], r["attn_calls"])
+                    for r in TRAIN_FAMILY_SPMD},
+                 "internvl2_session": (
+                     families_seen["internvl2_session"],
+                     get_config(TRAIN_VLM["arch"]).n_layers)}
+    flash_bwd, norm_bwd = phase_kernels_train(detail, witnesses, clip_round)
+    del lm_seen, spmd_seen, moe_seen, families_seen, witnesses
     gc.collect()
     torch.cuda.empty_cache()
     phase_train_cross(detail)
@@ -3178,8 +3679,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     serve = phase_serve("qwen3-1.7b", "serve")
     serve_ssm = phase_serve("xlstm-350m", "serve_ssm")
-    families = {name: phase_serve(arch, name, layers)
-                for name, arch, layers in FAMILY_SERVES}
+    serves = {name: phase_serve(arch, name, layers)
+              for name, arch, layers in FAMILY_SERVES}
     phase_serve_cross()
 
     launches = train["launches"]
@@ -3206,6 +3707,8 @@ def main(argv=None) -> int:
          "plain_ms": clip["plain_ms"], "bound_ms": clip["bound_ms"],
          "bound_by": "bytes", "library_ms": None,
          "launches_train_lm": train_lm["launches"]["clip_sgd"],
+         "launches_internvl2_session":
+             families["internvl2_session"]["launches"]["clip_sgd"],
          "token_round": {k: clip_round[k] for k in (
              "leaves", "bf16_leaves", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms")}},
@@ -3232,7 +3735,11 @@ def main(argv=None) -> int:
          "decode": {k: flash["decode"][k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
          "launches_families": {name: r["launches"]["flash_attention"]
-                               for name, r in families.items()},
+                               for name, r in serves.items()},
+         "launches_train_moe": moe["launches"]["flash_attention"],
+         "launches_train_families": {
+             name: r["launches"]["flash_attention"]
+             for name, r in families.items()},
          "shapes": {role: {k: flash[role][k] for k in (
              "shape", "calls", "path", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms")}
@@ -3242,7 +3749,10 @@ def main(argv=None) -> int:
          "replaces": "src/repro/kernels/rmsnorm.py:11",
          "launches": serve["launches"]["rmsnorm"],
          "launches_families": {name: r["launches"]["rmsnorm"]
-                               for name, r in families.items()},
+                               for name, r in serves.items()},
+         "launches_train_moe": moe["launches"]["rmsnorm"],
+         "launches_train_families": {name: r["launches"]["rmsnorm"]
+                                     for name, r in families.items()},
          "calls": norm["prefill"]["calls"],
          "max_abs_err": norm["max_abs_err"], "ms": norm["prefill"]["ms"],
          "device_ms": norm["prefill"]["device_ms"],
@@ -3271,13 +3781,16 @@ def main(argv=None) -> int:
              "recurrence_bound_ms")}},
         # kernels 4's and 5's backward at the shape that carries most of
         # train_lm's work (as the run recorded it), every other recorded
-        # shape of train_lm and spmd under "shapes"; launches in train_lm,
-        # per round and in spmd
+        # shape of the training phases under "shapes"; launches in
+        # train_lm, per round, in spmd, train_moe and each family run
         *[{"name": name, "route": "cuda", "source": source,
            "replaces": replaces,
            "launches": train_lm["launches"][name],
            "launches_per_round": train_lm["launches_per_round"][name],
            "launches_spmd": spmd["launches"][name],
+           "launches_train_moe": moe["launches"][name],
+           "launches_train_families": {
+               run: r["launches"][name] for run, r in families.items()},
            "max_abs_err": rows["max_abs_err"],
            **{k: v for k, v in next(
                r for r in rows["train_lm"] if r["heaviest"]).items()
@@ -3286,8 +3799,8 @@ def main(argv=None) -> int:
            "shapes": [{k: v for k, v in r.items() if k in (
                "shape", "groups", "calls", "launches_at_shape", "ms",
                "plain_ms", "bound_ms", "library_ms")} | {"run": run}
-               for run in ("train_lm", "spmd") for r in rows[run]
-               if run == "spmd" or not r["heaviest"]]}
+               for run in rows if run != "max_abs_err" for r in rows[run]
+               if run != "train_lm" or not r["heaviest"]]}
           for name, source, replaces, rows in (
               ("flash_attention_bwd",
                "src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -3300,7 +3813,7 @@ def main(argv=None) -> int:
     detail["mesh"] = mesh
     detail["serve"] = serve
     detail["serve_ssm"] = serve_ssm
-    detail.update(families)
+    detail.update(serves)
     detail["seconds"] = time.perf_counter() - t_start
     path = Path(args.detail)
     path.parent.mkdir(parents=True, exist_ok=True)

@@ -76,7 +76,7 @@ class Session:
         if spec.mesh is not None and not self.cfg.is_cnn:
             raise NotImplementedError(
                 f"mesh mode on a token model ({spec.arch}) is not ported "
-                "(ROADMAP §1 item 7: token cells in run_grid and mesh mode)")
+                "(ROADMAP §1: token cells in run_grid and mesh mode)")
         if spec.mesh is not None:
             self.device = SH.join_group(spec.mesh, self.device)
         if self.device.type == "cuda":
@@ -392,7 +392,7 @@ class Session:
             if not get_config(arch).is_cnn:
                 raise NotImplementedError(
                     f"token cells ({arch}) in run_grid are not ported "
-                    "(ROADMAP §1 item 7: token cells in run_grid and mesh "
+                    "(ROADMAP §1: token cells in run_grid and mesh "
                     "mode); run each with Session(spec).run()")
         if runner == "auto":
             if any(isinstance(s, Session) for s in specs):

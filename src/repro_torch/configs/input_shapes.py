@@ -1,9 +1,9 @@
-"""Input shapes of the serving path, as ``(shape, dtype)`` pairs.
+"""Input shapes of the training and serving paths, as ``(shape, dtype)``
+pairs.
 
-Port of the ``prefill`` and ``decode`` kinds of `repro.configs.input_shapes`
-(numpy only), with the modality stubs: precomputed audio frame embeddings
-(enc-dec, prefill only) and vision patch embeddings with their mask (VLM,
-prefill only).  ``input_specs`` returns numpy ``(shape, dtype)`` pairs
+Port of `repro.configs.input_shapes` (numpy only), with the modality
+stubs: precomputed audio frame embeddings (enc-dec; train and prefill)
+and vision patch embeddings with their mask (VLM; train and prefill).  ``input_specs`` returns numpy ``(shape, dtype)`` pairs
 where the reference returns ``jax.ShapeDtypeStruct``; ``concrete_inputs``
 draws the same numpy arrays from the same seed, in the same key order.
 numpy has no bf16, so an embedding stub of a bf16 model is an fp32 array
@@ -23,6 +23,7 @@ _STUB_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def input_specs(cfg: ModelConfig, shape: InputShape) -> dict:
     """Data inputs for one (arch x input-shape) combination.
 
+    train   : tokens and labels [B, S] (+ stubs); a CNN's images and labels
     prefill : tokens [B, S] (+ stubs)
     decode  : one new token per sequence and its position (the cache is
               model state, made by the model's ``init_cache``/``prefill``;
@@ -31,15 +32,16 @@ def input_specs(cfg: ModelConfig, shape: InputShape) -> dict:
     """
     b, s = shape.global_batch, shape.seq_len
     i32 = np.dtype(np.int32)
-    if shape.kind == "prefill":
-        specs = {"tokens": ((b, s), i32)}
-    elif shape.kind == "decode":
-        return {"tokens": ((b, 1), i32), "positions": ((b,), i32)}
-    else:
-        raise NotImplementedError(
-            f"input kind {shape.kind!r} is not ported (token training waits "
-            "for ROADMAP queue 1 item 7)")
     f32 = np.dtype(np.float32)
+    if shape.kind == "train":
+        if cfg.is_cnn:
+            return {"images": ((b, cfg.image_size, cfg.image_size, 3), f32),
+                    "labels": ((b,), i32)}
+        specs = {"tokens": ((b, s), i32), "labels": ((b, s), i32)}
+    elif shape.kind == "prefill":
+        specs = {"tokens": ((b, s), i32)}
+    else:
+        return {"tokens": ((b, 1), i32), "positions": ((b,), i32)}
     if cfg.is_enc_dec:
         # precomputed audio frame embeddings (mel+conv stub output)
         specs["frame_embeddings"] = ((b, cfg.encoder_seq, cfg.d_model), f32)

@@ -37,8 +37,9 @@ rotates a logical population through the resident slots.
 
 A token arch runs the same scheduler on its unit list (embedding, one
 unit a super-block repetition, head) through the model's client-stacked
-``stacked_loss``; its eval is per token.  `make_hasfl_train_step` is the
-reference's SPMD HASFL step on one device.
+``stacked_loss``, whose per-client losses carry the MoE load-balance
+term; its eval is per token.  `make_hasfl_train_step` is the reference's
+SPMD HASFL step on one device, for every token family but xlstm.
 """
 from __future__ import annotations
 
@@ -108,6 +109,14 @@ def clip_by_global_norm(grads, clip: float):
 def _with_grad(tree):
     """Fresh autograd leaves sharing storage with ``tree``'s tensors."""
     return tree_map(lambda a: a.detach().requires_grad_(), tree)
+
+
+def _grads(tree):
+    """The gradients of `_with_grad` leaves after a backward.  An empty
+    leaf (the stack of a prefix or suffix of no repetitions) takes no part
+    in the loss: its gradient is an empty tensor, as ``jax.grad``'s."""
+    return tree_map(lambda a: torch.zeros_like(a) if a.numel() == 0
+                    else a.grad, tree)
 
 
 class SFLEdgeSimulator:
@@ -649,12 +658,13 @@ def make_hasfl_train_step(
     """Build ``(init_state, train_step)``: the reference's
     `repro.core.sfl.make_hasfl_train_step` on one device (its GSPMD
     arguments — ``shard_fn``, ``param_shardings``, ``rep_shard_fn``,
-    ``unroll`` — are left out; ROADMAP §1 item 8).
+    ``unroll`` — are left out; ROADMAP §1: the GSPMD parts).
 
     State: ``{"client": per-client stacked prefix [N, ...], "server":
     suffix, "opt": optimizer state, "step": int}``.  Batch: ``{"tokens",
-    "labels": [N, b, S]}`` (and an optional ``loss_mask``), on the
-    state's device.
+    "labels": [N, b, S]}`` (an optional ``loss_mask``, and the family's
+    stubs ``[N, b, ...]``: ``patch_embeddings``/``patch_mask``,
+    ``frame_embeddings``), on the state's device.
 
     Semantics per HASFL: the loss is `Model.split_loss` (per-client
     prefix, one concatenated server batch), whose gradient gives the
@@ -674,6 +684,10 @@ def make_hasfl_train_step(
         params = model.init(gen, resolve(device))
         client, server = SP.split_stacked(params, cut_reps)
         client = SP.replicate_client(client, n_clients)
+        # the suffix in storage of its own: a view would keep the prefix's
+        # repetitions alive beside their per-client copies (6.5 GB at
+        # dbrx's width)
+        server = tree_map(torch.clone, server)
         return {"client": client, "server": server,
                 "opt": opt.init({"client": client, "server": server}),
                 "step": 0}
@@ -696,17 +710,17 @@ def make_hasfl_train_step(
                 lk.backward()
                 loss = loss + lk.detach()
             scale = 1.0 / grad_accum
-            gc = tree_map(lambda a: a.grad * scale, client)
-            gs = tree_map(lambda a: a.grad * scale, server)
+            gc = tree_map(lambda g: g * scale, _grads(client))
+            gs = tree_map(lambda g: g * scale, _grads(server))
             loss = loss * scale
         else:
             loss = mean_loss(client, server, batch)
             loss.backward()
             loss = loss.detach()
-            gc = tree_map(lambda a: a.grad, client)
-            gs = tree_map(lambda a: a.grad, server)
+            gc, gs = _grads(client), _grads(server)
         # mean_loss scales each client's grad by 1/N; restore per-client SGD
-        gc = tree_map(lambda g: g * n_clients, gc)
+        # (in place: a copy would hold a second client gradient tree)
+        gc = tree_map(lambda g: g.mul_(n_clients), gc)
         params = {"client": state["client"], "server": state["server"]}
         new_params, new_opt = opt.update({"client": gc, "server": gs},
                                          state["opt"], params, state["step"])

@@ -116,7 +116,7 @@ def mlstm_scan(q, k, v, i_gate, f_gate):
     if _needs_grad(q, k, v, i_gate, f_gate):
         raise NotImplementedError(
             "the mLSTM scan kernel has no backward; differentiating through "
-            "it on the card is not ported (ROADMAP §1 item 7: xlstm "
+            "it on the card is not ported (ROADMAP §1: xlstm "
             "training, a backward for kernel 6)")
     return MS.mlstm_scan_kernel(q, k, v, i_gate, f_gate)
 

@@ -9,14 +9,15 @@ PyTorch paths):
   `repro_torch.api.Session`.  With ``--csv`` it writes one row per eval
   and the spec beside it (``<csv>.spec.json``), so the run is replayable.
 - ``spmd`` runs the HASFL SPMD step (`core.sfl.make_hasfl_train_step`:
-  client-stacked prefix + server tier, Adam) on a dense token model, on
-  one device.  As in the reference, ``--reduce`` cannot be turned off
-  (the model is cut to ``--layers``/``--d-model``/``--vocab``), and the
-  default arch ``vgg9-cifar-small`` maps to ``smollm-135m``.
+  client-stacked prefix + server tier, Adam) on a token model, on one
+  device.  As in the reference, ``--reduce`` cannot be turned off (the
+  model is cut to ``--layers``/``--d-model``/``--vocab``), the default
+  arch ``vgg9-cifar-small`` maps to ``smollm-135m``, and the batch holds
+  tokens and labels only: whisper, whose loss needs the frames, raises
+  the reference's ``KeyError('frame_embeddings')``.
 
 The ``legacy`` / ``vectorized`` engines are not ported (ROADMAP.md §1):
-they raise ``NotImplementedError``, as does ``--mode spmd`` on a family
-other than the dense one.
+they raise ``NotImplementedError``, as does ``--mode spmd`` on xlstm.
 
 Examples:
     PYTHONPATH=src python -m repro_torch.launch.train --mode edge --arch vgg9-cifar-small --rounds 100
@@ -95,18 +96,18 @@ def run_spmd(args):
     `MetricLogger`'s rows (step, loss, steps_per_s)."""
     import torch
 
-    from repro_torch.config import DENSE
     from repro_torch.core.sfl import make_hasfl_train_step
     from repro_torch.data import make_lm_data
     from repro_torch.device import disable_tf32, resolve
     from repro_torch.models import build_model
+    from repro_torch.models.factory import TRAINING_LINE
     from repro_torch.training.metrics import MetricLogger
 
     cfg = spmd_config(args)
-    if cfg.family != DENSE:
+    if cfg.family in TRAINING_LINE:
         raise NotImplementedError(
-            f"--mode spmd trains the dense token models only; {args.arch} "
-            f"is {cfg.family!r} (ROADMAP.md §1 item 7)")
+            f"--mode spmd does not train the {cfg.family!r} family yet "
+            f"({args.arch}; ROADMAP.md §1: {TRAINING_LINE[cfg.family]})")
     device = resolve(args.device)
     if device.type == "cuda":
         disable_tf32()

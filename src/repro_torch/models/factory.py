@@ -5,11 +5,12 @@ models) and every token family: ``init``, ``apply``, ``init_cache``,
 ``prefill`` and ``decode_step``.  The AUDIO family's encoder runs at
 prefill on the batch's ``frame_embeddings`` (its cross-attention K/V go
 into the cache); the VLM family merges ``patch_embeddings`` at the
-``patch_mask`` positions.  The dense token models also train: ``loss``
-(one model), ``stacked_loss`` (the simulator's client-stacked units,
-per-client losses) and ``split_loss`` (the SPMD step's client prefix and
-server suffix); every other token family raises `NotImplementedError`
-there (ROADMAP §1 item 7).
+``patch_mask`` positions.  Every token family but the SSM one (xlstm)
+also trains: ``loss`` (one model), ``stacked_loss`` (the simulator's
+client-stacked units, per-client losses) and ``split_loss`` (the SPMD
+step's client prefix and server suffix), each adding the MoE blocks'
+load-balance loss as the reference does; xlstm raises
+`NotImplementedError` there (ROADMAP §1: xlstm training).
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-from repro_torch.config import ModelConfig, CNN, DENSE, VLM
+from repro_torch.config import ModelConfig, CNN, VLM
 from repro_torch.models import cnn as C
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -46,12 +47,8 @@ class Model:
 # the reference's fold size of the cross-entropy (tokens of a sequence a
 # chunk), as its ``REPRO_CE_CHUNK`` default
 CE_CHUNK = 512
-# the ROADMAP line each family's training waits on
-TRAINING_LINE = {
-    "ssm": "xlstm training, a backward for kernel 6",
-    "moe": "MoE training with its lb_loss aux",
-    "hybrid": "mamba training", "audio": "whisper training",
-    "vlm": "internvl2 training"}
+# the ROADMAP line the training of a family still waits on
+TRAINING_LINE = {"ssm": "xlstm training, a backward for kernel 6"}
 
 
 def _client_embed(emb, tokens):
@@ -92,13 +89,29 @@ def _chunked_ce(x, head, labels, mask, per_client: bool = False):
 
 
 def _merge_patches(x, patch_embeddings, patch_mask):
-    """Place patch embeddings (in order) at masked positions."""
-    idx = patch_mask.to(torch.int64).cumsum(dim=1) - 1
-    idx = idx.clamp(0, patch_embeddings.shape[1] - 1)
+    """Place patch embeddings (in order) at masked positions: x ``[*lead,
+    S, d]``, patch_embeddings ``[*lead, P, d]``, patch_mask ``[*lead, S]``
+    (``lead`` is ``(N, b)`` for client-stacked batches: each row merges
+    its own patches)."""
+    idx = patch_mask.to(torch.int64).cumsum(dim=-1) - 1
+    idx = idx.clamp(0, patch_embeddings.shape[-2] - 1)
     gathered = torch.gather(
-        patch_embeddings, 1,
+        patch_embeddings, -2,
         idx[..., None].expand(*idx.shape, patch_embeddings.shape[-1]))
     return torch.where(patch_mask[..., None], gathered.to(x.dtype), x)
+
+
+def _client_reps(stacked: dict) -> list:
+    """A client-stacked ``[N, R, ...]`` stack tree -> its R per-repetition
+    trees of ``[N, ...]`` leaves (views)."""
+    return [tree_map(lambda a, r=r: a[:, r], stacked)
+            for r in range(T.n_repeats(stacked, axis=1))]
+
+
+def _aux_total(aux):
+    """The sum over clients of a client-stacked stack's aux (``[N]``, or
+    0.0 without an MoE block)."""
+    return aux.sum() if torch.is_tensor(aux) else aux
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -141,25 +154,32 @@ def _build_transformer(cfg: ModelConfig) -> Model:
         """The sinusoidal table's first ``s`` rows, in the model's type."""
         return L.sinusoidal_table(s, cfg.d_model, dtype, device)
 
-    def _encode(params, frame_embeddings):
+    def _encode(enc_stack, final_norm, frame_embeddings):
+        """The encoder over ``frame_embeddings [*lead, Senc, d]``:
+        ``enc_stack`` the ``[R, ...]`` tree, or the per-repetition list
+        of client-stacked ``[N, ...]`` trees with ``lead`` ``(N, b)``."""
         enc_prog, _ = T.encoder_program(cfg)
-        s = frame_embeddings.shape[1]
-        dev = params["enc_final_norm"].device
+        s = frame_embeddings.shape[-2]
+        dev = final_norm.device
         x = torch.as_tensor(frame_embeddings, device=dev).to(dtype) \
             + _positions(s, dev)[None]
-        x, _ = T.stack_fwd(params["enc_stack"], x, cfg, enc_prog,
+        x, _ = T.stack_fwd(enc_stack, x, cfg, enc_prog,
                            {"positions": torch.arange(s, device=dev)[None, :]})
-        return L.rmsnorm(x, params["enc_final_norm"], cfg.norm_eps)
+        return L.rmsnorm(x, final_norm, cfg.norm_eps)
 
-    def _embed_inputs(params, batch):
+    def _embed_inputs(emb, batch):
+        """The embedded inputs of ``batch``: ``emb [V, d]`` and tokens
+        ``[B, S]``, or each client's own table ``emb [N, V, d]`` and
+        tokens ``[N, b, S]``.  VLM batches merge their patches; whisper
+        adds its sinusoidal positions."""
         tokens = batch["tokens"]
-        x = params["embed"][tokens]
+        x = emb[tokens] if emb.dim() == 2 else _client_embed(emb, tokens)
         if cfg.family == VLM and "patch_embeddings" in batch:
             x = _merge_patches(
                 x, torch.as_tensor(batch["patch_embeddings"], device=x.device),
                 torch.as_tensor(batch["patch_mask"], device=x.device))
         if cfg.is_enc_dec and cfg.rope_theta <= 0:
-            x = x + _positions(tokens.shape[1], x.device)[None]
+            x = x + _positions(tokens.shape[-1], x.device)[None]
         return x
 
     def _logits(params, x):
@@ -172,7 +192,9 @@ def _build_transformer(cfg: ModelConfig) -> Model:
         if window is not None:
             ctx["window"] = window
         if cfg.is_enc_dec:
-            ctx["enc_out"] = _encode(params, batch["frame_embeddings"])
+            ctx["enc_out"] = _encode(params["enc_stack"],
+                                     params["enc_final_norm"],
+                                     batch["frame_embeddings"])
         return ctx
 
     def apply(params, batch, window=None):
@@ -182,86 +204,111 @@ def _build_transformer(cfg: ModelConfig) -> Model:
 
     def _hidden(params, batch, window=None):
         tokens = batch["tokens"]
-        x = _embed_inputs(params, batch)
+        x = _embed_inputs(params["embed"], batch)
         x, aux = T.stack_fwd(params["stack"], x, cfg, program,
                              _ctx(params, batch, tokens.shape[1], x.device,
                                   window))
         return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
 
-    def _dense_only(what):
-        if cfg.family != DENSE:
+    def _trainable(what):
+        if cfg.family in TRAINING_LINE:
             raise NotImplementedError(
                 f"{what} of the {cfg.family!r} family ({cfg.arch_id}) is not "
-                "ported: only the dense token models train in the port "
-                f"(ROADMAP §1 item 7: {TRAINING_LINE.get(cfg.family, '')})")
+                f"ported (ROADMAP §1: {TRAINING_LINE[cfg.family]})")
+
+    def _lb(aux):
+        """The loss's load-balance term of a stack's summed aux."""
+        return 0.01 * aux / max(1, repeats)
 
     def loss(params, batch):
-        """Cross-entropy through `_chunked_ce` (the reference's ``loss``);
-        returns ``(ce + lb, {"ce", "lb_loss"})``."""
-        _dense_only("training")
+        """Cross-entropy through `_chunked_ce` plus the MoE load-balance
+        term (the reference's ``loss``); returns ``(ce + 0.01 · lb /
+        max(1, R), {"ce", "lb_loss"})``."""
+        _trainable("training")
         x, aux = _hidden(params, batch)
         head = params["embed"].T if cfg.tie_embeddings else params["head"]
         ce = _chunked_ce(x, head, batch["labels"], batch.get("loss_mask"))
-        lb = 0.01 * aux / max(1, repeats)
-        return ce + lb, {"ce": ce, "lb_loss": aux}
+        return ce + _lb(aux), {"ce": ce, "lb_loss": aux}
 
     def stacked_loss(units, batch, cell_size=None):
         """Per-client losses ``[N]`` of the simulator's client-stacked
-        unit list (``[{"embed"}, rep_1 .. rep_R, {"final_norm"[,
-        "head"]}]``, every leaf ``[N, ...]``) on a ``[N, b, S]`` batch:
-        client i's loss is ``loss`` of its own slice — the reference's
-        vmap of ``loss`` over clients, written as one forward whose
-        products run per client (`layers.mm`), whose norms take a
-        grouped ``[N, d]`` scale and whose attention folds the clients
-        into its batch.  ``cell_size`` (the grid runner's folded cells)
-        is not taken: token cells in `run_grid` are not ported."""
-        _dense_only("training")
+        unit list (``[{"embed"}, rep_1 .. rep_R, {"final_norm"[, "head"][,
+        "enc_stack", "enc_final_norm"]}]``, every leaf ``[N, ...]``) on a
+        ``[N, b, S]`` batch: client i's loss is ``loss`` of its own slice
+        — the reference's vmap of ``loss`` over clients, written as one
+        forward whose products run per client (`layers.mm`), whose norms
+        take a grouped ``[N, d]`` scale, whose attention folds the
+        clients into its batch and whose MoE blocks route each client's
+        tokens on their own.  Stubs (``patch_embeddings``/``patch_mask``,
+        ``frame_embeddings``) carry the client axis; a whisper batch
+        without frames raises ``KeyError``, as the reference's.
+        ``cell_size`` (the grid runner's folded cells) is not taken: token
+        cells in `run_grid` are not ported."""
+        _trainable("training")
         if cell_size is not None:
             raise NotImplementedError(
-                "token cells in run_grid are not ported (ROADMAP §1 item 7)")
-        tokens = batch["tokens"]
-        s = tokens.shape[2]
+                "token cells in run_grid are not ported (ROADMAP §1: token "
+                "cells in run_grid and mesh mode)")
+        s = batch["tokens"].shape[2]
         emb = units[0]["embed"]                               # [N, V, d]
-        x = _client_embed(emb, tokens)
-        ctx = {"positions": torch.arange(s, device=x.device)[None, :]}
-        x, _ = T.stack_fwd(list(units[1:-1]), x, cfg, program, ctx)
         head_u = units[-1]
+        x = _embed_inputs(emb, batch)
+        ctx = {"positions": torch.arange(s, device=x.device)[None, :]}
+        if cfg.is_enc_dec:
+            ctx["enc_out"] = _encode(_client_reps(head_u["enc_stack"]),
+                                     head_u["enc_final_norm"],
+                                     batch["frame_embeddings"])
+        x, aux = T.stack_fwd(list(units[1:-1]), x, cfg, program, ctx)
         x = L.rmsnorm(x, head_u["final_norm"], cfg.norm_eps)
         head = emb.transpose(1, 2) if cfg.tie_embeddings else head_u["head"]
-        return _chunked_ce(x, head, batch["labels"], batch.get("loss_mask"),
-                           per_client=True)
+        ce = _chunked_ce(x, head, batch["labels"], batch.get("loss_mask"),
+                         per_client=True)
+        return ce + _lb(aux)
 
     def split_loss(client_stacked, server, batch, *, remat=False):
         """HASFL split-training loss (paper Sec. III-B), as the
         reference's: each client's embedding and prefix repetitions run
         per client (client-stacked ``[N, c, ...]`` leaves, one product a
         client), the server concatenates every client's activations into
-        one batch of ``N·b`` sequences and runs the suffix once.  The tied
-        head is the client-mean embedding, transposed.  Batch: tokens,
-        labels ``[N, b, S]`` (and an optional ``loss_mask``)."""
-        _dense_only("training")
+        one batch of ``N·b`` sequences and runs the suffix once.  Whisper's
+        encoder is the server's: it encodes ``frame_embeddings [N, b,
+        Senc, d]`` once over the ``N·b`` rows, and each client's prefix
+        attends to its own rows.  The tied head is the client-mean
+        embedding, transposed.  Batch: tokens, labels ``[N, b, S]`` (an
+        optional ``loss_mask``, and the family's stubs).  Returns ``(ce +
+        0.01 · (Σ_c aux_c + aux_s) / max(1, R), {"ce"})``."""
+        _trainable("training")
         tokens = batch["tokens"]
         n, bsz, s = tokens.shape
         positions = torch.arange(s, device=tokens.device)[None, :]
-        emb = client_stacked["embed"]                         # [N, V, d]
-        x = _client_embed(emb, tokens)
+        enc_out = None
+        if cfg.is_enc_dec:
+            fe = batch["frame_embeddings"]
+            enc_out = _encode(server["enc_stack"], server["enc_final_norm"],
+                              fe.reshape(n * bsz, *fe.shape[2:]))
+        x = _embed_inputs(client_stacked["embed"], batch)     # [N, b, S, d]
+        ctx = {"positions": positions}
+        if enc_out is not None:
+            ctx["enc_out"] = enc_out.reshape(n, bsz, *enc_out.shape[1:])
+        aux_c = 0.0
         prefix = client_stacked["stack_prefix"]
-        c_reps = T.n_repeats(prefix, axis=1)
-        if c_reps:
-            reps = [tree_map(lambda a, r=r: a[:, r], prefix)
-                    for r in range(c_reps)]
-            x, _ = T.stack_fwd(reps, x, cfg, program,
-                               {"positions": positions}, remat=remat)
+        if T.n_repeats(prefix, axis=1):
+            x, aux_c = T.stack_fwd(_client_reps(prefix), x, cfg, program,
+                                   ctx, remat=remat)
         # activation hand-off: the client batches concatenated
         x = x.reshape(n * bsz, s, x.shape[-1])
-        x, _ = T.stack_fwd(server["stack_suffix"], x, cfg, program,
-                           {"positions": positions}, remat=remat)
+        ctx = {"positions": positions}
+        if enc_out is not None:
+            ctx["enc_out"] = enc_out
+        x, aux_s = T.stack_fwd(server["stack_suffix"], x, cfg, program, ctx,
+                               remat=remat)
         x = L.rmsnorm(x, server["final_norm"], cfg.norm_eps)
-        head = emb.mean(dim=0).T if cfg.tie_embeddings else server["head"]
+        head = client_stacked["embed"].mean(dim=0).T if cfg.tie_embeddings \
+            else server["head"]
         mask = batch.get("loss_mask")
         ce = _chunked_ce(x, head, batch["labels"].reshape(n * bsz, s),
                          None if mask is None else mask.reshape(n * bsz, s))
-        return ce, {"ce": ce}
+        return ce + _lb(_aux_total(aux_c) + aux_s), {"ce": ce}
 
     def init_cache(batch, cache_len, window=None, device=None):
         return T.cache_init(cfg, batch, cache_len, window, device)
@@ -273,7 +320,7 @@ def _build_transformer(cfg: ModelConfig) -> Model:
         ``patch_embeddings`` and ``patch_mask``) as tensors or arrays."""
         tokens = batch["tokens"]
         b, s = tokens.shape
-        x = _embed_inputs(params, batch)
+        x = _embed_inputs(params["embed"], batch)
         ctx = _ctx(params, batch, s, x.device, window)
         cache = T.cache_init(cfg, b, cache_len or s, window, x.device)
         x, cache = T.stack_prefill(params["stack"], cache, x, cfg, program,

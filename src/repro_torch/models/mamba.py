@@ -9,6 +9,14 @@ loop over time with an fp32 state.  The reference has no Pallas kernel
 for it; on the card the loop is plain PyTorch: the state-independent
 factors ``exp(dt·A)`` and ``dt·x·B`` are formed a chunk of steps at a time,
 so a step is three launches (update, readout, store).
+
+Training differentiates the loop with autograd, one chunk of steps at a
+time under `torch.utils.checkpoint`: the forward keeps only each chunk's
+entering state, and the backward recomputes a chunk's factors and states
+(``SCAN_CHUNK`` states of ``[rows, d_in, N]`` fp32 at once) before it
+differentiates them.  With client-stacked weights (leaves ``[N, ...]``,
+``x [N, b, S, d]``) every client's rows run in the same loop, each with its
+own conv, ``dt`` projection and ``A``.
 """
 from __future__ import annotations
 
@@ -16,8 +24,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.layers import _normal, dense_init, rmsnorm, silu
+from repro_torch.models.layers import _normal, dense_init, mm, rmsnorm, silu
 
 F32 = torch.float32
 SCAN_CHUNK = 64       # steps whose factors are formed at once
@@ -50,13 +59,22 @@ def mamba_init(gen, d: int, *, expand: int, state_dim: int, conv_dim: int,
     }
 
 
+def _per_client(p):
+    """A client-stacked leaf ``[N, *rest]`` viewed ``[N, 1, 1, *rest]``, to
+    broadcast over a stream's ``(b, S)`` axes."""
+    return p[:, None, None]
+
+
 def _causal_conv(x, w, b):
-    """Depthwise causal conv, fp32.  x: [B, S, C]; w: [K, C]."""
-    k, s = w.shape[0], x.shape[1]
+    """Depthwise causal conv, fp32.  x: [B, S, C]; w: [K, C]; b: [C] — or
+    per client, x [N, b, S, C], w [N, K, C], b [N, C]."""
+    k, s = w.shape[-2], x.shape[-2]
+    if w.dim() == 3:
+        w, b = _per_client(w), _per_client(b)
     xp = F.pad(x, (0, 0, k - 1, 0))
     out = torch.zeros(x.shape, dtype=F32, device=x.device)
     for i in range(k):
-        out = out + xp[:, i:i + s].float() * w[i]
+        out = out + xp[..., i:i + s, :].float() * w[..., i, :]
     return out + b
 
 
@@ -66,34 +84,62 @@ def _step(state, da, dbx):
     return torch.addcmul(dbx, da, state)
 
 
+def _scan_chunk(state, a, dt, x1, b_mat, c_mat):
+    """Up to `SCAN_CHUNK` steps of the selective scan from ``state [R,
+    d_in, N]`` (R: the stream's rows): dt, x1 ``[*lead, c, d_in]`` and
+    b_mat, c_mat ``[*lead, c, N]`` in the stream dtype, ``a`` broadcasting
+    against ``[*lead, c, d_in, N]``.  Returns (ys ``[R, c, d_in]`` in the
+    stream dtype, the state after the chunk)."""
+    c, d_in = dt.shape[-2:]
+    n = b_mat.shape[-1]
+    dt_f, x_f = dt.float(), x1.float()
+    da = torch.exp(dt_f[..., None] * a).reshape(-1, c, d_in, n)
+    dbx = ((dt_f * x_f)[..., None] * b_mat.float()[..., None, :]).reshape(
+        -1, c, d_in, n)
+    c_f = c_mat.float().reshape(-1, c, n)[..., None]     # [R, c, N, 1]
+    ys = torch.empty((da.shape[0], c, d_in), dtype=dt.dtype,
+                     device=dt.device)
+    for i in range(c):
+        state = _step(state, da[:, i], dbx[:, i])
+        ys[:, i] = torch.bmm(state, c_f[:, i])[..., 0]
+    return ys, state
+
+
 def mamba_block(params: dict, x, *, state_dim: int, eps: float = 1e-5):
-    """Full-sequence selective scan. x: [B, S, d]; returns block output."""
-    b, s, d = x.shape
+    """Full-sequence selective scan. x: [B, S, d] (or [N, b, S, d] on
+    client-stacked weights); returns block output."""
+    *lead, s, d = x.shape
     dtype = x.dtype
+    per_client = _per_client if params["a_log"].dim() == 3 \
+        else (lambda p: p)
     xn = rmsnorm(x, params["norm_in"], eps)
-    x1, z = (xn @ params["w_in"]).chunk(2, dim=-1)       # [B, S, d_in] each
+    x1, z = mm(xn, params["w_in"]).chunk(2, dim=-1)      # [.., S, d_in] each
     x1 = silu(_causal_conv(x1, params["conv_w"],
                              params["conv_b"])).to(dtype)
-    bc = x1 @ params["w_bc"].to(dtype)                   # [B, S, 2N]
+    bc = mm(x1, params["w_bc"].to(dtype))                # [.., S, 2N]
     b_mat, c_mat = bc.chunk(2, dim=-1)
-    dt = F.softplus(x1.float() @ params["w_dt"] + params["b_dt"]).to(dtype)
-    a = -torch.exp(params["a_log"])                      # [d_in, N]
+    dt = F.softplus(mm(x1.float(), params["w_dt"])
+                    + per_client(params["b_dt"])).to(dtype)
+    a = per_client(-torch.exp(params["a_log"]))          # [.., d_in, N]
 
     d_in = x1.shape[-1]
-    state = torch.zeros((b, d_in, state_dim), dtype=F32, device=x.device)
-    ys = torch.empty((b, s, d_in), dtype=dtype, device=x.device)
+    state = torch.zeros((math.prod(lead), d_in, state_dim), dtype=F32,
+                        device=x.device)
+    ys = []
     for t0 in range(0, s, SCAN_CHUNK):
-        sl = slice(t0, min(s, t0 + SCAN_CHUNK))
-        dt_f, x_f = dt[:, sl].float(), x1[:, sl].float()
-        da = torch.exp(dt_f[..., None] * a)              # [B, c, d_in, N]
-        dbx = (dt_f * x_f)[..., None] * b_mat[:, sl].float()[:, :, None, :]
-        c_f = c_mat[:, sl].float()[..., None]            # [B, c, N, 1]
-        for i in range(da.shape[1]):
-            state = _step(state, da[:, i], dbx[:, i])
-            ys[:, t0 + i] = torch.bmm(state, c_f[:, i])[..., 0]
-    y = ys + (params["d_skip"] * x1.float()).to(dtype)
+        part = [t[..., t0:t0 + SCAN_CHUNK, :]
+                for t in (dt, x1, b_mat, c_mat)]
+        if torch.is_grad_enabled():
+            y_c, state = checkpoint(_scan_chunk, state, a, *part,
+                                    use_reentrant=False)
+        else:
+            y_c, state = _scan_chunk(state, a, *part)
+        ys.append(y_c)
+    ys = (ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)).reshape(
+        *lead, s, d_in)
+    y = ys + (per_client(params["d_skip"]) * x1.float()).to(dtype)
     y = y * silu(z)
-    return y @ params["w_out"]
+    return mm(y, params["w_out"])
 
 
 def mamba_decode_init(batch: int, d_in: int, state_dim: int, conv_dim: int,

@@ -154,66 +154,81 @@ def _fold(t):
 
 
 def _xattn_kv(p, cfg, enc):
-    """Cross-attention K, V ``[B, Senc, Hkv, hd]`` of the encoder output."""
-    b, se, _ = enc.shape
+    """Cross-attention K, V ``[*lead, Senc, Hkv, hd]`` of the encoder
+    output ``enc [*lead, Senc, d]`` (``lead`` is ``(N, b)`` on
+    client-stacked weights: each client's rows of the encoder output)."""
+    *lead, se, _ = enc.shape
     hd = cfg.resolved_head_dim
-    return ((enc @ p["wk"]).reshape(b, se, cfg.n_kv_heads, hd),
-            (enc @ p["wv"]).reshape(b, se, cfg.n_kv_heads, hd))
+    return (L.mm(enc, p["wk"]).reshape(*lead, se, cfg.n_kv_heads, hd),
+            L.mm(enc, p["wv"]).reshape(*lead, se, cfg.n_kv_heads, hd))
 
 
 def _xattn(p, cfg, x, k, v):
-    b, s, _ = x.shape
+    *lead, s, _ = x.shape
     xn = L.rmsnorm(x, p["norm"], cfg.norm_eps)
-    q = (xn @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.resolved_head_dim)
-    o = A.attention(q, k, v, causal=False, window=0)
-    return o.reshape(b, s, -1) @ p["wo"]
+    q = L.mm(xn, p["wq"]).reshape(*lead, s, cfg.n_heads,
+                                  cfg.resolved_head_dim)
+    o = A.attention(_fold(q), _fold(k), _fold(v), causal=False, window=0)
+    return L.mm(o.reshape(*x.shape[:-1], -1), p["wo"])
 
 
-def _moe(p, cfg, x):
+def _moe(p, cfg, x, lb: bool):
+    """The MoE block's delta and, with ``lb``, its load-balance loss
+    (``[N]`` on client-stacked weights; else None).  Serving's prefill and
+    decode ask for no loss, so they skip its math unless `moe.RECORD`
+    records the aux."""
     record = M.RECORD is not None
     out, aux = M.moe_ffn(p, L.rmsnorm(x, p["norm"], cfg.norm_eps),
                          top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
-                         return_aux=record)
+                         return_aux=lb or record)
     if record:
         M.RECORD.append(aux)
-    return out
+    return out, aux["lb_loss"] if lb else None
 
 
-def block_fwd(kind: str, p: dict, x, cfg: ModelConfig, ctx: dict):
-    """Returns the block's delta; the caller adds the residual.  ``attn``,
-    ``attn_nc``, ``ffn`` and ``ffn_gelu`` also take client-stacked
-    weights (leaves ``[N, ...]``) with ``x [N, b, S, d]``: the port's form
-    of the reference's vmap over clients."""
+def block_fwd(kind: str, p: dict, x, cfg: ModelConfig, ctx: dict,
+              lb: bool = False):
+    """Returns ``(delta, aux)``; the caller adds the residual.  ``aux`` is
+    an MoE block's load-balance loss when ``lb`` asks for it, else None.
+    Every block also takes client-stacked weights (leaves ``[N, ...]``)
+    with ``x [N, b, S, d]``: the port's form of the reference's vmap over
+    clients."""
     if kind in ("attn", "attn_nc"):
         causal = kind == "attn" and cfg.causal
         q, k, v = _qkv(p, cfg, x, ctx["positions"])
         window = ctx.get("window", cfg.sliding_window)
         o = A.attention(_fold(q), _fold(k), _fold(v), causal=causal,
                         window=window if causal else 0)
-        return L.mm(o.reshape(*x.shape[:-1], -1), p["wo"])
+        return L.mm(o.reshape(*x.shape[:-1], -1), p["wo"]), None
     if kind == "xattn":
-        return _xattn(p, cfg, x, *_xattn_kv(p, cfg, ctx["enc_out"]))
+        return _xattn(p, cfg, x, *_xattn_kv(p, cfg, ctx["enc_out"])), None
     if kind == "ffn":
-        return L.swiglu(p, L.rmsnorm(x, p["norm"], cfg.norm_eps))
+        return L.swiglu(p, L.rmsnorm(x, p["norm"], cfg.norm_eps)), None
     if kind == "ffn_gelu":
-        return L.gelu_mlp(p, L.rmsnorm(x, p["norm"], cfg.norm_eps))
+        return L.gelu_mlp(p, L.rmsnorm(x, p["norm"], cfg.norm_eps)), None
     if kind == "moe":
-        return _moe(p, cfg, x)
+        return _moe(p, cfg, x, lb)
     if kind == "mamba":
         return MB.mamba_block(p, x, state_dim=cfg.ssm_state_dim,
-                              eps=cfg.norm_eps)
+                              eps=cfg.norm_eps), None
     if kind == "mlstm":
-        return S.mlstm_block(p, x, cfg.n_heads, cfg.norm_eps)
+        return S.mlstm_block(p, x, cfg.n_heads, cfg.norm_eps), None
     if kind == "slstm":
-        return S.slstm_block(p, x, cfg.n_heads, cfg.norm_eps)
+        return S.slstm_block(p, x, cfg.n_heads, cfg.norm_eps), None
     raise ValueError(kind)
 
 
 def layer_fwd(layer: tuple, params: dict, x, cfg: ModelConfig, ctx: dict):
-    """One layer = sequence of blocks, each with a residual connection."""
+    """One layer = sequence of blocks, each with a residual connection;
+    returns ``(x, aux)``, the layer's summed MoE load-balance losses (0.0
+    without an MoE block), as the reference."""
+    aux_sum = 0.0
     for bi, kind in enumerate(layer):
-        x = x + block_fwd(kind, params[f"b{bi}"], x, cfg, ctx)
-    return x
+        delta, aux = block_fwd(kind, params[f"b{bi}"], x, cfg, ctx, lb=True)
+        x = x + delta
+        if aux is not None:
+            aux_sum = aux_sum + aux
+    return x, aux_sum
 
 
 # ---------------------------------------------------------------------------
@@ -259,26 +274,32 @@ def stack_fwd(stacked, x, cfg: ModelConfig, program, ctx: dict,
 
     ``stacked`` is the ``[R, ...]`` tree or a list of per-repetition
     trees (the simulator's units).  With ``x [N, b, S, d]`` every leaf
-    carries the client axis ``[N, ...]`` (the dense blocks only).
-    ``remat`` recomputes each super-block in the backward
-    (`torch.utils.checkpoint`, non-reentrant), as the reference's
-    ``jax.checkpoint(superblock)``.  ``aux`` is the reference's summed MoE
-    load-balance loss slot; the port's stacks carry none (0.0), since MoE
-    training is not ported (ROADMAP §1 item 7)."""
+    carries the client axis ``[N, ...]``.  ``remat`` recomputes each
+    super-block in the backward (`torch.utils.checkpoint`,
+    non-reentrant), as the reference's ``jax.checkpoint(superblock)``; the
+    super-block returns its aux, so the loss's gradient reaches the
+    routers through the recomputation.  ``aux`` is the MoE load-balance
+    losses summed per super-block and over the repetitions, as the
+    reference's (``[N]`` on client-stacked weights; 0.0 without an MoE
+    block)."""
     reps = stacked if isinstance(stacked, list) \
         else unstack_params(stacked, n_repeats(stacked))
 
     def superblock(x, rep):
+        aux_total = 0.0
         for li, layer in enumerate(program):
-            x = layer_fwd(layer, rep[f"l{li}"], x, cfg, ctx)
-        return x
+            x, aux = layer_fwd(layer, rep[f"l{li}"], x, cfg, ctx)
+            aux_total = aux_total + aux
+        return x, aux_total
 
+    aux = 0.0
     for rep in reps:
         if remat and torch.is_grad_enabled():
-            x = checkpoint(superblock, x, rep, use_reentrant=False)
+            x, a = checkpoint(superblock, x, rep, use_reentrant=False)
         else:
-            x = superblock(x, rep)
-    return x, 0.0
+            x, a = superblock(x, rep)
+        aux = aux + a
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -369,7 +390,7 @@ def block_decode(kind: str, p: dict, x, cache, cfg: ModelConfig, ctx: dict):
     if kind == "xattn":
         return _xattn(p, cfg, x, cache["k"], cache["v"]), cache
     if kind in ("ffn", "ffn_gelu", "moe"):
-        return block_fwd(kind, p, x, cfg, ctx), cache
+        return block_fwd(kind, p, x, cfg, ctx)[0], cache
     if kind == "mamba":
         return MB.mamba_block_decode(p, x, cache,
                                      state_dim=cfg.ssm_state_dim,
@@ -435,6 +456,6 @@ def stack_prefill(stacked: dict, caches: dict, x, cfg: ModelConfig, program,
                     cache_b["v"].copy_(v)
                     delta = _xattn(p, cfg, x, k, v)
                 else:
-                    delta = block_fwd(kind, p, x, cfg, ctx)
+                    delta, _ = block_fwd(kind, p, x, cfg, ctx)
                 x = x + delta
     return x, caches

@@ -292,6 +292,26 @@ rows = train.main(["--mode", "spmd", "--device", "cpu", "--steps", "2",
                    "--seq", "8", "--layers", "2", "--d-model", "64",
                    "--clients", "2", "--batch", "2", "--eval-every", "0"])
 assert len(rows) == 2, rows
+rows = train.main(["--mode", "spmd", "--device", "cpu", "--arch",
+                   "dbrx-132b", "--steps", "1", "--seq", "8", "--layers", "2",
+                   "--d-model", "64", "--clients", "2", "--batch", "2",
+                   "--eval-every", "0"])
+assert len(rows) == 1, rows
+import torch
+from repro_torch.core.sfl import make_hasfl_train_step
+from repro_torch.models import build_model
+cfg = C.reduced(C.get_config("whisper-medium"))
+init_state, step = make_hasfl_train_step(
+    build_model(cfg), n_clients=2, cut_reps=1, agg_interval=2,
+    optimizer_name="sgd", lr=1e-2)
+state = init_state(torch.Generator().manual_seed(0), "cpu")
+batch = {"tokens": torch.zeros((2, 2, 8), dtype=torch.long),
+         "labels": torch.ones((2, 2, 8), dtype=torch.long),
+         "frame_embeddings": torch.randn(
+             (2, 2, cfg.encoder_seq, cfg.d_model),
+             generator=torch.Generator().manual_seed(1))}
+state, m = step(state, batch)
+assert bool(torch.isfinite(m["loss"])), m
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))

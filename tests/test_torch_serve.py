@@ -361,7 +361,7 @@ def test_reduced_programs_match_reference(arch):
 
 def test_unported_families_and_cnn_decode_raise():
     """Every token family builds; what still raises is a CNN's decode path
-    and the training loss of every token family but the dense one."""
+    and the training loss of the SSM family (xlstm)."""
     for arch in TC.list_archs():
         if not TC.get_config(arch).is_cnn:
             t_build(TC.reduced(TC.get_config(arch)))
@@ -369,6 +369,5 @@ def test_unported_families_and_cnn_decode_raise():
     for fn in (cnn.init_cache, cnn.prefill, cnn.decode_step):
         with pytest.raises(NotImplementedError, match="decode"):
             fn(None, None)
-    for arch in ("xlstm-350m", "dbrx-132b", "whisper-medium"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_build(TC.reduced(TC.get_config(arch))).loss(None, None)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_build(TC.reduced(TC.get_config("xlstm-350m"))).loss(None, None)

@@ -7,9 +7,13 @@ on the CPU.
   reference).
 - The command line parses to the reference's arguments, defaults
   included (plus ``--device``).
-- ``--mode spmd`` and the ``legacy``/``vectorized`` engines raise
-  `NotImplementedError`; without ``--device`` and without a card the
-  launcher raises rather than fall back to the CPU.
+- ``--mode spmd --device cpu`` on a reduced MoE arch logs the
+  reference's rows from the reference's initial state; on whisper, whose
+  loss needs the frames the launcher does not make, both raise
+  ``KeyError('frame_embeddings')``.
+- ``--mode spmd`` on xlstm and the ``legacy``/``vectorized`` engines
+  raise `NotImplementedError`; without ``--device`` and without a card
+  the launcher raises rather than fall back to the CPU.
 """
 import csv
 import dataclasses
@@ -98,6 +102,76 @@ def test_edge_spec_matches_the_references_spec():
         scenario_seed=7, rounds=6, eval_every=2, engine="scan",
         sfl=RC.SFLConfig(n_devices=4, agg_interval=3, lr=0.05))
     assert ours.to_json() == theirs.to_json()
+
+
+SPMD_ARGS = ["--mode", "spmd", "--steps", "3", "--seq", "16", "--layers",
+             "2", "--d-model", "64", "--clients", "2", "--batch", "2",
+             "--lr", "3e-4", "--eval-every", "0"]
+
+
+def _reference_main(monkeypatch, argv):
+    monkeypatch.setattr("repro.utils.cache.enable_compilation_cache",
+                        lambda *a, **k: None)
+    monkeypatch.setattr(sys, "argv", ["train"] + argv)
+    RTRAIN.main()
+
+
+def test_spmd_mode_on_an_moe_arch_logs_the_references_rows(tmp_path,
+                                                           monkeypatch):
+    """``--mode spmd`` on an fp32 copy of dbrx, cut by the launcher to 2
+    layers (an MoE block in the client prefix, the lb term in the loss),
+    3 Adam steps: started from the reference's initial state, the port's
+    logged losses are the reference's rows within 1e-5."""
+    import jax
+    import repro.core.sfl as RSFL
+    import repro_torch.core.sfl as TSFL
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.training.optim import make_optimizer
+
+    name = "dbrx-cli-f32"
+    for C in (RC, TC):
+        C.register(dataclasses.replace(C.get_config("dbrx-132b"),
+                                       arch_id=name, dtype="float32"))
+    argv = SPMD_ARGS + ["--arch", name]
+    seen = {}
+    r_make, t_make = RSFL.make_hasfl_train_step, TSFL.make_hasfl_train_step
+
+    def r_recording(*a, **k):
+        init, step = r_make(*a, **k)
+        return (lambda rng: seen.setdefault("state", init(rng))), step
+
+    def t_from_reference(model, **k):
+        _, step = t_make(model, **k)
+        opt = make_optimizer(k["optimizer_name"], k["lr"])
+
+        def init(gen, device=None):
+            state = jax.tree_util.tree_map(np.asarray, seen["state"])
+            c, s = (params_from_numpy(state[p], model.cfg, device)
+                    for p in ("client", "server"))
+            return {"client": c, "server": s, "step": 0,
+                    "opt": opt.init({"client": c, "server": s})}
+        return init, step
+
+    monkeypatch.setattr(RSFL, "make_hasfl_train_step", r_recording)
+    monkeypatch.setattr(TSFL, "make_hasfl_train_step", t_from_reference)
+    path = tmp_path / "ref.csv"
+    _reference_main(monkeypatch, argv + ["--csv", str(path)])
+    with open(path) as f:
+        ref = [float(r["loss"]) for r in csv.DictReader(f)]
+    rows = TRAIN.main(argv + ["--device", "cpu"])
+    assert [r["step"] for r in rows] == [1, 2, 3]
+    np.testing.assert_allclose([r["loss"] for r in rows], ref, rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_spmd_mode_on_whisper_raises_as_the_reference(monkeypatch):
+    """The launcher's batch holds tokens and labels only: whisper's
+    split loss asks for the frames and both packages raise."""
+    argv = SPMD_ARGS + ["--arch", "whisper-medium", "--steps", "1"]
+    with pytest.raises(KeyError, match="frame_embeddings"):
+        _reference_main(monkeypatch, argv)
+    with pytest.raises(KeyError, match="frame_embeddings"):
+        TRAIN.main(argv + ["--device", "cpu"])
 
 
 @pytest.mark.parametrize("argv,match", [
