@@ -182,6 +182,39 @@ nothing of the reference package.  Phases, each printing one JSON line:
    on the card records whether the MoE backward repeats bitwise.
 24. ``cli_spmd``: ``python -m repro_torch.launch.train --mode spmd`` in
    process on the card (`SPMD_CLI`): a row a step, finite losses.
+25. ``grid_lm``: four smollm-135m cells at published widths (`GRID_LM`:
+   N=4, S=128, 2048 sequences, 6 rounds, I=3, b=16, cut 1 or 3 x seed 0
+   or 1) through `run_grid`, with ``runner="sequential"`` and then
+   folded; counters zeroed and read around each.  Every cell bitwise
+   equal both ways (results and parameters), the products (one
+   `torch.bmm` a cell each way) counted equal, kernel 2 ⌈members·272/64⌉
+   launches a dispatch round, kernels 4-5 fewer folded.  Seconds a
+   cell-round both ways, policy seconds, dispatches, peaks.
+26. ``mesh_lm``: mesh mode on smollm-135m (`MESH_LM`: 8 slots of a
+   population of 1024 on 4 edge servers, world-size-1 NCCL group, 6
+   rounds at I=2, two rotations): kernel 3 ⌈272/64⌉ launches a round on
+   its 211 bf16 leaves and 61 fp32 ones, kernel 2 none, the test loss
+   falls, every leaf moved; seconds a round, all-reduce ms, policy
+   share, peak; then kernel 3 on copies of the last two rounds (round 5,
+   where the client-specific leaves keep, and the aggregation round)
+   against its plain version within one bf16 ulp, each timed beside its
+   bytes bound.
+27. ``dynamic_lm``: smollm-135m (`DYNAMIC_LM`, N=4, 6 rounds) under
+   ``churn-heavy`` with deadline faults and then on the streaming plane
+   (`TRAFFIC`), each uninterrupted, checkpointed every 3 rounds (~1.1 GB
+   a snapshot) and resumed from round 3, bitwise.
+
+``grid_cross`` also folds token grids (`TOKEN_GRIDS`: smollm-tiny fp32
+and bf16, reduced dbrx fp32), each cell bitwise its own run on the card;
+``mesh_cross`` also runs a smollm-tiny mesh cell (2 edges, a bank of 64,
+kernel 3) card against CPU in fp32 (losses and parameters 1e-4) and bf16
+(losses 1e-3); ``dynamic_cross`` also the reference's resume spec
+(`tests/test_resume.py`, bf16) card against CPU (losses 1e-3); the
+``kernels`` phase also holds kernel 3 on bf16 leaves with a bf16 mean;
+``token_families`` runs qwen3, glm4, phi3, llama4, jamba and internvl2
+(`reduced`, fp32) through a two-cell `run_grid` (bitwise), mesh mode
+with and without a bank, and a scenario and a traffic cell resumed
+bitwise, each on the card.
 
 The summary line gives the two backward kernels rows of their own
 (``flash_attention_bwd``, ``rmsnorm_bwd``, at ``train_lm``'s most
@@ -730,7 +763,35 @@ def _clip_ext_checks(detail):
                          / PEAK_BYTES * 1e3))
         del p, g, spec, common
     detail["clip_sgd_ext_vgg16_n16"] = rows
+    # bf16 leaves (a token model's units in mesh mode): a bf16 mean, as
+    # the two-tier combine makes it in the leaf's type, widened by the
+    # wrapper; the plain version in fp32 rounded once (the kernel's
+    # arithmetic) within one bf16 ulp, each (u, keep), aligned and not
+    bf16_err = 0.0
+    for size in (576, 576 * 1536 + 3, 49152):
+        p = torch.randn((n, size), device="cuda", generator=gen) \
+            .to(torch.bfloat16)
+        g = torch.randn((n, size), device="cuda", generator=gen) \
+            .to(torch.bfloat16)
+        common = torch.randn(size, device="cuda", generator=gen) \
+            .to(torch.bfloat16)
+        for keep_on in (True, False):
+            keep = torch.full((n,), keep_on, device="cuda")
+            for use in (True, False):
+                u = torch.tensor(use, device="cuda")
+                want = CS.clip_sgd_ext_plain(
+                    p.float(), g.float(), scale, keep, common.float(), u,
+                    gamma=gamma).to(torch.bfloat16).float()
+                got = CS.clip_sgd_ext_kernel(p.clone(), g, scale, keep,
+                                             common, u, gamma=gamma).float()
+                diff = (got - want).abs()
+                check(bool((diff <= 2 ** -7 * want.abs() + 1e-6).all()),
+                      f"clip_sgd_ext bf16 D={size} keep={keep_on} u={use}: "
+                      f"{float(diff.max())} over one bf16 ulp")
+                bf16_err = max(bf16_err, float(diff.max()))
+        del p, g, common
     err, tot = _round_checks(gen, n, gamma, ext=True)
+    tot["bf16_max_abs_err"] = bf16_err
     tot["max_abs_err"] = max(worst, err)
     detail["clip_sgd_ext_round_n16"] = tot
     return tot
@@ -1369,17 +1430,20 @@ def phase_train():
     return out
 
 
-def _allreduce_ms(group) -> float:
-    """Card time of one mesh round's all-reduces: per VGG-16 leaf, the
-    [D] edge-sum total and the survivor count (CUDA events, 5 calls after
-    a warm-up each, summed over the 32 leaves)."""
+def _allreduce_ms(group, leaves=None) -> float:
+    """Card time of one mesh round's all-reduces: per leaf, the [D]
+    edge-sum total and the survivor count in the leaf's type (CUDA events,
+    5 calls after a warm-up each, summed over the leaves); ``leaves``:
+    (D, dtype) pairs, by default the 32 VGG-16 leaves in fp32."""
     import torch
     import torch.distributed as dist
 
+    if leaves is None:
+        leaves = [(size, torch.float32) for size in vgg16_leaf_sizes()]
     total = 0.0
-    cnt = torch.ones((), device="cuda")
-    for size in vgg16_leaf_sizes():
-        buf = torch.ones(size, device="cuda")
+    for size, dtype in leaves:
+        buf = torch.ones(size, device="cuda", dtype=dtype)
+        cnt = torch.ones((), device="cuda", dtype=dtype)
         total += time_ms(lambda: (dist.all_reduce(buf, group=group),
                                   dist.all_reduce(cnt, group=group)))
     return total
@@ -1537,6 +1601,60 @@ def phase_mesh_cross():
     check(loss_err <= CROSS_TOL, f"mesh_cross: losses differ by {loss_err}")
     check(param_err <= CROSS_TOL,
           f"mesh_cross: parameters differ by {param_err}")
+    _mesh_cross_token()
+
+
+def _mesh_cross_token():
+    """A smollm-tiny mesh cell (N=4 on 2 edge servers, a cohort bank of
+    64, HASFL on priors, kernel 3) on the card against the CPU from the
+    same weights, in fp32 and at its registered bf16: decisions, clocks
+    and gather plans bitwise; losses within 1e-4 (fp32) or 1e-3 (bf16),
+    parameters within 1e-4 at fp32 (recorded at bf16, where a weight
+    moves by whole ulps).  Each device runs on its own world of one (NCCL,
+    then gloo); no process group is left."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.api import ExperimentSpec, Session
+    from repro_torch.config import SFLConfig
+    from repro_torch.mesh import MeshSpec
+
+    out = {"phase": "mesh_cross_token"}
+    bad = []
+    for dtype, tol in (("float32", CROSS_TOL), ("bfloat16", 1e-3)):
+        cfg = _register_cut("smollm-tiny", f"smollm-tiny-mesh-{dtype}",
+                            dtype)
+        spec = ExperimentSpec(
+            arch=cfg.arch_id, n_clients=4, partition="iid", n_train=128,
+            n_test=16, seq_len=16, rounds=4, eval_every=2, policy="hasfl",
+            estimate=False, update_impl="kernel",
+            sfl=SFLConfig(lr=0.05, agg_interval=2),
+            mesh=MeshSpec(devices=1, n_edges=2, population=64))
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            # the seeded init is drawn on the host: the same on both
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            sess = Session(spec, device=dev)
+            plans = _recording(sess)
+            runs[dev] = (sess.run(), plans, _host_f32(sess.sim._stacked))
+            del sess
+        dist.destroy_process_group()
+        (rg, pg, wg), (rc, pc, wc) = runs["cuda"], runs["cpu"]
+        loss_err = max(abs(a - b) for a, b in zip(
+            rg.train_loss + rg.test_loss, rc.train_loss + rc.test_loss))
+        param_err = max(float(np.max(np.abs(a - b)))
+                        for a, b in zip(wg, wc))
+        row = dict(decisions=_same(rg.b_history, rc.b_history)
+                   and _same(rg.cut_history, rc.cut_history),
+                   clock=rg.clock == rc.clock, plans=_same(pg, pc),
+                   loss_max_err=loss_err, param_max_err=param_err)
+        out[dtype] = row
+        bad += [f"{dtype}: {k}" for k, v in row.items() if v is False]
+        if loss_err > tol or (dtype == "float32" and param_err > tol):
+            bad.append(f"{dtype}: losses {loss_err} / parameters "
+                       f"{param_err} over {tol}")
+    emit(out)
+    check(not bad, "mesh_cross token: " + "; ".join(bad))
 
 
 def _recording(sess):
@@ -1629,13 +1747,28 @@ def _grid_witness(specs, fold_library: bool = False):
     return rows
 
 
+# grid_cross's token grids: (arch, dtype, cut) at smollm-tiny's widths or
+# `reduced` (dbrx: 2 layers, 4 experts top-2), each over TOKEN_GRID_CELLS:
+# two b buckets (8 and 16), seeds crossed within the b=8 bucket (cells
+# reading their own data), other cuts, and HASFL on priors
+TOKEN_GRIDS = {"smollm_fp32": ("smollm-tiny", "float32", {}),
+               "smollm_bf16": ("smollm-tiny", "bfloat16", {}),
+               "dbrx_fp32": ("dbrx-132b", "float32", {"n_layers": 2})}
+TOKEN_GRID_CELLS = [dict(policy="fixed(b=4,cut=1)", seed=0),
+                    dict(policy="fixed(b=4,cut=2)", seed=1),
+                    dict(policy="fixed(b=8,cut=1)", seed=1),
+                    dict(policy="hasfl", seed=0)]
+
+
 def phase_grid_cross(detail):
     """`run_grid` on the card against each cell's own `run()`, at
     ``cross_device``'s sizes: grid (a), three policies crossing pow2
     buckets with the estimating controller, and grid (b), seeds x
-    partitions (cells reading their own data).  Decisions, clocks, gather
-    plans, losses, accuracies and parameters bitwise; the op-by-op
-    witness of one folded round body goes to ``--detail``."""
+    partitions (cells reading their own data); then the token grids
+    (`TOKEN_GRIDS`: smollm-tiny in fp32 and bf16, reduced dbrx in fp32).
+    Decisions, clocks, gather plans, losses, accuracies and parameters
+    bitwise; the op-by-op witness of one folded round body goes to
+    ``--detail``."""
     import numpy as np
     import torch
     from repro_torch.api import ExperimentSpec, Session, grid, run_grid
@@ -1652,12 +1785,18 @@ def phase_grid_cross(detail):
         "b": [dict(policy="hasfl", seed=s, partition=p)
               for s in (0, 1) for p in ("iid", "noniid-shards")],
     }
+    grids = {name: [dict(base, **c) for c in cells]
+             for name, cells in grids.items()}
+    for name, (arch, dtype, cut) in TOKEN_GRIDS.items():
+        cfg = _register_cut(arch, f"{arch}-grid-{dtype}", dtype, **cut)
+        grids[name] = [dict(base, arch=cfg.arch_id, n_train=128, n_test=16,
+                            seq_len=16, **c) for c in TOKEN_GRID_CELLS]
     same = lambda xs, ys: len(xs) == len(ys) and all(
         np.array_equal(x, y) for x, y in zip(xs, ys))
     out = {"phase": "grid_cross", "arch": base["arch"]}
     bad = []
     for name, cells in grids.items():
-        specs = [ExperimentSpec(**dict(base, **c)) for c in cells]
+        specs = [ExperimentSpec(**c) for c in cells]
         alone = [Session(s) for s in specs]
         plans_alone = [_recording(s) for s in alone]
         seq = [s.run() for s in alone]
@@ -1694,7 +1833,9 @@ def phase_grid_cross(detail):
                         for d in grid.run_group.dispatches],
             launches=launches, cells_bitwise=rows,
             train_loss=[r.train_loss for r in res])
-        check(launches["batched_matmul"] > 0 and launches["clip_sgd"] > 0,
+        main = ("flash_attention", "rmsnorm") if name in TOKEN_GRIDS \
+            else ("batched_matmul",)
+        check(all(launches[k] > 0 for k in main + ("clip_sgd",)),
               f"grid_cross {name}: the kernels never launched")
         check(len({tuple(r.train_loss) for r in res}) == len(res),
               f"grid_cross {name}: cells do not differ")
@@ -1702,8 +1843,8 @@ def phase_grid_cross(detail):
     # the first stage at which each differs from the per-cell bodies
     for key, fold_library in (("grid_witness", False),
                               ("grid_witness_library_folded", True)):
-        witness = _grid_witness([ExperimentSpec(**dict(base, **c))
-                                 for c in grids["b"]], fold_library)
+        witness = _grid_witness([ExperimentSpec(**c) for c in grids["b"]],
+                                fold_library)
         detail[key] = witness
         out[key + "_first_difference"] = next(
             (w for w in witness if not w["bitwise"]), None)
@@ -1917,14 +2058,13 @@ def _timed_snapshots(sess):
     return spent
 
 
-def _dynamic_runs(spec, name, record):
-    """The full-width checkpoint drill of the ``scenario`` and ``traffic``
-    phases: ``spec`` run uninterrupted on the card (launch counters zeroed
-    just before and read just after, peak memory, policy seconds), run
-    again writing a
-    snapshot every `CHECKPOINT_EVERY` rounds into a temporary directory
-    under build/ (snapshot seconds), then `Session.resume` from the first
-    snapshot runs the rest.  ``record(sess)`` wraps what the phase reads
+def _dynamic_runs(spec, name, record, every=CHECKPOINT_EVERY):
+    """The full-width checkpoint drill of the ``scenario``, ``traffic`` and
+    ``dynamic_lm`` phases: ``spec`` run uninterrupted on the card (launch
+    counters zeroed just before and read just after, peak memory, policy
+    seconds), run again writing a snapshot every ``every`` rounds into a
+    temporary directory under build/ (snapshot seconds), then
+    `Session.resume` from the first snapshot runs the rest.  ``record(sess)`` wraps what the phase reads
     and returns it.  Returns the three (session, result, recorded, wall
     seconds), the first run's launches, peak and policy seconds, and the
     second's snapshot seconds and bytes; the directory is removed."""
@@ -1942,7 +2082,7 @@ def _dynamic_runs(spec, name, record):
         for kind in ("whole", "checkpointed", "resumed"):
             gc.collect()
             torch.cuda.empty_cache()
-            ck = spec.replace(checkpoint_every=CHECKPOINT_EVERY,
+            ck = spec.replace(checkpoint_every=every,
                               checkpoint_dir=ckpt_dir)
             if kind == "whole":
                 sess = Session(spec)
@@ -1950,7 +2090,7 @@ def _dynamic_runs(spec, name, record):
                 sess = Session(ck)
                 snap_s = _timed_snapshots(sess)
             else:
-                sess = Session.resume(ck, step=CHECKPOINT_EVERY)
+                sess = Session.resume(ck, step=every)
             recorded = record(sess)
             if kind == "whole":
                 policy_s = _timed_policies([sess])
@@ -1976,14 +2116,21 @@ def _dynamic_runs(spec, name, record):
                       snapshot_bytes=snapshot_bytes)
 
 
-def _dynamic_out(phase, spec, runs, info):
-    """The common part of the ``scenario``/``traffic`` lines."""
+def _dynamic_out(phase, spec, runs, info, every=CHECKPOINT_EVERY,
+                 updates_a_round=1):
+    """The common part of the ``scenario``/``traffic``/``dynamic_lm``
+    lines; ``updates_a_round``: kernel 2's launches a round (a token
+    model's leaves take several tables), and on a token model flash
+    attention stands for the GEMM in the launch check."""
     import math
 
     import torch
+    from repro_torch.config import get_config
     from repro_torch.utils.tree import tree_leaves
 
     (whole, r, _, s_whole), (ck, rc, _, s_ck), (res, rr, _, s_res) = runs
+    main = "batched_matmul" if get_config(spec.arch).is_cnn \
+        else "flash_attention"
     finite = all(bool(torch.isfinite(t).all())
                  for t in tree_leaves(whole.sim._stacked))
     out = {"phase": phase, "arch": spec.arch, "n_clients": spec.n_clients,
@@ -1992,7 +2139,7 @@ def _dynamic_out(phase, spec, runs, info):
            "policy_seconds": info["policy_seconds"],
            "checkpointed_seconds": s_ck,
            "resumed_seconds": s_res,
-           "resumed_rounds": spec.rounds - CHECKPOINT_EVERY,
+           "resumed_rounds": spec.rounds - every,
            "snapshot_seconds": info["snapshot_seconds"],
            "snapshot_bytes": info["snapshot_bytes"],
            "max_memory_allocated": info["max_memory_allocated"],
@@ -2008,9 +2155,10 @@ def _dynamic_out(phase, spec, runs, info):
         (len(r.train_loss) == spec.rounds // spec.eval_every, "evals"),
         (all(math.isfinite(v) for v in r.train_loss + r.test_loss + r.clock)
          and finite, "non-finite loss, clock or parameters"),
-        (info["launches"]["batched_matmul"] > 0, "the GEMM never launched"),
-        (info["launches"]["clip_sgd"] == spec.rounds,
-         f"{info['launches']['clip_sgd']} update launches, not one a round"),
+        (info["launches"][main] > 0, f"{main} never launched"),
+        (info["launches"]["clip_sgd"] == spec.rounds * updates_a_round,
+         f"{info['launches']['clip_sgd']} update launches, not "
+         f"{updates_a_round} a round"),
         (info["launches"]["clip_sgd_ext"] == 0,
          "the external-mean update launched"),
         (out["checkpointed_bitwise"],
@@ -2098,16 +2246,18 @@ def phase_traffic(detail):
 
 
 def _cross_pair(spec, record):
-    """``spec`` on the card and on the CPU from the same weights: the two
-    (session, result, recorded plans) pairs."""
+    """``spec`` on the card and on the CPU from the same weights (a CNN's
+    drawn once; a token model's seeded init is drawn on the host, the same
+    for both devices): the two (session, result, recorded plans) pairs."""
     import torch
     from repro_torch.api import Session
     from repro_torch.config import get_config
     from repro_torch.convert import units_to_numpy
     from repro_torch.models import build_model
 
-    init = units_to_numpy(build_model(get_config(spec.arch)).init(
-        torch.Generator().manual_seed(0)))
+    cfg = get_config(spec.arch)
+    init = units_to_numpy(build_model(cfg).init(
+        torch.Generator().manual_seed(0))) if cfg.is_cnn else None
     out = []
     for dev in ("cuda", "cpu"):
         sess = Session(spec, device=dev, init_units=init)
@@ -2119,16 +2269,20 @@ def _cross_pair(spec, record):
 def _cross_errors(ra, rb, sa, sb):
     """(max loss/accuracy difference, max parameter difference)."""
     import numpy as np
-    from repro_torch.convert import units_to_numpy
-    from repro_torch.utils.tree import tree_leaves
 
     loss = max(abs(a - b) for a, b in zip(
         ra.train_loss + ra.test_loss + ra.test_acc,
         rb.train_loss + rb.test_loss + rb.test_acc))
     param = max(float(np.max(np.abs(a - b))) for a, b in zip(
-        tree_leaves(units_to_numpy(sa.sim._stacked)),
-        tree_leaves(units_to_numpy(sb.sim._stacked))))
+        _host_f32(sa.sim._stacked), _host_f32(sb.sim._stacked)))
     return loss, param
+
+
+def _host_f32(tree) -> list:
+    """Host fp32 copies of a tree's leaves (numpy holds no bf16)."""
+    from repro_torch.utils.tree import tree_leaves
+
+    return [t.detach().float().cpu().numpy() for t in tree_leaves(tree)]
 
 
 def phase_dynamic_cross(detail):
@@ -2155,7 +2309,7 @@ def phase_dynamic_cross(detail):
     def both(sess):
         return _recording(sess), _recording_parts(sess)
 
-    def gate(name, card, cpu, extra=()):
+    def gate(name, card, cpu, extra=(), tol=CROSS_TOL, params=True):
         (sa, ra, (pa, qa)), (sb, rb, (pb, qb)) = card, cpu
         loss, param = _cross_errors(ra, rb, sa, sb)
         row = dict(decisions=_same(ra.b_history, rb.b_history)
@@ -2166,9 +2320,9 @@ def phase_dynamic_cross(detail):
         out[name] = row
         bad.extend(f"{name}: {k}" for k, v in row.items()
                    if v is False)
-        if loss > CROSS_TOL or param > CROSS_TOL:
+        if loss > tol or (params and param > tol):
             bad.append(f"{name}: losses {loss} / parameters {param} over "
-                       f"{CROSS_TOL}")
+                       f"{tol}")
 
     spec = ExperimentSpec(**base, **SCENARIO)
     card, cpu = _cross_pair(spec, both)
@@ -2205,11 +2359,119 @@ def phase_dynamic_cross(detail):
             and _same_params(card[0], alone[i])))
         rows.append(out.pop(f"grid_{i}"))
     out["grid"] = rows
+
+    # the reference's resume spec (tests/test_resume.py): smollm-tiny at
+    # its registered bf16, HASFL with the estimate, churn-heavy, deadline
+    # faults; losses held at 1e-3, parameters recorded
+    spec = ExperimentSpec(
+        arch="smollm-tiny", n_clients=4, partition="iid", n_train=160,
+        n_test=40, seq_len=32, seed=0, policy="hasfl", estimate=True,
+        scenario="churn-heavy", scenario_seed=7, rounds=4, eval_every=2,
+        fault_mode="deadline", deadline_factor=2.0,
+        sfl=SFLConfig(lr=0.05, agg_interval=2))
+    card, cpu = _cross_pair(spec, both)
+    gate("resume_spec", card, cpu, tol=1e-3, params=False)
     emit(out)
     detail["dynamic_cross"] = out
     check(not bad, "dynamic_cross: " + "; ".join(bad))
     return out
 
+
+# token_families: every other token family that trains, `reduced` (2
+# layers, d <= 128, vocab <= 512; MoE at 4 experts) in fp32, through each
+# entry point of this slice on the card
+TOKEN_FAMILIES = ["qwen3-1.7b", "glm4-9b", "phi3-mini-3.8b",
+                  "llama4-maverick-400b-a17b", "jamba-v0.1-52b",
+                  "internvl2-1b"]
+
+
+def phase_token_families(detail):
+    """Each family of `TOKEN_FAMILIES` on the card through the normal
+    entry points at a reduced size (N=4, S=8, 2 rounds, I=1): a two-cell
+    `run_grid` of crossed seeds, each cell bitwise its own run; mesh mode
+    on 2 edge servers without and with a cohort bank (finite, the bank
+    rotating once); a ``straggler-bursts`` cell with deadline faults and a
+    traffic cell (`TRAFFIC_CROSS`), each checkpointed every round and
+    resumed from round 1 bitwise its uninterrupted run.  Kernels 4 and 5
+    launched in each family's runs.  The process group of the mesh runs
+    is destroyed at the end."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.api import ExperimentSpec, Session, TrafficSpec, run_grid
+    from repro_torch.config import SFLConfig
+    from repro_torch.kernels import ops
+    from repro_torch.mesh import MeshSpec
+
+    t_phase = time.perf_counter()
+    out = {"phase": "token_families"}
+    bad = []
+    for arch in TOKEN_FAMILIES:
+        t0 = time.perf_counter()
+        cfg = _register_cut(arch, f"{arch}-families", "float32")
+        base = ExperimentSpec(
+            arch=cfg.arch_id, n_clients=4, partition="iid", n_train=120,
+            n_test=8, seq_len=8, policy="hasfl", estimate=False, rounds=2,
+            eval_every=1, update_impl="kernel",
+            sfl=SFLConfig(lr=0.05, agg_interval=1))
+        ops.reset_launch_counts()
+        specs = [base.replace(policy="fixed(b=4,cut=1)", seed=s)
+                 for s in (0, 1)]
+        alone = [Session(s) for s in specs]
+        seq = [s.run() for s in alone]
+        folded = [Session(s) for s in specs]
+        grid = [_same_result(r, q) and _same_params(a, b) for r, q, a, b
+                in zip(run_grid(folded), seq, folded, alone)]
+        del alone, folded
+        mesh = []
+        for pop in (None, 16):
+            sess = Session(base.replace(mesh=MeshSpec(
+                devices=1, n_edges=2, population=pop)))
+            res = sess.run()
+            mesh.append(all(math.isfinite(v) for v in
+                            res.train_loss + res.test_loss)
+                        and (pop is None or sess.sim._bank.rotations == 1))
+            del sess
+        dist.destroy_process_group()
+        resumed = {}
+        cells = {"scenario": base.replace(
+                     scenario="straggler-bursts", scenario_seed=3,
+                     fault_mode="deadline", deadline_factor=1.5),
+                 "traffic": base.replace(
+                     policy="fixed", traffic=TrafficSpec(**TRAFFIC_CROSS))}
+        (ROOT / "build").mkdir(exist_ok=True)
+        for kind, spec in cells.items():
+            ckpt = tempfile.mkdtemp(prefix=f"{kind}_", dir=ROOT / "build")
+            try:
+                whole = Session(spec)
+                r = whole.run()
+                ck = spec.replace(checkpoint_every=1, checkpoint_dir=ckpt)
+                Session(ck).run()
+                again = Session.resume(ck, step=1)
+                resumed[kind] = _same_result(again.run(), r) \
+                    and _same_params(again, whole)
+            finally:
+                shutil.rmtree(ckpt, ignore_errors=True)
+        launches = ops.launch_counts()
+        row = dict(grid_bitwise=grid, mesh_ok=mesh, resumed_bitwise=resumed,
+                   launches={k: launches[k] for k in (
+                       "flash_attention", "flash_attention_bwd", "rmsnorm",
+                       "rmsnorm_bwd", "clip_sgd", "clip_sgd_ext")},
+                   seconds=time.perf_counter() - t0)
+        out[arch] = row
+        if not (all(grid) and all(mesh) and all(resumed.values())):
+            bad.append(f"{arch}: {row}")
+        if not all(launches[k] > 0 for k in (
+                "flash_attention", "flash_attention_bwd", "rmsnorm",
+                "rmsnorm_bwd", "clip_sgd", "clip_sgd_ext")):
+            bad.append(f"{arch}: a kernel never launched ({launches})")
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    detail["token_families"] = out
+    check(not bad, "token_families: " + "; ".join(bad))
+    return out
 
 def phase_cli(detail):
     """`repro_torch.launch.train.main` in process, edge mode on the card
@@ -2508,8 +2770,9 @@ def phase_serve_cross():
             for norm, scan in (("kernel", "plain"), ("plain", "kernel"),
                                ("plain", "plain")):
                 swapped = ops.rmsnorm, ops.mlstm_scan
-                if norm == "plain":
-                    ops.rmsnorm = RN.rmsnorm_plain
+                if norm == "plain":   # serving passes no cell size
+                    ops.rmsnorm = lambda x, scale, eps=1e-5, cell_size=None: \
+                        RN.rmsnorm_plain(x, scale, eps)
                 if scan == "plain":
                     ops.mlstm_scan = MS.mlstm_scan_plain
                 try:
@@ -2575,11 +2838,12 @@ def _dtype_name(t) -> str:
 
 
 @contextlib.contextmanager
-def _witness(clip_call: int = 0):
+def _witness(clip_calls=()):
     """While a training path runs: the signature of every backward that
     `FlashAttentionFn` and `RMSNormFn` run (what they hand kernels 4's and
-    5's backward), counted, and the inputs of kernel 2's ``clip_call``-th
-    call (its leaves copied before their in-place update), so that
+    5's backward), counted, and the inputs of the update op's calls
+    numbered in ``clip_calls`` (from 1; its leaves copied before their
+    in-place update), under ``seen["clip"][number]``, so that
     `phase_kernels_train` checks and times the kernels at what the path
     ran.  Each wrapper runs what it wraps as the path would; the launch
     counters stay the kernels' own."""
@@ -2588,7 +2852,7 @@ def _witness(clip_call: int = 0):
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rmsnorm as RN
 
-    seen = {"flash": Counter(), "norm": Counter(), "clip": None,
+    seen = {"flash": Counter(), "norm": Counter(), "clip": {},
             "clip_calls": 0}
     fns = {fn: (fn.forward, fn.backward)
            for fn in (FA.FlashAttentionFn, RN.RMSNormFn)}
@@ -2602,11 +2866,11 @@ def _witness(clip_call: int = 0):
                                  bool(causal), int(window), _dtype_name(q)))
         return fns[FA.FlashAttentionFn][0](ctx, q, k, v, causal, window)
 
-    def norm_fwd(ctx, x, scale, eps):
+    def norm_fwd(ctx, x, scale, eps, cells=1):
         groups = scale.shape[0] if scale.dim() == 2 else 1
         ctx.witness = ("norm", (tuple(x.shape), groups, _dtype_name(x),
                                 float(eps)))
-        return fns[RN.RMSNormFn][0](ctx, x, scale, eps)
+        return fns[RN.RMSNormFn][0](ctx, x, scale, eps, cells)
 
     def backward(fn):
         def bwd(ctx, grad):
@@ -2617,8 +2881,8 @@ def _witness(clip_call: int = 0):
 
     def clip(ps, gs, scale, keep_specs, participation=None, **kw):
         seen["clip_calls"] += 1
-        if seen["clip_calls"] == clip_call:
-            seen["clip"] = dict(ps=[p.clone() for p in ps], gs=list(gs),
+        if seen["clip_calls"] in clip_calls:
+            seen["clip"][seen["clip_calls"]] = dict(ps=[p.clone() for p in ps], gs=list(gs),
                                 scale=scale, keep_specs=keep_specs,
                                 participation=participation, kw=kw)
         return cs(ps, gs, scale, keep_specs, participation, **kw)
@@ -2901,7 +3165,8 @@ def phase_train_lm(detail):
     and read around the run.  Every flash attention and norm of the
     round's backward ran on its backward kernel; the test loss falls; no
     parameter leaf is left as it started (a leaf cut from the graph would
-    be).  Returns the phase's numbers and the run's `_witness`."""
+    be).  Memory: the policy's peak, what is resident before the run, the
+    most allocated as a backward starts (`_at_backward`), the run's peak.  Returns the phase's numbers and the run's `_witness`."""
     import math
     import torch
     from repro_torch.api import ExperimentSpec, Session
@@ -2913,11 +3178,15 @@ def phase_train_lm(detail):
                                                      agg_interval=3))
     sess = Session(spec)
     start = [t.clone() for t in tree_leaves(sess.sim._stacked)]
-    spent = _timed_policies([sess])
     torch.cuda.reset_peak_memory_stats()
+    spent = _timed_policies([sess])
+    policy_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 1e9
     ops.reset_launch_counts()
     torch.cuda.synchronize()
-    with _witness(clip_call=spec.rounds) as seen:
+    with _witness(clip_calls=(spec.rounds,)) as seen, \
+            _at_backward() as at_bwd:
         t0 = time.perf_counter()
         res = sess.run()
         torch.cuda.synchronize()
@@ -2931,6 +3200,8 @@ def phase_train_lm(detail):
            "seconds_per_round": seconds / spec.rounds,
            "policy_share": spent[0] / seconds,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "resident_gb": resident, "policy_peak_gb": policy_peak,
+           "at_backward_gb": max(at_bwd),
            "launches_per_round": _training_launches(launches, spec.rounds),
            "train_loss": res.train_loss, "test_loss": res.test_loss,
            "test_acc": res.test_acc, "clock": res.clock,
@@ -3608,6 +3879,419 @@ def phase_cli_spmd(detail):
 
 
 
+# the token cells of the grid runner, mesh mode and the dynamic edge at
+# published widths (smollm-135m whole: 30 layers, d 576, vocab 49152,
+# bf16), each at train_lm's step size.  grid_lm: four cells, one b bucket
+# (b=16), crossing seeds (each cell reads its own data) and cuts (other
+# unit masks); G·N·b·S = 4·4·16·128 tokens a round, train_lm's 8·32·128
+GRID_LM = dict(arch="smollm-135m", n_clients=4, partition="iid",
+               seq_len=128, n_train=2048, n_test=256, rounds=6,
+               eval_every=3, estimate=False)
+GRID_LM_CELLS = [dict(policy=f"fixed(b=16,cut={cut})", seed=seed)
+                 for cut in (1, 3) for seed in (0, 1)]
+# mesh_lm: 8 resident slots of a logical population of 1024 on 4 edge
+# servers, HASFL on priors; I=2 so that the bank rotates twice in 6
+# rounds (at rounds 2 and 4; at I=3 it would rotate once)
+MESH_LM = dict(arch="smollm-135m", n_clients=8, partition="iid",
+               seq_len=128, n_train=4096, n_test=256, rounds=6,
+               eval_every=3, policy="hasfl", estimate=False)
+MESH_LM_AGG = 2
+# dynamic_lm: N=4 under churn-heavy with deadline faults, snapshots every
+# 3 rounds (N·135 M bf16 weights: ~1.1 GB a snapshot), then the same
+# cohort on the streaming plane at the traffic phase's rates
+DYNAMIC_LM = dict(arch="smollm-135m", n_clients=4, partition="iid",
+                  seq_len=128, n_train=2048, n_test=256, rounds=6,
+                  eval_every=3, policy="hasfl", estimate=False)
+DYNAMIC_LM_EVERY = 3
+
+
+@contextlib.contextmanager
+def _products():
+    """Count the client-stacked products (`models.layers._bmm`: one
+    `torch.bmm` a call, a cell's or a whole fold's) while the block runs;
+    the count in a one-element list."""
+    from repro_torch.models import layers as L
+
+    bmm = L._bmm
+    seen = [0]
+
+    def counted(x, w):
+        seen[0] += 1
+        return bmm(x, w)
+
+    L._bmm = counted
+    try:
+        yield seen
+    finally:
+        L._bmm = bmm
+
+
+@contextlib.contextmanager
+def _at_backward():
+    """While a training path runs: the device memory allocated as each
+    `Tensor.backward` starts (what was resident, the forward's saved
+    tensors and its outputs), in GB, one entry a call, in a list."""
+    import torch
+
+    real = torch.Tensor.backward
+    seen = []
+
+    def backward(self, *a, **kw):
+        seen.append(torch.cuda.memory_allocated() / 1e9)
+        return real(self, *a, **kw)
+
+    torch.Tensor.backward = backward
+    try:
+        yield seen
+    finally:
+        torch.Tensor.backward = real
+
+
+def _tables(sess) -> int:
+    """Kernel 2's or 3's launches a round: the unit leaves over the table's
+    capacity."""
+    from repro_torch.kernels.clip_sgd import CAPACITY
+    from repro_torch.utils.tree import tree_leaves
+
+    return -(-len(tree_leaves(sess.sim.units)) // CAPACITY)
+
+
+def phase_grid_lm(detail):
+    """`run_grid` on four smollm-135m cells at published widths
+    (`GRID_LM`, `GRID_LM_CELLS`), first with ``runner="sequential"`` and
+    then folded (``"grid"``); counters zeroed just before and read just
+    after each.  Checks: every cell bitwise equal between the two
+    (results and final parameters), the products (`_products`) the same
+    count both ways (each runs a cell at a time: `layers.mm`'s
+    ``cell_size``), kernel 2 ⌈members·leaves/64⌉ launches a dispatch round
+    in the grid, RMSNorm and flash attention fewer launches folded than
+    one after another, finite losses.  Seconds a cell-round both ways,
+    policy seconds, dispatches, memory resident before each run, the
+    most allocated as a backward starts (`_at_backward`) and the peak."""
+    import math
+    import torch
+    from repro_torch.api import ExperimentSpec, Session, grid, run_grid
+    from repro_torch.config import SFLConfig
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.clip_sgd import CAPACITY
+    from repro_torch.utils.tree import tree_leaves
+
+    specs = [ExperimentSpec(**GRID_LM, **c, update_impl="kernel",
+                            sfl=SFLConfig(lr=TRAIN_LM_LR, agg_interval=3))
+             for c in GRID_LM_CELLS]
+    cell_rounds = len(specs) * specs[0].rounds
+    runs = {}
+    for runner in ("sequential", "grid"):
+        sessions = [Session(s) for s in specs]
+        n_leaves = len(tree_leaves(sessions[0].sim.units))
+        policy_s = _timed_policies(sessions)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 1e9
+        grid.run_group.dispatches.clear()
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        with _products() as products, _at_backward() as at_bwd:
+            t0 = time.perf_counter()
+            res = run_grid(sessions, runner=runner)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        leaves = [tree_leaves(s.sim._stacked) for s in sessions]
+        runs[runner] = dict(
+            seconds=seconds, seconds_per_cell_round=seconds / cell_rounds,
+            policy_seconds=policy_s[0],
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            resident_gb=resident, at_backward_gb=max(at_bwd),
+            launches=ops.launch_counts(), products=products[0],
+            dispatches=list(grid.run_group.dispatches), res=res,
+            # the sequential cells' parameters wait on the host (their 4.4
+            # GB on the card would count in the grid run's peak)
+            params=[[t.cpu() for t in ls] for ls in leaves]
+            if runner == "sequential" else leaves)
+        del sessions, leaves
+    g, q = runs["grid"], runs["sequential"]
+    want_updates = sum(d.rounds * -(-len(d.members) * n_leaves // CAPACITY)
+                       for d in g["dispatches"])
+    res = g["res"]
+    bitwise = [dict(
+        results=_same_result(r, s),
+        params=all(torch.equal(a.to(b.device), b) for a, b in zip(ps, pg)))
+        for r, s, ps, pg in zip(res, q["res"], q["params"], g["params"])]
+    keys = ("seconds", "seconds_per_cell_round", "policy_seconds", "peak_gb",
+            "resident_gb", "at_backward_gb", "launches", "products")
+    out = {"phase": "grid_lm", "arch": specs[0].arch,
+           "n_clients": specs[0].n_clients, "seq_len": specs[0].seq_len,
+           "rounds": specs[0].rounds, "leaves": n_leaves,
+           "cells": [f"{s.policy} seed {s.seed}" for s in specs],
+           **{k: g[k] for k in keys},
+           "dispatches": [[d.t0, d.rounds, d.b_pad, list(d.members)]
+                          for d in g["dispatches"]],
+           "expected_update_launches": want_updates,
+           "sequential": {k: q[k] for k in keys},
+           "train_loss": [r.train_loss for r in res],
+           "test_loss": [r.test_loss for r in res],
+           "bitwise_vs_sequential": bitwise}
+    emit(out)
+    detail["grid_lm"] = out
+    check(all(all(row.values()) for row in bitwise),
+          f"grid_lm: cells differ from their sequential runs: {bitwise}")
+    check(g["products"] == q["products"] > 0,
+          f"grid_lm: {g['products']} products folded, {q['products']} one "
+          "after another")
+    check(g["launches"]["clip_sgd"] == want_updates,
+          f"grid_lm: {g['launches']['clip_sgd']} update launches, not "
+          f"{want_updates}")
+    for k in ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+              "flash_attention_bwd"):
+        check(0 < g["launches"][k] < q["launches"][k],
+              f"grid_lm: {k} {g['launches'][k]} launches folded, "
+              f"{q['launches'][k]} one after another")
+    check(g["launches"]["clip_sgd_ext"] == 0,
+          "grid_lm: the external-mean update launched")
+    check(all(math.isfinite(v) for r in res
+              for v in r.train_loss + r.test_loss + r.clock),
+          "grid_lm: non-finite loss or clock")
+    return out
+
+
+def _clip_ext_round_checks(rec, what):
+    """Kernel 3 on a round of `mesh_lm` as the path ran it (``what`` names
+    the round): the rank's leaves (bf16 weights beside fp32 norm scales)
+    as they stood before the round's in-place update, their gradients,
+    clip factors, keep flags and the two-tier means (in the leaf's type)
+    with the global count, in one call on copies, against its plain
+    version in fp32 rounded once to each leaf's type (the kernel's
+    arithmetic), leaf by leaf: bf16 within one bf16 ulp, fp32 within
+    `CLIP_TOL`.  The call timed on the copies beside its bytes bound,
+    counted from this round's flags: a keeping leaf reads p and g and
+    writes p, a leaf that takes the mean reads it (in the leaf's type: the
+    wrapper's widening to fp32 is the port's, not the function's) and
+    writes every row, a leaf that holds moves nothing; and the plain
+    version at the leaves' own types."""
+    import torch
+    from repro_torch.kernels import clip_sgd as CS
+    from repro_torch.timing import graph_ms
+
+    check(rec is not None, f"clip_sgd_ext {what}: the call was not "
+          "recorded")
+    ps, gs, scale, keeps, part, kw = (rec[k] for k in (
+        "ps", "gs", "scale", "keep_specs", "participation", "kw"))
+    commons, count = kw["commons"], kw["count"]
+    check(commons is not None, f"clip_sgd_ext {what}: no means")
+    tables = -(-len(ps) // CS.CAPACITY)
+    before = CS.clip_sgd_ext_kernel.launches
+    got = CS.clip_sgd_leaves_kernel([p.clone() for p in ps], gs, scale,
+                                    keeps, part, **kw)
+    torch.cuda.synchronize()
+    check(CS.clip_sgd_ext_kernel.launches == before + tables,
+          f"clip_sgd_ext {what}: not {tables} launches for {len(ps)} "
+          "leaves")
+    use_any = float(count) > 0
+    err, nbytes = 0.0, 4.0 * scale.numel()
+    for i, (p, g, c, out) in enumerate(zip(ps, gs, commons, got)):
+        want = CS.clip_sgd_leaves_plain(
+            [p.float()], [g.float()], scale, [keeps[i]], part,
+            gamma=kw["gamma"], commons=[c.float()],
+            count=count)[0].to(p.dtype).float()
+        diff = (out.float() - want).abs()
+        err = max(err, float(diff.max()))
+        bar = 2 ** -7 * want.abs() + 1e-6 if p.dtype == torch.bfloat16 \
+            else CLIP_TOL
+        check(bool((diff <= bar).all()),
+              f"clip_sgd_ext {what} leaf {i} {p.dtype} "
+              f"{tuple(p.shape)}: {float(diff.max())} over the bar")
+        if keeps[i]:
+            nbytes += (2.0 * p.element_size() + g.element_size()) * p.numel()
+        elif use_any:
+            nbytes += (p.numel() + p.shape[1]) * p.element_size()
+    out = {"leaves": len(ps), "launches": tables,
+           "bf16_leaves": sum(p.dtype == torch.bfloat16 for p in ps),
+           "keeping_leaves": sum(map(bool, keeps)),
+           "elements": sum(p.numel() for p in ps), "max_abs_err": err,
+           "ms": time_ms(lambda: CS.clip_sgd_leaves_kernel(
+               got, gs, scale, keeps, part, **kw)),
+           "device_ms": graph_ms(lambda: CS.clip_sgd_leaves_kernel(
+               got, gs, scale, keeps, part, **kw)),
+           "plain_ms": time_ms(lambda: CS.clip_sgd_leaves_plain(
+               ps, gs, scale, keeps, part, **kw)),
+           "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+           "bytes": nbytes}
+    del got
+    return out
+
+
+def phase_mesh_lm(detail):
+    """Mesh mode on a token cell at published widths (`MESH_LM`:
+    smollm-135m, 8 slots on a world-size-1 NCCL group, 4 edge servers, a
+    cohort bank over 1024 logical clients, 6 rounds at I=2); counters
+    zeroed and read around the run.  Checks: kernel 3 ⌈leaves/64⌉ launches
+    a round (its bf16 leaves through the external mean), kernel 2 none,
+    two rotations, the test loss falls, every leaf moved.  Then kernel 3
+    on copies of the last two rounds (`_clip_ext_round_checks`): the
+    fifth, where the client-specific leaves keep their own SGD result and
+    the rest take the mean, and the sixth, an aggregation round where
+    every leaf takes it.  Seconds a round, the round's all-reduce ms,
+    policy share, memory resident before the run, the most allocated as a
+    backward starts and the peak.  The
+    process group is destroyed at the end."""
+    import math
+    import torch
+    import torch.distributed as dist
+    from repro_torch.api import ExperimentSpec, Session
+    from repro_torch.config import SFLConfig
+    from repro_torch.kernels import ops
+    from repro_torch.mesh import MeshSpec
+    from repro_torch.utils.tree import tree_leaves
+
+    spec = ExperimentSpec(
+        **MESH_LM, update_impl="kernel",
+        sfl=SFLConfig(lr=TRAIN_LM_LR, agg_interval=MESH_LM_AGG),
+        mesh=MeshSpec(devices=1, n_edges=4, population=1024))
+    sess = Session(spec)
+    start = [t.clone() for t in tree_leaves(sess.sim._stacked)]
+    tables = _tables(sess)
+    spent = _timed_policies([sess])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 1e9
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    with _witness(clip_calls=(spec.rounds - 1, spec.rounds)) as seen, \
+            _at_backward() as at_bwd:
+        t0 = time.perf_counter()
+        res = sess.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    leaves = tree_leaves(sess.sim._stacked)
+    moved = [not torch.equal(a, b) for a, b in zip(start, leaves)]
+    del start
+    units = tree_leaves(sess.sim.units)
+    out = {"phase": "mesh_lm", "arch": spec.arch,
+           "n_clients": spec.n_clients, "mesh": spec.mesh.to_dict(),
+           "agg_interval": MESH_LM_AGG, "rounds": spec.rounds,
+           "seconds": seconds, "seconds_per_round": seconds / spec.rounds,
+           "policy_share": spent[0] / seconds, "peak_gb": peak,
+           "resident_gb": resident, "at_backward_gb": max(at_bwd),
+           "rotations": sess.sim._bank.rotations,
+           "leaves": len(leaves),
+           "bf16_leaves": sum(t.dtype == torch.bfloat16 for t in leaves),
+           "launches": launches,
+           "allreduce_ms_per_round": _allreduce_ms(
+               sess.sim._group, [(t.numel(), t.dtype) for t in units]),
+           "train_loss": res.train_loss, "test_loss": res.test_loss,
+           "clock": res.clock,
+           "b_history": [list(map(int, b)) for b in res.b_history],
+           "cut_history": [list(map(int, c)) for c in res.cut_history],
+           "leaves_unchanged": moved.count(False)}
+    keep = _clip_ext_round_checks(seen["clip"].get(spec.rounds - 1),
+                                  f"mesh_lm round {spec.rounds - 1}")
+    ext = _clip_ext_round_checks(seen["clip"].get(spec.rounds),
+                                 f"mesh_lm round {spec.rounds}")
+    out["clip_sgd_ext_round"] = ext
+    out["clip_sgd_ext_keeping_round"] = keep
+    emit(out)
+    detail["mesh_lm"] = out
+    del sess, leaves, units, seen
+    gc.collect()
+    dist.destroy_process_group()
+    check(launches["clip_sgd_ext"] == spec.rounds * tables,
+          f"mesh_lm: {launches['clip_sgd_ext']} external-mean launches, not "
+          f"{tables} a round")
+    check(launches["clip_sgd"] == 0, "mesh_lm: the flat update launched")
+    for k in ("flash_attention", "flash_attention_bwd", "rmsnorm",
+              "rmsnorm_bwd"):
+        check(launches[k] > 0, f"mesh_lm: {k} never launched")
+    check(out["rotations"] == 2, f"mesh_lm: {out['rotations']} rotations")
+    check(0 < keep["keeping_leaves"] < keep["leaves"]
+          and ext["keeping_leaves"] == 0,
+          f"mesh_lm: {keep['keeping_leaves']} leaves keep in round "
+          f"{spec.rounds - 1}, {ext['keeping_leaves']} in the aggregation "
+          "round")
+    check(all(math.isfinite(v) for v in res.train_loss + res.test_loss),
+          "mesh_lm: non-finite loss")
+    check(res.test_loss[-1] < res.test_loss[0],
+          f"mesh_lm: the test loss did not fall {res.test_loss}")
+    check(all(moved), f"mesh_lm: {moved.count(False)} parameter leaves "
+          "never moved")
+    return out, ext, keep
+
+
+def phase_dynamic_lm(detail):
+    """The dynamic edge on a token cell at published widths (`DYNAMIC_LM`:
+    smollm-135m, N=4, 6 rounds): under ``churn-heavy`` with deadline
+    faults, and then on the streaming plane at the traffic phase's rates
+    (`TRAFFIC`), each run uninterrupted, checkpointed every 3 rounds and
+    resumed from round 3 (`_dynamic_runs`).  Checks: kernel 2 ⌈leaves/64⌉
+    launches a round, flash attention launched, the checkpointed and
+    resumed runs bitwise equal to the uninterrupted one (results, final
+    parameters, participation plans; the traffic run's event log).
+    Snapshot seconds and bytes, seconds a round, peak, participation and
+    the plane's events."""
+    import numpy as np
+    from repro_torch.api import ExperimentSpec, TrafficSpec
+    from repro_torch.config import SFLConfig
+
+    sfl = SFLConfig(lr=TRAIN_LM_LR, agg_interval=3)
+    spec = ExperimentSpec(**DYNAMIC_LM, update_impl="kernel", **SCENARIO,
+                          sfl=sfl)
+    runs, info = _dynamic_runs(spec, "dynamic_lm", _recording_parts,
+                               every=DYNAMIC_LM_EVERY)
+    tables = _tables(runs[0][0])
+    out, checks = _dynamic_out("dynamic_lm", spec, runs, info,
+                               every=DYNAMIC_LM_EVERY,
+                               updates_a_round=tables)
+    parts = np.concatenate(runs[0][2])
+    out.update(mean_participation=float(parts.mean()),
+               rounds_with_drops=int((parts.min(axis=1) < 1).sum()),
+               parts_bitwise_resumed=_same(
+                   runs[2][2], runs[0][2][-len(runs[2][2]):]))
+    checks.append((out["parts_bitwise_resumed"],
+                   "the resumed participation plans differ"))
+    del runs
+    gc.collect()
+    spec_t = ExperimentSpec(**DYNAMIC_LM, update_impl="kernel",
+                            scenario="churn-heavy", scenario_seed=7,
+                            traffic=TrafficSpec(**TRAFFIC), sfl=sfl)
+    runs, info = _dynamic_runs(spec_t, "dynamic_lm_traffic",
+                               _recording_weights, every=DYNAMIC_LM_EVERY)
+    traffic, checks_t = _dynamic_out("dynamic_lm_traffic", spec_t, runs,
+                                     info, every=DYNAMIC_LM_EVERY,
+                                     updates_a_round=tables)
+    whole = runs[0][0]
+    w = np.concatenate([p.ravel() for p in runs[0][2]])
+    traffic.update(
+        events=whole.plane.log.counts(), virtual_clock=whole.plane.clock,
+        fractional_weights=int(((w > 0) & (w < 1)).sum()),
+        event_log_bitwise=_same_log(runs[2][0].plane.log, whole.plane.log)
+        and _same_log(runs[1][0].plane.log, whole.plane.log))
+    checks_t.append((traffic["event_log_bitwise"],
+                     "the event log differs from the uninterrupted run's"))
+    del runs, whole
+    gc.collect()
+    out["traffic"] = {k: v for k, v in traffic.items() if k != "phase"}
+    emit(out)
+    detail["dynamic_lm"] = out
+    for ok, what in checks:
+        check(ok, f"dynamic_lm: {what}")
+    for ok, what in checks_t:
+        check(ok, f"dynamic_lm traffic: {what}")
+    return out
+
+
+def _token_launches(name, grid_lm, mesh_lm, dynamic_lm) -> dict:
+    """A kernel's launches in the token phases of the grid runner (folded
+    and one cell after another), mesh mode and the dynamic edge."""
+    return {"launches_grid_lm": grid_lm["launches"][name],
+            "launches_grid_lm_sequential":
+                grid_lm["sequential"]["launches"][name],
+            "launches_mesh_lm": mesh_lm["launches"][name],
+            "launches_dynamic_lm": dynamic_lm["launches"][name]}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3637,17 +4321,19 @@ def main(argv=None) -> int:
     phase_mesh_cross()
     import torch.distributed as dist
 
-    dist.destroy_process_group()      # the mesh phases' world of one
+    if dist.is_initialized():
+        dist.destroy_process_group()  # the mesh phases' world of one
     phase_grid_cross(detail)
     grid = phase_grid(detail)
     scenario = phase_scenario(detail)
     traffic = phase_traffic(detail)
     phase_dynamic_cross(detail)
+    phase_token_families(detail)
     phase_cli(detail)
     gc.collect()
     torch.cuda.empty_cache()
     train_lm, lm_seen = phase_train_lm(detail)
-    clip_round = _clip_round_checks(lm_seen.pop("clip"))
+    clip_round = _clip_round_checks(lm_seen.pop("clip").get(TRAIN_LM["rounds"]))
     gc.collect()
     torch.cuda.empty_cache()
     spmd, spmd_seen = phase_spmd(detail)
@@ -3672,6 +4358,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_train_cross(detail)
     phase_cli_spmd(detail)
+    gc.collect()
+    torch.cuda.empty_cache()
+    grid_lm = phase_grid_lm(detail)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_lm, ext_round, ext_keep_round = phase_mesh_lm(detail)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dynamic_lm = phase_dynamic_lm(detail)
     # a simulator refers to itself (its segment function is a bound
     # method), so the earlier phases' sessions and their device tensors
     # go only with a collection: free them before serving's peak is read
@@ -3707,6 +4402,7 @@ def main(argv=None) -> int:
          "plain_ms": clip["plain_ms"], "bound_ms": clip["bound_ms"],
          "bound_by": "bytes", "library_ms": None,
          "launches_train_lm": train_lm["launches"]["clip_sgd"],
+         **_token_launches("clip_sgd", grid_lm, mesh_lm, dynamic_lm),
          "launches_internvl2_session":
              families["internvl2_session"]["launches"]["clip_sgd"],
          "token_round": {k: clip_round[k] for k in (
@@ -3716,6 +4412,15 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/csrc/clip_sgd.cu",
          "replaces": "src/repro/kernels/clip_sgd.py:44",
          "launches": mesh["launches"]["clip_sgd_ext"],
+         **_token_launches("clip_sgd_ext", grid_lm, mesh_lm, dynamic_lm),
+         # mesh_lm's aggregation round (every leaf takes the mean) and
+         # the round before it (the client-specific leaves keep)
+         **{key: {k: r[k] for k in (
+             "leaves", "bf16_leaves", "keeping_leaves", "launches",
+             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms")}
+            for key, r in (("token_round", ext_round),
+                           ("token_keeping_round", ext_keep_round))},
+         "bf16_max_abs_err": ext["bf16_max_abs_err"],
          "max_abs_err": ext["max_abs_err"], "ms": ext["ms"],
          "device_ms": ext["device_ms"],
          "plain_ms": ext["plain_ms"], "bound_ms": ext["bound_ms"],
@@ -3737,6 +4442,7 @@ def main(argv=None) -> int:
          "launches_families": {name: r["launches"]["flash_attention"]
                                for name, r in serves.items()},
          "launches_train_moe": moe["launches"]["flash_attention"],
+         **_token_launches("flash_attention", grid_lm, mesh_lm, dynamic_lm),
          "launches_train_families": {
              name: r["launches"]["flash_attention"]
              for name, r in families.items()},
@@ -3751,6 +4457,7 @@ def main(argv=None) -> int:
          "launches_families": {name: r["launches"]["rmsnorm"]
                                for name, r in serves.items()},
          "launches_train_moe": moe["launches"]["rmsnorm"],
+         **_token_launches("rmsnorm", grid_lm, mesh_lm, dynamic_lm),
          "launches_train_families": {name: r["launches"]["rmsnorm"]
                                      for name, r in families.items()},
          "calls": norm["prefill"]["calls"],
@@ -3789,6 +4496,7 @@ def main(argv=None) -> int:
            "launches_per_round": train_lm["launches_per_round"][name],
            "launches_spmd": spmd["launches"][name],
            "launches_train_moe": moe["launches"][name],
+           **_token_launches(name, grid_lm, mesh_lm, dynamic_lm),
            "launches_train_families": {
                run: r["launches"][name] for run, r in families.items()},
            "max_abs_err": rows["max_abs_err"],

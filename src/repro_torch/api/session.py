@@ -73,10 +73,6 @@ class Session:
         self.spec = spec
         self.device = resolve(device)
         self.cfg = get_config(spec.arch)
-        if spec.mesh is not None and not self.cfg.is_cnn:
-            raise NotImplementedError(
-                f"mesh mode on a token model ({spec.arch}) is not ported "
-                "(ROADMAP §1: token cells in run_grid and mesh mode)")
         if spec.mesh is not None:
             self.device = SH.join_group(spec.mesh, self.device)
         if self.device.type == "cuda":
@@ -387,13 +383,6 @@ class Session:
         """
         if runner not in (None, "grid", "sequential", "auto"):
             raise ValueError(f"unknown runner {runner!r}")
-        for s in specs:
-            arch = (s.spec if isinstance(s, Session) else s).arch
-            if not get_config(arch).is_cnn:
-                raise NotImplementedError(
-                    f"token cells ({arch}) in run_grid are not ported "
-                    "(ROADMAP §1: token cells in run_grid and mesh "
-                    "mode); run each with Session(spec).run()")
         if runner == "auto":
             if any(isinstance(s, Session) for s in specs):
                 raise ValueError(

@@ -133,8 +133,9 @@ def two_tier_common(spec, w, edge_size, group):
     straddles ranks), their sum and the survivor count each take one
     ``all_reduce`` over ``group`` (the cloud combine).  Equal to the flat
     survivor-renormalized mean by linearity; floating point only
-    reassociates.  Returns ``(common, global survivor count)``, the same
-    on every rank.
+    reassociates.  The sums, the count and the division run in the leaf's
+    type (a token model's bf16 leaves: the reference's arithmetic).
+    Returns ``(common, global survivor count)``, the same on every rank.
     """
     n_local = spec.shape[0]
     e = int(edge_size or n_local)
@@ -218,7 +219,7 @@ def hasfl_round_update(
             w = ones if participation is None else participation
             commons = []
             for pf, gf in zip(ps, gs):
-                spec = pf - gamma * (gf * scale.reshape(-1, 1))
+                spec = pf - gamma * (gf * scale.reshape(-1, 1)).to(pf.dtype)
                 common, count = two_tier_common(spec, w, edge_size, group)
                 commons.append(common)
         outs = iter(KOPS.clip_sgd_leaves(

@@ -38,7 +38,10 @@ stream (`launch`).
 A leaf is fp32 or bf16 (the token models' units mix bf16 weights and
 fp32 norm scales in one round): a bf16 leaf's math is fp32 and its
 result is rounded once on the store, as the TPU kernel's
-``.astype(o_ref.dtype)``; p and g of a leaf share its type.
+``.astype(o_ref.dtype)``; p and g of a leaf share its type.  In the
+external form a bf16 leaf's mean arrives in bf16 (the two-tier combine
+runs in the leaf's type) and the wrapper widens it to fp32 once, which is
+exact, as ``_kernel_ext`` casts ``c_ref`` to fp32.
 
 What bounds it on the card: memory, 3·itemsize·N·ΣD bytes (p and g
 read, p written), plus 4·ΣD for the external mean rows; rows whose
@@ -230,9 +233,10 @@ def _column(t, n: int, index: int, what: str):
 def tables(ps, gs, scale, keep_specs, participation=None, *, gamma: float,
            commons=None, keep=None, use=None, use_is_count=False,
            vectors: int = VECTORS, cells: int = 1):
-    """The launches' tables for the leaves ``ps, gs`` (CUDA fp32, checked),
-    `CAPACITY` entries a table, and the tensors they point into (to be
-    kept alive until the launches are issued).  ``keep`` ([N], optional)
+    """The launches' tables for the leaves ``ps, gs`` (CUDA fp32 or bf16,
+    checked), `CAPACITY` entries a table, and the tensors they point into
+    (to be kept alive until the launches are issued; a bf16 mean widened
+    to fp32 among them).  ``keep`` ([N], optional)
     replaces the per-leaf keep vectors; ``use`` is the external mean's
     one-element flag or, with ``use_is_count``, the global survivor
     count.  ``cells=G``: the leaves and columns fold G cells of N rows
@@ -266,18 +270,17 @@ def tables(ps, gs, scale, keep_specs, participation=None, *, gamma: float,
     if commons is not None:
         cols.append(_column(use, 1, index, "use_common"))
     f32 = torch.float32
-    leaves, sizes = [], []
+    leaves, sizes, widened = [], [], []
     for i, (p, g) in enumerate(zip(ps, gs)):
         shape = p.shape   # get_device() is -1 on the CPU
         if (p.get_device() != index or g.get_device() != index
                 or p.dtype not in LEAF_TYPES or g.dtype is not p.dtype
-                or (commons is not None and p.dtype is not f32)
                 or len(shape) != 2 or shape[0] != rows_all
                 or g.shape != shape
                 or not (p.is_contiguous() and g.is_contiguous())):
             raise ValueError(
                 f"clip_sgd takes contiguous [N={rows_all}, D] p and g of one "
-                f"shape and type (fp32 or bf16; fp32 with an external mean) "
+                f"shape and type (fp32 or bf16) "
                 f"on cuda:{index}; leaf {i}: {p.dtype} "
                 f"{tuple(shape)} on {p.device}, {g.dtype} {tuple(g.shape)} "
                 f"on {g.device}")
@@ -287,10 +290,13 @@ def tables(ps, gs, scale, keep_specs, participation=None, *, gamma: float,
         cp = 0
         if commons is not None:
             c = commons[i]
-            if not (c.get_device() == index and c.dtype is f32
-                    and c.is_contiguous() and c.numel() == d):
-                raise ValueError(f"common of leaf {i} must be a contiguous "
-                                 f"fp32 [{d}] on cuda:{index}")
+            if not (c.get_device() == index and c.dtype in (f32, p.dtype)
+                    and c.numel() == d):
+                raise ValueError(f"common of leaf {i} must be [{d}] in fp32 "
+                                 f"or the leaf's type on cuda:{index}")
+            if c.dtype is not f32 or not c.is_contiguous():
+                c = c.to(f32).contiguous()
+                widened.append(c)
             cp = c.data_ptr()
         leaves.append((i, p.data_ptr(), g.data_ptr(), cp, d))
         sizes.append(p.element_size())
@@ -312,7 +318,7 @@ def tables(ps, gs, scale, keep_specs, participation=None, *, gamma: float,
             in zip(part, starts, vecs, bf16[lo:lo + CAPACITY])])
         out.append(Table(table, ptr[0], w, k, u, gamma, n, len(part),
                          chunks, use_is_count))
-    return out, cols
+    return out, cols + widened
 
 
 def _launch(kernel, index: int, tabs, code: int) -> None:
@@ -366,8 +372,8 @@ clip_sgd_kernel.launches = 0
 
 def clip_sgd_ext_kernel(p, g, scale, keep, common, use_common, *,
                         gamma: float):
-    """The external-mean update of one contiguous fp32 CUDA leaf ``p``
-    ``[N, D]``, in place; returns it.  ``common`` holds D values,
+    """The external-mean update of one contiguous fp32 or bf16 CUDA leaf
+    ``p`` ``[N, D]``, in place; returns it.  ``common`` holds D values,
     ``use_common`` is a bool or a one-element tensor (kept on the device:
     no host sync)."""
     if not p.is_cuda:

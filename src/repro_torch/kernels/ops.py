@@ -22,6 +22,7 @@ from repro_torch.kernels import clip_sgd as CS
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import mlstm_scan as MS
 from repro_torch.kernels import rmsnorm as RN
+from repro_torch.utils.cells import apart, by_cell
 
 
 def _needs_grad(*ts) -> bool:
@@ -97,14 +98,20 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                      sk_valid=sk_valid)
 
 
-def rmsnorm(x, scale, eps: float = 1e-5):
+def rmsnorm(x, scale, eps: float = 1e-5, *, cell_size=None):
     """``x · rsqrt(mean(x²) + eps) · scale`` over the last axis; ``scale``
-    ``[d]``, or ``[G, d]`` over G contiguous groups of x's rows."""
+    ``[d]``, or ``[G, d]`` over G contiguous groups of x's rows.
+    ``cell_size`` (a grid's N, where x's and the ``[G·N, d]`` scale's
+    leading axis folds cells of N clients) plans the kernel on one cell's
+    rows, so each cell's rows are summed as alone (one launch still); the
+    plain version runs cell by cell."""
     if not _on_card(x):
-        return RN.rmsnorm_plain(x, scale, eps)
+        return by_cell(lambda a, s: RN.rmsnorm_plain(a, s, eps), cell_size,
+                       x, scale)
+    cells = x.shape[0] // cell_size if apart(x, cell_size) else 1
     if _needs_grad(x, scale):
-        return RN.RMSNormFn.apply(x, scale, eps)
-    return RN.rmsnorm_kernel(x, scale, eps)
+        return RN.RMSNormFn.apply(x, scale, eps, cells)
+    return RN.rmsnorm_kernel(x, scale, eps, cells=cells)
 
 
 def mlstm_scan(q, k, v, i_gate, f_gate):

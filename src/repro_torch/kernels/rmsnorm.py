@@ -28,6 +28,10 @@ contiguous groups, each taking its own scale row — the client-stacked
 training forward, where every client has its own norm (``[N, b, S, d]``
 rows against an ``[N, d]`` scale; qwen3's qk-norm over ``[N, b, S, H,
 hd]``).
+The plan follows the row count, and with it the order in which a row's
+squares are summed; ``cells=C`` (the grid runner's C cells folded into
+the rows) plans on one cell's ``rows / C``, so each cell's rows are
+normed, forward and backward, as by its own call.
 
 The backward (`rmsnorm_bwd_kernel`, ``csrc/rmsnorm.cu``'s
 ``repro_rmsnorm_bwd``) computes in fp32, as the reference's jnp
@@ -156,17 +160,25 @@ def _checked(x, scale, name: str):
     return dtype, d, rows, max(rows // groups, 1)
 
 
-def rmsnorm_kernel(x, scale, eps: float = 1e-5):
+def _plan_rows(rows: int, cells: int) -> int:
+    if cells < 1 or rows % cells:
+        raise ValueError(f"{rows} rows do not fold {cells} cells")
+    return rows // cells
+
+
+def rmsnorm_kernel(x, scale, eps: float = 1e-5, cells: int = 1):
     """RMSNorm on the card.  ``x``: contiguous ``[..., d]`` fp32 or bf16;
     ``scale``: contiguous fp32 ``[d]`` or ``[G, d]`` (x's rows grouped
-    contiguously by G) on the same device.  Returns a new tensor in x's
-    type; raises on anything else and on a refused launch."""
+    contiguously by G) on the same device; ``cells``: the plan's row count
+    is ``rows / cells``.  Returns a new tensor in x's type; raises on
+    anything else and on a refused launch."""
     dtype, d, rows, group_rows = _checked(x, scale, "rmsnorm_kernel")
     out = torch.empty_like(x)
     if rows == 0:
         return out
     xp, sp, op = x.data_ptr(), scale.data_ptr(), out.data_ptr()
-    code = _code(rows, d, dtype, x.element_size(), not (xp | sp | op) & 15)
+    code = _code(_plan_rows(rows, cells), d, dtype, x.element_size(),
+                 not (xp | sp | op) & 15)
     index = x.device.index
     with device_scope(index):
         err = _symbol()(xp, sp, op, rows, d, group_rows, eps, code,
@@ -192,11 +204,12 @@ def _bwd_symbol():
     return fn
 
 
-def rmsnorm_bwd_kernel(x, scale, dy, eps: float = 1e-5):
+def rmsnorm_bwd_kernel(x, scale, dy, eps: float = 1e-5, cells: int = 1):
     """The backward on the card: ``(dx, dscale)`` of `rmsnorm_kernel`'s
-    output against ``dy`` (x's shape and type; contiguous).  ``dx`` is in
-    x's type, ``dscale`` fp32 in scale's shape.  One call (three launches)
-    is one counted launch."""
+    output against ``dy`` (x's shape and type; contiguous), on the
+    forward's plan (``cells`` as there).  ``dx`` is in x's type,
+    ``dscale`` fp32 in scale's shape.  One call (three launches) is one
+    counted launch."""
     dtype, d, rows, group_rows = _checked(x, scale, "rmsnorm_bwd_kernel")
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device \
             or not dy.is_contiguous():
@@ -211,7 +224,8 @@ def rmsnorm_bwd_kernel(x, scale, dy, eps: float = 1e-5):
     ws = torch.empty(rows + chunks * d, dtype=torch.float32, device=x.device)
     ptrs = (x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr())
     aligned = not (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) & 15
-    code = _code(rows, d, dtype, x.element_size(), aligned)
+    code = _code(_plan_rows(rows, cells), d, dtype, x.element_size(),
+                 aligned)
     index = x.device.index
     with device_scope(index):
         err = _bwd_symbol()(*ptrs, dscale.data_ptr(), ws.data_ptr(), rows, d,
@@ -228,17 +242,19 @@ rmsnorm_bwd_kernel.launches = 0
 
 
 class RMSNormFn(torch.autograd.Function):
-    """RMSNorm with the hand-written forward and backward kernels."""
+    """RMSNorm with the hand-written forward and backward kernels;
+    ``apply(x, scale, eps[, cells])``."""
 
     @staticmethod
-    def forward(ctx, x, scale, eps):
+    def forward(ctx, x, scale, eps, cells=1):
         x, scale = x.contiguous(), scale.contiguous()
         ctx.save_for_backward(x, scale)
-        ctx.eps = eps
-        return rmsnorm_kernel(x, scale, eps)
+        ctx.eps, ctx.cells = eps, cells
+        return rmsnorm_kernel(x, scale, eps, cells)
 
     @staticmethod
     def backward(ctx, dy):
         x, scale = ctx.saved_tensors
-        dx, dscale = rmsnorm_bwd_kernel(x, scale, dy.contiguous(), ctx.eps)
-        return dx, dscale, None
+        dx, dscale = rmsnorm_bwd_kernel(x, scale, dy.contiguous(), ctx.eps,
+                                        ctx.cells)
+        return dx, dscale, None, None

@@ -87,12 +87,14 @@ class ProcessMesh:
 
     def client_mean(self, stacked: list) -> list:
         """The global client mean of every unit (the aggregated model
-        w̄): the sum of the local slice, one all-reduce, divided by N —
-        identical on every rank, so controllers and eval agree."""
+        w̄): the fp32 sum of the local slice, one all-reduce, divided by N
+        and rounded once to the leaf's type (the reference's mean of a
+        bf16 leaf) — identical on every rank, so controllers and eval
+        agree."""
         def mean(a):
-            s = a.sum(dim=0)
+            s = a.float().sum(dim=0)
             dist.all_reduce(s, group=self.group)
-            return s / self.n
+            return (s / self.n).to(a.dtype)
 
         return [tree_map(mean, u) for u in stacked]
 

@@ -7,10 +7,11 @@ prefill on the batch's ``frame_embeddings`` (its cross-attention K/V go
 into the cache); the VLM family merges ``patch_embeddings`` at the
 ``patch_mask`` positions.  Every token family but the SSM one (xlstm)
 also trains: ``loss`` (one model), ``stacked_loss`` (the simulator's
-client-stacked units, per-client losses) and ``split_loss`` (the SPMD
-step's client prefix and server suffix), each adding the MoE blocks'
-load-balance loss as the reference does; xlstm raises
-`NotImplementedError` there (ROADMAP §1: xlstm training).
+client-stacked units, per-client losses, with the grid runner's folded
+cells) and ``split_loss`` (the SPMD step's client prefix and server
+suffix), each adding the MoE blocks' load-balance loss as the reference
+does; xlstm raises `NotImplementedError` there (ROADMAP §1: xlstm
+training).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from repro_torch.config import ModelConfig, CNN, VLM
 from repro_torch.models import cnn as C
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.utils.cells import by_cell
 from repro_torch.utils.tree import tree_map
 
 
@@ -167,13 +169,16 @@ def _build_transformer(cfg: ModelConfig) -> Model:
                            {"positions": torch.arange(s, device=dev)[None, :]})
         return L.rmsnorm(x, final_norm, cfg.norm_eps)
 
-    def _embed_inputs(emb, batch):
+    def _embed_inputs(emb, batch, cell=None):
         """The embedded inputs of ``batch``: ``emb [V, d]`` and tokens
         ``[B, S]``, or each client's own table ``emb [N, V, d]`` and
-        tokens ``[N, b, S]``.  VLM batches merge their patches; whisper
-        adds its sinusoidal positions."""
+        tokens ``[N, b, S]`` (one gather a grid cell of ``cell`` clients:
+        on the card the gather's backward picks its kernel by the index
+        count).  VLM batches merge their patches; whisper adds its
+        sinusoidal positions."""
         tokens = batch["tokens"]
-        x = emb[tokens] if emb.dim() == 2 else _client_embed(emb, tokens)
+        x = emb[tokens] if emb.dim() == 2 \
+            else by_cell(_client_embed, cell, emb, tokens)
         if cfg.family == VLM and "patch_embeddings" in batch:
             x = _merge_patches(
                 x, torch.as_tensor(batch["patch_embeddings"], device=x.device),
@@ -242,27 +247,30 @@ def _build_transformer(cfg: ModelConfig) -> Model:
         tokens on their own.  Stubs (``patch_embeddings``/``patch_mask``,
         ``frame_embeddings``) carry the client axis; a whisper batch
         without frames raises ``KeyError``, as the reference's.
-        ``cell_size`` (the grid runner's folded cells) is not taken: token
-        cells in `run_grid` are not ported."""
+
+        ``cell_size`` is the grid runner's N, where the client axis folds
+        G cells of N clients (`utils.cells`): every op whose plan may
+        follow the leading extent runs once per cell — the products, the
+        embedding gather, the MoE and mamba blocks and the cross-entropy
+        with its sums — and the norms are planned on one cell's rows;
+        attention and the elementwise ops run once over the ``G·N``
+        fold.  Each cell's losses and gradients are then its own run's."""
         _trainable("training")
-        if cell_size is not None:
-            raise NotImplementedError(
-                "token cells in run_grid are not ported (ROADMAP §1: token "
-                "cells in run_grid and mesh mode)")
         s = batch["tokens"].shape[2]
         emb = units[0]["embed"]                               # [N, V, d]
         head_u = units[-1]
-        x = _embed_inputs(emb, batch)
-        ctx = {"positions": torch.arange(s, device=x.device)[None, :]}
+        x = _embed_inputs(emb, batch, cell_size)
+        ctx = {"positions": torch.arange(s, device=x.device)[None, :],
+               "cell_size": cell_size}
         if cfg.is_enc_dec:
             ctx["enc_out"] = _encode(_client_reps(head_u["enc_stack"]),
                                      head_u["enc_final_norm"],
                                      batch["frame_embeddings"])
         x, aux = T.stack_fwd(list(units[1:-1]), x, cfg, program, ctx)
-        x = L.rmsnorm(x, head_u["final_norm"], cfg.norm_eps)
+        x = L.rmsnorm(x, head_u["final_norm"], cfg.norm_eps, cell_size)
         head = emb.transpose(1, 2) if cfg.tie_embeddings else head_u["head"]
-        ce = _chunked_ce(x, head, batch["labels"], batch.get("loss_mask"),
-                         per_client=True)
+        ce = by_cell(lambda *a: _chunked_ce(*a, per_client=True), cell_size,
+                     x, head, batch["labels"], batch.get("loss_mask"))
         return ce + _lb(aux)
 
     def split_loss(client_stacked, server, batch, *, remat=False):

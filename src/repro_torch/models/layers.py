@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as KOPS
+from repro_torch.utils.cells import by_cell
 
 
 def _normal(gen, shape, device):
@@ -43,25 +44,33 @@ def stacked_normal_init(gen, shape, scale: float, dtype, device=None):
     return w
 
 
-def mm(x, w):
-    """``x @ w`` for ``w [in, out]``; for client-stacked ``w [N, in, out]``
-    and ``x [N, ..., in]``, one product per client as a single `torch.bmm`
-    (the reference's vmap over clients)."""
-    if w.dim() == 2:
-        return x @ w
+def _bmm(x, w):
     n = w.shape[0]
     return torch.bmm(x.reshape(n, -1, x.shape[-1]), w).reshape(
         *x.shape[:-1], w.shape[-1])
+
+
+def mm(x, w, cell_size=None):
+    """``x @ w`` for ``w [in, out]``; for client-stacked ``w [N, in, out]``
+    and ``x [N, ..., in]``, one product per client as a single `torch.bmm`
+    (the reference's vmap over clients).  ``cell_size`` (a grid's N, where
+    the leading axis folds G cells of N clients) makes it one `torch.bmm`
+    a cell (`utils.cells.by_cell`): cuBLAS picks its algorithm, and with
+    it the split of ``dW = xᵀ·dy``'s sum, by the batch count."""
+    if w.dim() == 2:
+        return x @ w
+    return by_cell(_bmm, cell_size, x, w)
 
 
 def embed_init(gen, vocab: int, d: int, dtype, device=None):
     return (_normal(gen, (vocab, d), device) * 0.02).to(dtype)
 
 
-def rmsnorm(x, scale, eps: float = 1e-5):
+def rmsnorm(x, scale, eps: float = 1e-5, cell_size=None):
     """RMSNorm over the last axis, through `kernels.ops.rmsnorm` (the CUDA
-    kernel on the card, its plain version on the CPU)."""
-    return KOPS.rmsnorm(x, scale, eps)
+    kernel on the card, its plain version on the CPU); ``cell_size`` as
+    `mm`'s, for a client-stacked ``[N, d]`` scale."""
+    return KOPS.rmsnorm(x, scale, eps, cell_size=cell_size)
 
 
 # --- rotary position embeddings --------------------------------------------
@@ -131,9 +140,10 @@ def silu(x):
     return x * (1 / (1 + torch.exp(-x)))
 
 
-def swiglu(params: dict, x):
-    g = silu(mm(x, params["w_gate"]))
-    return mm(g * mm(x, params["w_up"]), params["w_down"])
+def swiglu(params: dict, x, cell_size=None):
+    g = silu(mm(x, params["w_gate"], cell_size))
+    return mm(g * mm(x, params["w_up"], cell_size), params["w_down"],
+              cell_size)
 
 
 def gelu(x):
@@ -146,5 +156,6 @@ def gelu_mlp_init(gen, d: int, d_ff: int, dtype, device=None, lead=()) -> dict:
             "w_down": dense_init(gen, d_ff, d, dtype, device, lead)}
 
 
-def gelu_mlp(params: dict, x):
-    return mm(gelu(mm(x, params["w_up"])), params["w_down"])
+def gelu_mlp(params: dict, x, cell_size=None):
+    return mm(gelu(mm(x, params["w_up"], cell_size)), params["w_down"],
+              cell_size)

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import _normal, dense_init, mm, rmsnorm, silu
+from repro_torch.utils.cells import apart, by_cell
 
 F32 = torch.float32
 SCAN_CHUNK = 64       # steps whose factors are formed at once
@@ -105,9 +106,17 @@ def _scan_chunk(state, a, dt, x1, b_mat, c_mat):
     return ys, state
 
 
-def mamba_block(params: dict, x, *, state_dim: int, eps: float = 1e-5):
+def mamba_block(params: dict, x, *, state_dim: int, eps: float = 1e-5,
+                cell_size=None):
     """Full-sequence selective scan. x: [B, S, d] (or [N, b, S, d] on
-    client-stacked weights); returns block output."""
+    client-stacked weights); returns block output.  ``cell_size`` (a
+    grid's N, where the client axis folds G cells) runs the block once per
+    cell: the state's readout products and the backward's sums over the
+    per-client parameters' broadcast may plan by the leading extent."""
+    if apart(x, cell_size):
+        return by_cell(lambda p, xc: mamba_block(p, xc, state_dim=state_dim,
+                                                 eps=eps),
+                       cell_size, params, x)
     *lead, s, d = x.shape
     dtype = x.dtype
     per_client = _per_client if params["a_log"].dim() == 3 \

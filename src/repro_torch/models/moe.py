@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import (dense_init, mm, silu,
                                       stacked_normal_init)
+from repro_torch.utils.cells import apart, cell_parts
 
 F32 = torch.float32
 MOE_TOKEN_CHUNK = 65536
@@ -54,7 +55,7 @@ def moe_init(gen, d: int, d_ff: int, n_experts: int, dtype, device=None,
 
 
 def moe_ffn(params: dict, x, *, top_k: int, capacity_factor: float = 1.25,
-            return_aux: bool = True):
+            return_aux: bool = True, cell_size=None):
     """x: [..., T, d] flattened internally to [T, d].  With client-stacked
     weights (router ``[N, d, E]``, experts ``[N, E, ...]``) x is ``[N, ...,
     d]`` and each client's tokens go on their own, as the reference's vmap
@@ -70,7 +71,21 @@ def moe_ffn(params: dict, x, *, top_k: int, capacity_factor: float = 1.25,
     entropy and the dropped share, as the reference, and the chosen
     experts ``expert_idx`` [..., T, K] (aux is ``{}`` when not
     ``return_aux``).
+
+    ``cell_size`` (a grid's N, where the client axis folds G cells of N
+    clients) runs the block once per cell: its products, softmax,
+    dispatch sums and load-balance means may each plan by the leading
+    extent.
     """
+    if apart(x, cell_size):
+        cells = cell_parts(params, cell_size, x.shape[0] // cell_size)
+        outs, auxs = zip(*(moe_ffn(p, xc, top_k=top_k,
+                                   capacity_factor=capacity_factor,
+                                   return_aux=return_aux)
+                           for p, xc in zip(cells, x.split(cell_size))))
+        aux = {k: torch.cat([a[k] for a in auxs]) if torch.is_tensor(v)
+               else v for k, v in auxs[0].items()}
+        return torch.cat(outs), aux
     orig_shape = x.shape
     d = x.shape[-1]
     lead = (x.shape[0],) if params["w_router"].dim() == 3 else ()

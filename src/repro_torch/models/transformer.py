@@ -130,18 +130,19 @@ def block_init(gen, kind: str, cfg: ModelConfig, device=None, lead=()) -> dict:
 # Block forward (full sequence)
 # ---------------------------------------------------------------------------
 
-def _qkv(p, cfg, x, positions):
+def _qkv(p, cfg, x, positions, cell=None):
     """q, k, v ``[*lead, S, H, hd]`` of ``x [*lead, S, d]``; with
-    client-stacked weights (``[N, ...]``) ``lead`` is ``(N, b)``."""
+    client-stacked weights (``[N, ...]``) ``lead`` is ``(N, b)``.
+    ``cell``: the grid's cell size (`block_fwd`)."""
     *lead, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    xn = L.rmsnorm(x, p["norm"], cfg.norm_eps)
-    q = L.mm(xn, p["wq"]).reshape(*lead, s, cfg.n_heads, hd)
-    k = L.mm(xn, p["wk"]).reshape(*lead, s, cfg.n_kv_heads, hd)
-    v = L.mm(xn, p["wv"]).reshape(*lead, s, cfg.n_kv_heads, hd)
+    xn = L.rmsnorm(x, p["norm"], cfg.norm_eps, cell)
+    q = L.mm(xn, p["wq"], cell).reshape(*lead, s, cfg.n_heads, hd)
+    k = L.mm(xn, p["wk"], cell).reshape(*lead, s, cfg.n_kv_heads, hd)
+    v = L.mm(xn, p["wv"], cell).reshape(*lead, s, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
-        q = L.rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        k = L.rmsnorm(k, p["k_norm"], cfg.norm_eps)
+        q = L.rmsnorm(q, p["q_norm"], cfg.norm_eps, cell)
+        k = L.rmsnorm(k, p["k_norm"], cfg.norm_eps, cell)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -172,15 +173,15 @@ def _xattn(p, cfg, x, k, v):
     return L.mm(o.reshape(*x.shape[:-1], -1), p["wo"])
 
 
-def _moe(p, cfg, x, lb: bool):
+def _moe(p, cfg, x, lb: bool, cell=None):
     """The MoE block's delta and, with ``lb``, its load-balance loss
     (``[N]`` on client-stacked weights; else None).  Serving's prefill and
     decode ask for no loss, so they skip its math unless `moe.RECORD`
     records the aux."""
     record = M.RECORD is not None
-    out, aux = M.moe_ffn(p, L.rmsnorm(x, p["norm"], cfg.norm_eps),
+    out, aux = M.moe_ffn(p, L.rmsnorm(x, p["norm"], cfg.norm_eps, cell),
                          top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
-                         return_aux=lb or record)
+                         return_aux=lb or record, cell_size=cell)
     if record:
         M.RECORD.append(aux)
     return out, aux["lb_loss"] if lb else None
@@ -192,25 +193,33 @@ def block_fwd(kind: str, p: dict, x, cfg: ModelConfig, ctx: dict,
     an MoE block's load-balance loss when ``lb`` asks for it, else None.
     Every block also takes client-stacked weights (leaves ``[N, ...]``)
     with ``x [N, b, S, d]``: the port's form of the reference's vmap over
-    clients."""
+    clients.  ``ctx["cell_size"]`` (the grid runner's N, where the client
+    axis folds G cells) runs every op whose plan may follow the leading
+    extent once per cell — the products, the MoE and mamba blocks — and
+    plans the norms on one cell's rows; attention and the elementwise ops
+    run once over the fold (cross-attention takes no cell size: whisper's
+    Session raises before it)."""
+    cell = ctx.get("cell_size")
     if kind in ("attn", "attn_nc"):
         causal = kind == "attn" and cfg.causal
-        q, k, v = _qkv(p, cfg, x, ctx["positions"])
+        q, k, v = _qkv(p, cfg, x, ctx["positions"], cell)
         window = ctx.get("window", cfg.sliding_window)
         o = A.attention(_fold(q), _fold(k), _fold(v), causal=causal,
                         window=window if causal else 0)
-        return L.mm(o.reshape(*x.shape[:-1], -1), p["wo"]), None
+        return L.mm(o.reshape(*x.shape[:-1], -1), p["wo"], cell), None
     if kind == "xattn":
         return _xattn(p, cfg, x, *_xattn_kv(p, cfg, ctx["enc_out"])), None
     if kind == "ffn":
-        return L.swiglu(p, L.rmsnorm(x, p["norm"], cfg.norm_eps)), None
+        return L.swiglu(p, L.rmsnorm(x, p["norm"], cfg.norm_eps, cell),
+                        cell), None
     if kind == "ffn_gelu":
-        return L.gelu_mlp(p, L.rmsnorm(x, p["norm"], cfg.norm_eps)), None
+        return L.gelu_mlp(p, L.rmsnorm(x, p["norm"], cfg.norm_eps, cell),
+                          cell), None
     if kind == "moe":
-        return _moe(p, cfg, x, lb)
+        return _moe(p, cfg, x, lb, cell)
     if kind == "mamba":
         return MB.mamba_block(p, x, state_dim=cfg.ssm_state_dim,
-                              eps=cfg.norm_eps), None
+                              eps=cfg.norm_eps, cell_size=cell), None
     if kind == "mlstm":
         return S.mlstm_block(p, x, cfg.n_heads, cfg.norm_eps), None
     if kind == "slstm":

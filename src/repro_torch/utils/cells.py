@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.utils.tree import tree_map
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 
 def apart(t, cell_size) -> bool:
@@ -22,14 +22,38 @@ def apart(t, cell_size) -> bool:
     return cell_size is not None and t.shape[0] != cell_size
 
 
+def cell_parts(t, size: int, count: int) -> list:
+    """``count`` per-cell parts of ``t``: a tensor's ``[size, ...]`` row
+    blocks (one `split`, so its backward is one concatenation), a dict's
+    leaves split alike, None repeated."""
+    if t is None:
+        return [None] * count
+    if isinstance(t, dict):
+        parts = {k: cell_parts(v, size, count) for k, v in t.items()}
+        return [{k: p[i] for k, p in parts.items()} for i in range(count)]
+    return list(t.split(size))
+
+
 def by_cell(fn, cell_size, *ts):
     """``fn(*ts)`` over the whole leading axis or, where `apart`, over each
-    cell's ``[cell_size, ...]`` rows of every tensor in ``ts``, the results
-    concatenated along the leading axis."""
-    if not apart(ts[0], cell_size):
-        return fn(*ts)
-    return torch.cat([fn(*parts) for parts in
-                      zip(*(t.split(cell_size) for t in ts))])
+    cell's ``[cell_size, ...]`` rows of every argument in ``ts`` (tensors,
+    dicts of tensors, or None), the results — a tensor or a tuple of
+    tensors — concatenated along the leading axis.
+
+    Unsplit, ``fn`` takes a view of each tensor: autograd sums the
+    gradients of a tensor's uses in the order they arrive, so where ``fn``
+    uses an input more than once, its uses must reach the input through
+    one node, as the split's parts do, for a cell's gradient sums to
+    associate as its own run's."""
+    lead = tree_leaves(ts[0])[0]
+    if not apart(lead, cell_size):
+        return fn(*(tree_map(lambda a: None if a is None
+                             else a.view_as(a), t) for t in ts))
+    count = lead.shape[0] // cell_size
+    parts = [fn(*p) for p in zip(*(cell_parts(t, cell_size, count)
+                                   for t in ts))]
+    return tuple(fold(list(parts))) if isinstance(parts[0], tuple) \
+        else torch.cat(parts)
 
 
 def rows(tree, g: int, n: int):

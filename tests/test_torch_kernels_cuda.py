@@ -246,6 +246,39 @@ def test_clip_sgd_ext_kernel_matches_plain(n, d, keep, use_common):
                                       p.cpu().numpy())   # holds params
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_common", [True, False], ids=["u1", "u0"])
+@pytest.mark.parametrize("keep", EXT_KEEPS)
+@pytest.mark.parametrize("d", [1, 300, 4099])
+def test_clip_sgd_ext_kernel_bf16_matches_plain(d, keep, use_common):
+    """Kernel 3 on bf16 leaves with a bf16 mean (mesh mode on a token
+    model: the two-tier combine runs in the leaf's type; the wrapper
+    widens the mean): against the plain version in fp32 rounded once to
+    bf16 (the kernel's arithmetic), within one bf16 ulp; aligned and
+    ragged D."""
+    _need_card()
+    n = 8
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    bf = torch.bfloat16
+    p = torch.randn((n, d), device="cuda", generator=gen).to(bf)
+    g = torch.randn((n, d), device="cuda", generator=gen).to(bf)
+    scale = torch.rand(n, device="cuda", generator=gen)
+    common = torch.randn(d, device="cuda", generator=gen).to(bf)
+    keep_vec = {"all": torch.ones(n, dtype=torch.bool, device="cuda"),
+                "none": torch.zeros(n, dtype=torch.bool, device="cuda"),
+                "mixed": torch.arange(n, device="cuda") % 2 == 0}[keep]
+    u = torch.tensor(use_common, device="cuda")
+    want = TCS.clip_sgd_ext_plain(p.float(), g.float(), scale, keep_vec,
+                                  common.float(), u, gamma=GAMMA).to(bf)
+    target = p.clone()
+    got = TOPS.clip_sgd(target, g, scale, keep_vec, None, gamma=GAMMA,
+                        common=common, use_common=u)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == target.data_ptr() and got.dtype == bf
+    diff = (target.float() - want.float()).abs()
+    assert bool((diff <= 2 ** -7 * want.float().abs()).all())
+
+
 def _round_case(seed, n, ds, part, ext, keeps=None):
     """Card inputs of one round's update over leaves of ``ds`` columns:
     (ps, gs, scale, keep_specs, participation, commons, count)."""

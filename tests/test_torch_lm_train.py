@@ -355,14 +355,20 @@ def test_token_session_bf16_matches_reference():
 
 
 def test_token_session_checks():
-    """Token cells refuse a non-IID partition, mesh mode and run_grid."""
+    """Token cells refuse a non-IID partition; a one-cell token grid is
+    its `run()` bitwise (results and every parameter)."""
     name = _register("float32")
     with pytest.raises(ValueError, match="iid"):
         TSession(TSpec(arch=name, partition="noniid-shards", n_train=64,
                        n_test=8, seq_len=8), device="cpu")
-    with pytest.raises(NotImplementedError, match="run_grid"):
-        TSession.run_grid([TSpec(arch=name, n_train=64, n_test=8, seq_len=8,
-                                 partition="iid")], device="cpu")
+    spec = TSpec(arch=name, n_train=64, n_test=8, seq_len=8,
+                 partition="iid", rounds=2, eval_every=1)
+    grid, alone = TSession(spec, device="cpu"), TSession(spec, device="cpu")
+    (g,), r = TSession.run_grid([grid], device="cpu"), alone.run()
+    assert (g.clock, g.train_loss, g.test_loss) == \
+        (r.clock, r.train_loss, r.test_loss)
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(grid.sim._stacked), tree_leaves(alone.sim._stacked)))
 
 
 def test_unported_families_refuse_training():
