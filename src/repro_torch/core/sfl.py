@@ -39,7 +39,7 @@ A token arch runs the same scheduler on its unit list (embedding, one
 unit a super-block repetition, head) through the model's client-stacked
 ``stacked_loss``, whose per-client losses carry the MoE load-balance
 term; its eval is per token.  `make_hasfl_train_step` is the reference's
-SPMD HASFL step on one device, for every token family but xlstm.
+SPMD HASFL step on one device, for every token family.
 """
 from __future__ import annotations
 

@@ -398,41 +398,9 @@ constexpr int BQ = 32;            // query rows a dK/dV step
 constexpr int BQQ = 16 * WARPS;   // query rows a dQ block (16 a warp)
 constexpr int BK = 32;            // keys a dQ step
 
-// D (+)= A B: A 16 x 16 (row), B 16 x 8 (col), bf16; fp32 D
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// the A fragment of rows [r0, r0 + 16), columns [k0, k0 + 16) of a
-// row-major tile with `ld` elements a row
-__device__ __forceinline__ void a_frag(uint32_t (&a)[4],
-                                       const __nv_bfloat16* t, int ld, int r0,
-                                       int k0) {
-  const int g = threadIdx.x % 32 / 4, c = 2 * (threadIdx.x % 4);
-  a[0] = ld32(t + (r0 + g) * ld + k0 + c);
-  a[1] = ld32(t + (r0 + g + 8) * ld + k0 + c);
-  a[2] = ld32(t + (r0 + g) * ld + k0 + 8 + c);
-  a[3] = ld32(t + (r0 + g + 8) * ld + k0 + 8 + c);
-}
-
-// the B fragment of columns [n0, n0 + 8), rows [k0, k0 + 16), from a tile
-// stored n-major ([n][k], `ld` elements an n)
-__device__ __forceinline__ void b_frag(uint32_t& b0, uint32_t& b1,
-                                       const __nv_bfloat16* t, int ld, int n0,
-                                       int k0) {
-  const int g = threadIdx.x % 32 / 4, c = 2 * (threadIdx.x % 4);
-  b0 = ld32(t + (n0 + g) * ld + k0 + c);
-  b1 = ld32(t + (n0 + g) * ld + k0 + 8 + c);
-}
+using hopper::a_frag;
+using hopper::b_frag;
+using hopper::mma;
 
 // rows [r0, r0 + R) of a [.., S, H, hd] bf16 tensor at head `head` into
 // shared memory as [R][ld] (row-major) and, when `tr`, as [P][ldt]

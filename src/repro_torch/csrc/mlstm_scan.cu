@@ -53,7 +53,10 @@
 //    walking all S steps in order with step t + 1's inputs loaded while
 //    step t computes.
 // Kernel 1 takes bf16 q, k, v and writes bf16 h; kernel 2 takes and
-// writes fp32.  The gates are fp32 on both.
+// writes fp32.  The gates are fp32 on both.  For the backward
+// (mlstm_scan_bwd.cu) either kernel also writes, when asked, each row's
+// signed sum a_t (kernel 1's den before |.|, kernel 2's n . q_t) and the
+// stabilizer m_t it used, fp32 [B, S, H]; h does not change.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -102,6 +105,7 @@ __global__ void __launch_bounds__(NW * 32)
 mlstm_scan_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ ig,
                   const float* __restrict__ fg, float* __restrict__ h,
+                  float* __restrict__ a_out, float* __restrict__ m_out,
                   int64_t s_len, int64_t heads, float scale) {
   constexpr int HD = 32 * COLS;
   const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
@@ -140,7 +144,12 @@ mlstm_scan_kernel(const float* __restrict__ q, const float* __restrict__ k,
       n[c] = f_g * n[c] + i_g * cur.k[c];
       nq = fmaf(n[c], cur.q[c], nq);
     }
-    const float den = fmaxf(fabsf(warp_sum(nq)), expf(-m_new));
+    const float a_t = warp_sum(nq);
+    const float den = fmaxf(fabsf(a_t), expf(-m_new));
+    if (a_out != nullptr && blockIdx.y == 0 && warp == 0 && lane == 0) {
+      a_out[gate] = a_t;
+      m_out[gate] = m_new;
+    }
 #pragma unroll
     for (int r = 0; r < RW; ++r) {
       const float iv = i_g * cur.v[r];
@@ -160,8 +169,8 @@ mlstm_scan_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int COLS>
 int launch(const void* q, const void* k, const void* v, const void* ig,
-           const void* fg, void* h, int64_t b, int64_t s, int64_t heads,
-           float scale, cudaStream_t stream) {
+           const void* fg, void* h, void* a, void* m, int64_t b, int64_t s,
+           int64_t heads, float scale, cudaStream_t stream) {
   constexpr int HD = 32 * COLS;
   if (b * heads > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -169,24 +178,26 @@ int launch(const void* q, const void* k, const void* v, const void* ig,
   mlstm_scan_kernel<COLS><<<grid, NW * 32, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(ig),
-      static_cast<const float*>(fg), static_cast<float*>(h), s, heads, scale);
+      static_cast<const float*>(fg), static_cast<float*>(h),
+      static_cast<float*>(a), static_cast<float*>(m), s, heads, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 int dispatch_hd(const void* q, const void* k, const void* v, const void* ig,
-                const void* fg, void* h, int64_t b, int64_t s, int64_t heads,
-                int64_t hd, float scale, cudaStream_t stream) {
+                const void* fg, void* h, void* a, void* m, int64_t b,
+                int64_t s, int64_t heads, int64_t hd, float scale,
+                cudaStream_t stream) {
   switch (hd) {
     case 32:
-      return launch<1>(q, k, v, ig, fg, h, b, s, heads, scale, stream);
+      return launch<1>(q, k, v, ig, fg, h, a, m, b, s, heads, scale, stream);
     case 64:
-      return launch<2>(q, k, v, ig, fg, h, b, s, heads, scale, stream);
+      return launch<2>(q, k, v, ig, fg, h, a, m, b, s, heads, scale, stream);
     case 128:
-      return launch<4>(q, k, v, ig, fg, h, b, s, heads, scale, stream);
+      return launch<4>(q, k, v, ig, fg, h, a, m, b, s, heads, scale, stream);
     case 256:
-      return launch<8>(q, k, v, ig, fg, h, b, s, heads, scale, stream);
+      return launch<8>(q, k, v, ig, fg, h, a, m, b, s, heads, scale, stream);
     case 512:
-      return launch<16>(q, k, v, ig, fg, h, b, s, heads, scale, stream);
+      return launch<16>(q, k, v, ig, fg, h, a, m, b, s, heads, scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -299,6 +310,7 @@ mlstm_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 const double* __restrict__ f_cum,
                 const double* __restrict__ m_run,
                 const float* __restrict__ gl, __nv_bfloat16* __restrict__ h,
+                float* __restrict__ a_out, float* __restrict__ m_out,
                 int64_t s_len, int64_t heads, int64_t sp, float scale,
                 int64_t q_tiles) {
   constexpr int HDP = HD < 128 ? 128 : HD;  // head dim in shared memory
@@ -460,6 +472,18 @@ mlstm_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
   const float inv_a = 1.f / fmaxf(fabsf(den_a), expf(-ma));
   const float inv_b = 1.f / fmaxf(fabsf(den_b), expf(-mb));
+  if (a_out != nullptr && wg == 0 && quad == 0) {
+    // the backward's a_t and m_t: both warpgroups hold the same sums
+    const int64_t pa = q0 + ra, pb = q0 + rb;
+    if (pa < s_len) {
+      a_out[(b * s_len + pa) * heads + hh] = den_a;
+      m_out[(b * s_len + pa) * heads + hh] = ma;
+    }
+    if (pb < s_len) {
+      a_out[(b * s_len + pb) * heads + hh] = den_b;
+      m_out[(b * s_len + pb) * heads + hh] = mb;
+    }
+  }
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int64_t pos = q0 + (hr ? rb : ra);
@@ -481,8 +505,8 @@ mlstm_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, const void* ig,
-           const void* fg, void* h, void* ws, int64_t b, int64_t s,
-           int64_t heads, float scale, cudaStream_t stream) {
+           const void* fg, void* h, void* a, void* m, void* ws, int64_t b,
+           int64_t s, int64_t heads, float scale, cudaStream_t stream) {
   constexpr int HDP = HD < 128 ? 128 : HD;
   constexpr int SMEM = 1024 + 3 * KT * HDP * 2 + 2 * KT * 4;
   static bool smem_set = false;  // the attribute holds for the process
@@ -509,7 +533,8 @@ int launch(const void* q, const void* k, const void* v, const void* ig,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), f_cum, m_run, gl,
-      static_cast<__nv_bfloat16*>(h), s, heads, sp, scale, tiles);
+      static_cast<__nv_bfloat16*>(h), static_cast<float*>(a),
+      static_cast<float*>(m), s, heads, sp, scale, tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -518,47 +543,48 @@ int launch(const void* q, const void* k, const void* v, const void* ig,
 }  // namespace
 
 // q, k, v, h: contiguous [B, S, H, hd]; i_gate, f_gate: contiguous fp32
-// [B, S, H]; all fp32 (the recurrence).  Launches on `stream`, does not
-// synchronise, returns cudaGetLastError() of the launch.
+// [B, S, H]; all fp32 (the recurrence).  a, m: null, or fp32 [B, S, H] for
+// the backward: each row's signed sum a_t = n_t . q_t and its stabilizer
+// m_t.  Launches on `stream`, does not synchronise, returns
+// cudaGetLastError() of the launch.
 extern "C" int repro_mlstm_scan(const void* q, const void* k, const void* v,
                                 const void* i_gate, const void* f_gate,
-                                void* h, int64_t b, int64_t s, int64_t heads,
-                                int64_t hd, float scale, void* stream) {
+                                void* h, void* a, void* m, int64_t b,
+                                int64_t s, int64_t heads, int64_t hd,
+                                float scale, void* stream) {
   if (b == 0 || s == 0 || heads == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dispatch_hd(q, k, v, i_gate, f_gate, h, b, s, heads, hd, scale, st);
+  return dispatch_hd(q, k, v, i_gate, f_gate, h, a, m, b, s, heads, hd,
+                     scale, st);
 }
 
 // The parallel form on the tensor cores: q, k, v, h contiguous bf16
 // [B, S, H, hd], 16-byte aligned; i_gate, f_gate contiguous fp32 [B, S, H];
-// ws a workspace of B * H * sp * 20 bytes, sp = S rounded up to 64 (the
-// gates' prefix: F and M in fp64, gl in fp32).  Two launches on `stream`
-// (the prefix, then the tiles), no synchronisation; returns the first
-// cudaGetLastError() that is not 0.
+// a, m null or fp32 [B, S, H] (the signed row sum of P and m_t, for the
+// backward); ws a workspace of B * H * sp * 20 bytes, sp = S rounded up to
+// 64 (the gates' prefix: F and M in fp64, gl in fp32).  Two launches on
+// `stream` (the prefix, then the tiles), no synchronisation; returns the
+// first cudaGetLastError() that is not 0.
 extern "C" int repro_mlstm_parallel(const void* q, const void* k,
                                     const void* v, const void* i_gate,
-                                    const void* f_gate, void* h, void* ws,
-                                    int64_t b, int64_t s, int64_t heads,
-                                    int64_t hd, float scale, void* stream) {
+                                    const void* f_gate, void* h, void* a,
+                                    void* m, void* ws, int64_t b, int64_t s,
+                                    int64_t heads, int64_t hd, float scale,
+                                    void* stream) {
   if (b == 0 || s == 0 || heads == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_MLSTM_PAR(HD)                                                  \
+  case HD:                                                                   \
+    return par::launch<HD>(q, k, v, i_gate, f_gate, h, a, m, ws, b, s,       \
+                           heads, scale, st);
   switch (hd) {
-    case 32:
-      return par::launch<32>(q, k, v, i_gate, f_gate, h, ws, b, s, heads,
-                             scale, st);
-    case 64:
-      return par::launch<64>(q, k, v, i_gate, f_gate, h, ws, b, s, heads,
-                             scale, st);
-    case 128:
-      return par::launch<128>(q, k, v, i_gate, f_gate, h, ws, b, s, heads,
-                              scale, st);
-    case 256:
-      return par::launch<256>(q, k, v, i_gate, f_gate, h, ws, b, s, heads,
-                              scale, st);
-    case 512:
-      return par::launch<512>(q, k, v, i_gate, f_gate, h, ws, b, s, heads,
-                              scale, st);
+    REPRO_MLSTM_PAR(32)
+    REPRO_MLSTM_PAR(64)
+    REPRO_MLSTM_PAR(128)
+    REPRO_MLSTM_PAR(256)
+    REPRO_MLSTM_PAR(512)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef REPRO_MLSTM_PAR
 }

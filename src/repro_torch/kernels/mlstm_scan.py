@@ -27,7 +27,18 @@ kernels picked by type, each with its launch count:
 
 The TPU kept each (b, h)'s whole state C (1 MiB of fp32 at hd = 512) in
 VMEM; neither form keeps it on the card.  k is scaled by ``1/sqrt(hd)`` in
-fp32, as on the TPU.  One wrapper call is one counted launch.
+fp32, as on the TPU.  One wrapper call is one counted launch.  With
+``stats`` either kernel also writes each row's signed sum ``a_t`` (the
+denominator before ``max``) and the stabilizer ``m_t`` it used; h is the
+same bitwise.
+
+`mlstm_scan_bwd_kernel` is the backward (``csrc/mlstm_scan_bwd.cu``; the
+TPU kernel has none, the reference differentiates its jnp recurrence):
+the parallel form's gradient with the stabilizer held constant (h does
+not depend on it), from the forward's h, ``a_t`` and ``m_t``, bf16 on
+``mma.sync`` (``launches_tc``) and fp32 on the CUDA cores
+(``launches_fp32``), beside its plain version `mlstm_scan_bwd_plain`.
+`MLSTMScanFn` joins the two kernels under autograd.
 
 `mlstm_scan_plain` is the plain PyTorch version (CPU tensors, tests and
 the card's checks): the sequential recurrence of the reference's
@@ -102,7 +113,7 @@ def mlstm_gate_prefix(i_gate, f_gate, dtype=torch.float64):
     return f_cum, g, m_run, (f_cum + m_run).float()
 
 
-def mlstm_parallel_plain(q, k, v, i_gate, f_gate):
+def mlstm_parallel_plain(q, k, v, i_gate, f_gate, *, stats: bool = False):
     """The recurrence's function in the xLSTM paper's parallel form.
 
     ``h_t = Σ_{s≤t} D_ts S_ts v_s / max(|Σ_{s≤t} D_ts S_ts|, exp(−m_t))``
@@ -110,8 +121,9 @@ def mlstm_parallel_plain(q, k, v, i_gate, f_gate):
     from `mlstm_gate_prefix`; ``P = S ∘ D`` in fp32, its signed row sum the
     denominator, and for bf16 inputs P taken into the PV product as the
     tensor-core kernel takes it: two bf16 parts, ``bf16(P) + bf16(P −
-    bf16(P))``.  Returns h ``[B, S, H, hd]``
-    in q's type.  Memory grows as S²: for tests and checks."""
+    bf16(P))``.  Returns h ``[B, S, H, hd]`` in q's type, or with ``stats``
+    ``(h, a, m)`` as `mlstm_scan_kernel`'s.  Memory grows as S²: for tests
+    and checks."""
     b, s, h, hd = q.shape
     _, g, m_run, m = mlstm_gate_prefix(i_gate, f_gate)
     g, m_run, m = (t.permute(0, 2, 1) for t in (g, m_run, m))   # [B, H, S]
@@ -120,21 +132,76 @@ def mlstm_parallel_plain(q, k, v, i_gate, f_gate):
     d = torch.exp(e.masked_fill(~causal, float("-inf")))
     kf = k.float() / math.sqrt(hd)
     p = torch.einsum("bthd,bshd->bhts", q.float(), kf) * d
-    den = torch.maximum(p.sum(-1).abs(), torch.exp(-m))          # [B, H, t]
+    a = p.sum(-1)                                                # [B, H, t]
+    den = torch.maximum(a.abs(), torch.exp(-m))
     if q.dtype == torch.bfloat16:
         hi = p.to(torch.bfloat16).float()
         p = hi + (p - hi).to(torch.bfloat16).float()
     num = torch.einsum("bhts,bshd->bthd", p, v.float())
-    return (num / den.permute(0, 2, 1)[..., None]).to(q.dtype)
+    out = (num / den.permute(0, 2, 1)[..., None]).to(q.dtype)
+    if not stats:
+        return out
+    return out, a.permute(0, 2, 1).contiguous(), m.permute(0, 2, 1).contiguous()
+
+
+def mlstm_scan_bwd_plain(q, k, v, i_gate, f_gate, h, a, m, dh):
+    """The backward of the parallel form, as ``csrc/mlstm_scan_bwd.cu``
+    computes it, in plain torch ops (S² memory): from the forward's h and
+    its ``a``, ``m`` (`mlstm_scan_kernel` with ``stats``) and the output
+    gradient ``dh``, with the stabilizer m held constant (h does not depend
+    on it), ``den_t = max(|a_t|, exp(−m_t))``::
+
+        dN_t = dh_t / den_t,   δ_t = −(dh_t · h_t) / den_t
+        da_t = δ_t·sign(a_t) where |a_t| ≥ exp(−m_t), else 0
+        dP_ts = dN_t · v_s + da_t,  dS_ts = dP_ts·D_ts,  Q_ts = dP_ts·P_ts
+        dq_t = Σ_s dS_ts k̃_s,  dk_s = Σ_t dS_ts q_t / √hd,  dv_s = Σ_t P_ts dN_t
+        di_s = Σ_t Q_ts,   df_r = σ(−f_r) · Σ_{s<r≤t} Q_ts
+
+    (a forget gate moves the pairs that straddle it: ``D_ts = exp(i_s +
+    F_t − F_s − m_t)``).  D from `mlstm_gate_prefix` in fp64, with M
+    shifted by the forward's ``m − float(F + M)`` (0 for the parallel
+    form; the fp32 recurrence's rounding otherwise) so D, ``a`` and
+    ``exp(−m)`` share one scale; the rest in fp64 (a yardstick for the
+    kernel's fp32 arithmetic).  Returns (dq, dk, dv) in q's type and (di,
+    df) fp32 ``[B, S, H]``."""
+    b, s, nh, hd = q.shape
+    scale = 1.0 / math.sqrt(hd)
+    _, g, m_run, m_pf = mlstm_gate_prefix(i_gate, f_gate)
+    mc = m_run + (m.double() - m_pf.double())
+    g, mc = (t.permute(0, 2, 1) for t in (g, mc))               # [B, H, S]
+    causal = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    d = torch.where(causal, torch.exp(
+        (g[:, :, None, :] - mc[:, :, :, None]).float()), 0.0).double()
+    qf, kf, vf, dhf = (t.double() for t in (q, k, v, dh))
+    p = torch.einsum("bthd,bshd->bhts", qf, kf) * scale * d    # [B, H, t, s]
+    af = a.permute(0, 2, 1).double()
+    floor = torch.exp(-m.permute(0, 2, 1).double())
+    inv = 1.0 / torch.maximum(af.abs(), floor)                   # [B, H, t]
+    delta = -(dhf * h.double()).sum(-1).permute(0, 2, 1) * inv
+    da = torch.where(af.abs() >= floor, torch.where(af > 0, delta, -delta),
+                     0.0)
+    dp = torch.where(causal, torch.einsum("bthd,bshd->bhts", dhf, vf)
+                     * inv[..., None] + da[..., None], 0.0)
+    ds = dp * d
+    dv = torch.einsum("bhts,bthd->bshd", p * inv[..., None], dhf)
+    dk = torch.einsum("bhts,bthd->bshd", ds, qf) * scale
+    dq = torch.einsum("bhts,bshd->bthd", ds, kf) * scale
+    qq = dp * p
+    di = qq.sum(2)                                               # [B, H, s]
+    # Σ_{s<r} Q_ts for every (t, r), summed over t ≥ r
+    before = torch.where(causal, qq.cumsum(-1) - qq, 0.0)
+    df = before.sum(2) * torch.sigmoid(-f_gate.double()).permute(0, 2, 1)
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+            *(t.permute(0, 2, 1).float().contiguous() for t in (di, df)))
 
 
 @functools.lru_cache(maxsize=1)
 def _symbols():
     lib = build.load("mlstm_scan")
     rec, par = lib.repro_mlstm_scan, lib.repro_mlstm_parallel
-    rec.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 4
+    rec.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int64] * 4
                     + [ctypes.c_float, ctypes.c_void_p])
-    par.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int64] * 4
+    par.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int64] * 4
                     + [ctypes.c_float, ctypes.c_void_p])
     rec.restype = par.restype = ctypes.c_int
     return rec, par
@@ -150,12 +217,15 @@ def parallel_workspace_bytes(b: int, s: int, h: int) -> int:
     return b * h * -(-s // TILE) * TILE * 20
 
 
-def mlstm_scan_kernel(q, k, v, i_gate, f_gate):
+def mlstm_scan_kernel(q, k, v, i_gate, f_gate, *, stats: bool = False):
     """The recurrence's function on the card.  q, k, v contiguous ``[B, S,
     H, hd]``, all fp32 or all bf16 (bf16 16-byte aligned), hd in 32..512 (a
     power of two); gates contiguous fp32 ``[B, S, H]``.  bf16 takes the
     parallel form on the tensor cores, fp32 the recurrence.  Returns a new
-    tensor in q's type; raises on anything else and on a refused launch."""
+    tensor h in q's type, or with ``stats`` ``(h, a, m)``: each row's
+    signed sum ``a_t`` (the denominator before ``max``) and the stabilizer
+    ``m_t`` it used, fp32 ``[B, S, H]``, for the backward; h is the same
+    either way.  Raises on anything else and on a refused launch."""
     ts = (q, k, v, i_gate, f_gate)
     if q.device.type != "cuda" or any(t.device != q.device for t in ts):
         raise ValueError("mlstm_scan_kernel takes CUDA tensors on one "
@@ -177,10 +247,15 @@ def mlstm_scan_kernel(q, k, v, i_gate, f_gate):
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("mlstm_scan_kernel takes contiguous tensors")
     out = torch.empty_like(q)
+    a = m = None
+    if stats:
+        a, m = (torch.empty(q.shape[:3], dtype=torch.float32,
+                            device=q.device) for _ in range(2))
     if out.numel() == 0:
-        return out
+        return (out, a, m) if stats else out
     rec, par = _symbols()
     ptrs = [t.data_ptr() for t in ts] + [out.data_ptr()]
+    extra = [None, None] if a is None else [a.data_ptr(), m.data_ptr()]
     scale = 1.0 / math.sqrt(hd)
     index = q.device.index
     if q.dtype == torch.bfloat16:
@@ -192,33 +267,133 @@ def mlstm_scan_kernel(q, k, v, i_gate, f_gate):
         ws = torch.empty(parallel_workspace_bytes(b, s, h), device=q.device,
                          dtype=torch.uint8)
         with device_scope(index):
-            err = par(*ptrs, ws.data_ptr(), b, s, h, hd, scale,
+            err = par(*ptrs, *extra, ws.data_ptr(), b, s, h, hd, scale,
                       raw_stream(index))
     else:
         path = "recurrent"
         with device_scope(index):
-            err = rec(*ptrs, b, s, h, hd, scale, raw_stream(index))
+            err = rec(*ptrs, *extra, b, s, h, hd, scale, raw_stream(index))
     if err != 0:
         raise RuntimeError(f"mlstm_scan kernel ({path}) launch failed: CUDA "
                            f"error {err} at q{tuple(q.shape)} {q.dtype}")
     fn = mlstm_scan_kernel
     fn.launches += 1
     setattr(fn, f"launches_{path}", getattr(fn, f"launches_{path}") + 1)
-    return out
+    return (out, a, m) if stats else out
+
+
+@functools.lru_cache(maxsize=1)
+def _bwd_symbol():
+    fn = build.load("mlstm_scan_bwd").repro_mlstm_scan_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int64] * 4
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def bwd_workspace_bytes(b: int, s: int, h: int) -> int:
+    """Bytes of the backward's workspace, per (b, h) over S rounded up to
+    64 (sp): fp64 g and M, fp32 1/den, da and the diagonal tiles' sums,
+    the tiles' column and row sums of Q (``[sp/64, sp]`` each), and fp32
+    P' and dS (``[sp, sp]`` each)."""
+    sp = -(-s // TILE) * TILE
+    return b * h * (sp * 28 + 2 * (sp // TILE) * sp * 4 + 2 * sp * sp * 4)
+
+
+def mlstm_scan_bwd_kernel(q, k, v, i_gate, f_gate, h, a, m, dh):
+    """Kernel 6's backward on the card (``csrc/mlstm_scan_bwd.cu``): what
+    `mlstm_scan_bwd_plain` computes, from the forward's inputs, its h and
+    its ``a``, ``m`` (`mlstm_scan_kernel` with ``stats``) and ``dh`` (h's
+    shape and type, contiguous).  bf16 takes the tensor cores
+    (``launches_tc``), fp32 the CUDA cores (``launches_fp32``).  Returns
+    (dq, dk, dv, di, df); raises on anything else and on a refused launch.
+    One call (seven launches) is one counted launch."""
+    ts = (q, k, v, i_gate, f_gate, h, a, m, dh)
+    if q.device.type != "cuda" or any(t.device != q.device for t in ts):
+        raise ValueError("mlstm_scan_bwd_kernel takes CUDA tensors on one "
+                         "device")
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in (k, v, h, dh)) \
+            or any(t.dtype != torch.float32 for t in (i_gate, f_gate, a, m)):
+        raise ValueError("mlstm_scan_bwd_kernel takes q, k, v, h, dh all "
+                         "fp32 or all bf16 and fp32 gates, a and m, got "
+                         f"{[str(t.dtype) for t in ts]}")
+    if q.dim() != 4 or any(t.shape != q.shape for t in (k, v, h, dh)) \
+            or any(t.shape != q.shape[:3] for t in (i_gate, f_gate, a, m)):
+        raise ValueError(f"shapes {[tuple(t.shape) for t in ts]} are not "
+                         "[B,S,H,hd] x3, [B,S,H] x2, [B,S,H,hd], [B,S,H] x2, "
+                         "[B,S,H,hd]")
+    b, s, nh, hd = q.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"mlstm_scan_bwd_kernel takes hd in {HEAD_DIMS}, "
+                         f"got {hd}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("mlstm_scan_bwd_kernel takes contiguous tensors")
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 for t in (q, k, v, dh)):
+        raise ValueError("mlstm_scan_bwd_kernel reads bf16 q, k, v, dh in "
+                         "16-byte vectors: their data must be 16-byte "
+                         "aligned")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    di, df = (torch.empty_like(i_gate) for _ in range(2))
+    if q.numel() == 0:
+        return dq, dk, dv, di.zero_(), df.zero_()
+    fn = _bwd_symbol()
+    ws = torch.empty(bwd_workspace_bytes(b, s, nh), device=q.device,
+                     dtype=torch.uint8)
+    index = q.device.index
+    path = "tc" if q.dtype == torch.bfloat16 else "fp32"
+    with device_scope(index):
+        err = fn(*(t.data_ptr() for t in ts),
+                 *(t.data_ptr() for t in (dq, dk, dv, di, df)),
+                 ws.data_ptr(), b, s, nh, hd, 1.0 / math.sqrt(hd),
+                 int(path == "tc"), raw_stream(index))
+    if err != 0:
+        raise RuntimeError(f"mlstm_scan backward ({path}) launch failed: "
+                           f"CUDA error {err} at q{tuple(q.shape)} {q.dtype}")
+    fn_ = mlstm_scan_bwd_kernel
+    fn_.launches += 1
+    setattr(fn_, f"launches_{path}", getattr(fn_, f"launches_{path}") + 1)
+    return dq, dk, dv, di, df
+
+
+class MLSTMScanFn(torch.autograd.Function):
+    """The mLSTM scan with the hand-written forward (with ``a``, ``m``)
+    and backward kernels; ``apply(q, k, v, i_gate, f_gate)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, i_gate, f_gate):
+        ins = tuple(t.contiguous() for t in (q, k, v, i_gate, f_gate))
+        h, a, m = mlstm_scan_kernel(*ins, stats=True)
+        ctx.save_for_backward(*ins, h, a, m)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        return mlstm_scan_bwd_kernel(*ctx.saved_tensors, dh.contiguous())
 
 
 PATHS = ("tc", "recurrent")
+BWD_PATHS = ("tc", "fp32")
 
 
 def path_launches() -> dict:
-    """Launches of each of the two kernels since the last reset."""
+    """Launches of each of the two forward kernels since the last reset."""
     return {p: getattr(mlstm_scan_kernel, f"launches_{p}") for p in PATHS}
+
+
+def bwd_path_launches() -> dict:
+    """Backward launches of each instantiation since the last reset."""
+    return {p: getattr(mlstm_scan_bwd_kernel, f"launches_{p}")
+            for p in BWD_PATHS}
 
 
 def reset_path_launches() -> None:
     for p in PATHS:
         setattr(mlstm_scan_kernel, f"launches_{p}", 0)
+    for p in BWD_PATHS:
+        setattr(mlstm_scan_bwd_kernel, f"launches_{p}", 0)
 
 
 mlstm_scan_kernel.launches = 0
+mlstm_scan_bwd_kernel.launches = 0
 reset_path_launches()

@@ -6,10 +6,9 @@ the launch raises), a CPU tensor runs the kernel's plain PyTorch version.
 There is no impl knob and no fallback on the card.
 
 Gradients: on the CPU the plain versions carry autograd.  On the card,
-when grad mode is on and an input requires grad, flash attention and
-RMSNorm go through their autograd `Function`s (the hand-written forward
-and backward kernels); a kernel without a backward (the mLSTM scan)
-raises instead of returning a tensor cut from the graph.
+when grad mode is on and an input requires grad, flash attention, RMSNorm
+and the mLSTM scan go through their autograd `Function`s (the
+hand-written forward and backward kernels).
 """
 from __future__ import annotations
 
@@ -116,15 +115,13 @@ def rmsnorm(x, scale, eps: float = 1e-5, *, cell_size=None):
 
 def mlstm_scan(q, k, v, i_gate, f_gate):
     """The mLSTM recurrence from an empty state; q, k, v ``[B, S, H, hd]``,
-    gate pre-activations ``[B, S, H]``.  On the card it has no backward:
-    a grad-requiring input raises (ROADMAP: xlstm training)."""
+    gate pre-activations ``[B, S, H]``.  On the card a grad-requiring
+    input goes through `MLSTMScanFn` (the forward kernel, which also keeps
+    each row's ``a_t`` and ``m_t``, and the backward kernel)."""
     if not _on_card(q):
         return MS.mlstm_scan_plain(q, k, v, i_gate, f_gate)
     if _needs_grad(q, k, v, i_gate, f_gate):
-        raise NotImplementedError(
-            "the mLSTM scan kernel has no backward; differentiating through "
-            "it on the card is not ported (ROADMAP §1: xlstm "
-            "training, a backward for kernel 6)")
+        return MS.MLSTMScanFn.apply(q, k, v, i_gate, f_gate)
     return MS.mlstm_scan_kernel(q, k, v, i_gate, f_gate)
 
 
@@ -137,6 +134,7 @@ KERNELS = {
     "rmsnorm": RN.rmsnorm_kernel,
     "rmsnorm_bwd": RN.rmsnorm_bwd_kernel,
     "mlstm_scan": MS.mlstm_scan_kernel,
+    "mlstm_scan_bwd": MS.mlstm_scan_bwd_kernel,
 }
 
 
@@ -147,7 +145,7 @@ def launch_counts() -> dict:
 
 def reset_launch_counts() -> None:
     """Zero every kernel's count, and the per-path counts of flash
-    attention and the mLSTM scan."""
+    attention and the mLSTM scan (forward and backward)."""
     for fn in KERNELS.values():
         fn.launches = 0
     FA.reset_path_launches()

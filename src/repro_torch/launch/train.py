@@ -17,7 +17,7 @@ PyTorch paths):
   the reference's ``KeyError('frame_embeddings')``.
 
 The ``legacy`` / ``vectorized`` engines are not ported (ROADMAP.md §1):
-they raise ``NotImplementedError``, as does ``--mode spmd`` on xlstm.
+they raise ``NotImplementedError``.
 
 Examples:
     PYTHONPATH=src python -m repro_torch.launch.train --mode edge --arch vgg9-cifar-small --rounds 100
@@ -100,14 +100,9 @@ def run_spmd(args):
     from repro_torch.data import make_lm_data
     from repro_torch.device import disable_tf32, resolve
     from repro_torch.models import build_model
-    from repro_torch.models.factory import TRAINING_LINE
     from repro_torch.training.metrics import MetricLogger
 
     cfg = spmd_config(args)
-    if cfg.family in TRAINING_LINE:
-        raise NotImplementedError(
-            f"--mode spmd does not train the {cfg.family!r} family yet "
-            f"({args.arch}; ROADMAP.md §1: {TRAINING_LINE[cfg.family]})")
     device = resolve(args.device)
     if device.type == "cuda":
         disable_tf32()

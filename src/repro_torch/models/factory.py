@@ -5,13 +5,11 @@ models) and every token family: ``init``, ``apply``, ``init_cache``,
 ``prefill`` and ``decode_step``.  The AUDIO family's encoder runs at
 prefill on the batch's ``frame_embeddings`` (its cross-attention K/V go
 into the cache); the VLM family merges ``patch_embeddings`` at the
-``patch_mask`` positions.  Every token family but the SSM one (xlstm)
-also trains: ``loss`` (one model), ``stacked_loss`` (the simulator's
-client-stacked units, per-client losses, with the grid runner's folded
-cells) and ``split_loss`` (the SPMD step's client prefix and server
-suffix), each adding the MoE blocks' load-balance loss as the reference
-does; xlstm raises `NotImplementedError` there (ROADMAP §1: xlstm
-training).
+``patch_mask`` positions.  Every token family also trains: ``loss`` (one
+model), ``stacked_loss`` (the simulator's client-stacked units,
+per-client losses, with the grid runner's folded cells) and
+``split_loss`` (the SPMD step's client prefix and server suffix), each
+adding the MoE blocks' load-balance loss as the reference does.
 """
 from __future__ import annotations
 
@@ -41,16 +39,14 @@ class Model:
     # per-client losses [N] over [N, ...]-stacked params/batches; takes
     # ``cell_size=`` (a grid's N where cells fold into the leading axis)
     stacked_loss: Callable = None
-    # HASFL split loss (client-stacked prefix, one server suffix; dense
-    # token models only)
+    # HASFL split loss (client-stacked prefix, one server suffix; token
+    # models)
     split_loss: Callable = None
 
 
 # the reference's fold size of the cross-entropy (tokens of a sequence a
 # chunk), as its ``REPRO_CE_CHUNK`` default
 CE_CHUNK = 512
-# the ROADMAP line the training of a family still waits on
-TRAINING_LINE = {"ssm": "xlstm training, a backward for kernel 6"}
 
 
 def _client_embed(emb, tokens):
@@ -215,12 +211,6 @@ def _build_transformer(cfg: ModelConfig) -> Model:
                                   window))
         return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
 
-    def _trainable(what):
-        if cfg.family in TRAINING_LINE:
-            raise NotImplementedError(
-                f"{what} of the {cfg.family!r} family ({cfg.arch_id}) is not "
-                f"ported (ROADMAP §1: {TRAINING_LINE[cfg.family]})")
-
     def _lb(aux):
         """The loss's load-balance term of a stack's summed aux."""
         return 0.01 * aux / max(1, repeats)
@@ -229,7 +219,6 @@ def _build_transformer(cfg: ModelConfig) -> Model:
         """Cross-entropy through `_chunked_ce` plus the MoE load-balance
         term (the reference's ``loss``); returns ``(ce + 0.01 · lb /
         max(1, R), {"ce", "lb_loss"})``."""
-        _trainable("training")
         x, aux = _hidden(params, batch)
         head = params["embed"].T if cfg.tie_embeddings else params["head"]
         ce = _chunked_ce(x, head, batch["labels"], batch.get("loss_mask"))
@@ -255,7 +244,6 @@ def _build_transformer(cfg: ModelConfig) -> Model:
         with its sums — and the norms are planned on one cell's rows;
         attention and the elementwise ops run once over the ``G·N``
         fold.  Each cell's losses and gradients are then its own run's."""
-        _trainable("training")
         s = batch["tokens"].shape[2]
         emb = units[0]["embed"]                               # [N, V, d]
         head_u = units[-1]
@@ -285,7 +273,6 @@ def _build_transformer(cfg: ModelConfig) -> Model:
         embedding, transposed.  Batch: tokens, labels ``[N, b, S]`` (an
         optional ``loss_mask``, and the family's stubs).  Returns ``(ce +
         0.01 · (Σ_c aux_c + aux_s) / max(1, R), {"ce"})``."""
-        _trainable("training")
         tokens = batch["tokens"]
         n, bsz, s = tokens.shape
         positions = torch.arange(s, device=tokens.device)[None, :]

@@ -62,6 +62,16 @@ def mm(x, w, cell_size=None):
     return by_cell(_bmm, cell_size, x, w)
 
 
+def per_client(p, x, rank: int):
+    """A leaf beside a stream ``x``: as it is when it has its own
+    ``rank``, or client-stacked ``[N, *rest]`` beside ``x [N, ..., d]``
+    viewed ``[N, 1, …, 1, *rest]`` to broadcast over x's axes between the
+    client axis and the last."""
+    if p.dim() == rank:
+        return p
+    return p[(slice(None),) + (None,) * (x.dim() - 2)]
+
+
 def embed_init(gen, vocab: int, d: int, dtype, device=None):
     return (_normal(gen, (vocab, d), device) * 0.02).to(dtype)
 

@@ -26,7 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.layers import _normal, dense_init, mm, rmsnorm, silu
+from repro_torch.models.layers import (_normal, dense_init, mm, per_client,
+                                      rmsnorm, silu)
 from repro_torch.utils.cells import apart, by_cell
 
 F32 = torch.float32
@@ -60,18 +61,11 @@ def mamba_init(gen, d: int, *, expand: int, state_dim: int, conv_dim: int,
     }
 
 
-def _per_client(p):
-    """A client-stacked leaf ``[N, *rest]`` viewed ``[N, 1, 1, *rest]``, to
-    broadcast over a stream's ``(b, S)`` axes."""
-    return p[:, None, None]
-
-
 def _causal_conv(x, w, b):
     """Depthwise causal conv, fp32.  x: [B, S, C]; w: [K, C]; b: [C] — or
     per client, x [N, b, S, C], w [N, K, C], b [N, C]."""
     k, s = w.shape[-2], x.shape[-2]
-    if w.dim() == 3:
-        w, b = _per_client(w), _per_client(b)
+    w, b = per_client(w, x, 2), per_client(b, x, 1)
     xp = F.pad(x, (0, 0, k - 1, 0))
     out = torch.zeros(x.shape, dtype=F32, device=x.device)
     for i in range(k):
@@ -119,8 +113,6 @@ def mamba_block(params: dict, x, *, state_dim: int, eps: float = 1e-5,
                        cell_size, params, x)
     *lead, s, d = x.shape
     dtype = x.dtype
-    per_client = _per_client if params["a_log"].dim() == 3 \
-        else (lambda p: p)
     xn = rmsnorm(x, params["norm_in"], eps)
     x1, z = mm(xn, params["w_in"]).chunk(2, dim=-1)      # [.., S, d_in] each
     x1 = silu(_causal_conv(x1, params["conv_w"],
@@ -128,8 +120,8 @@ def mamba_block(params: dict, x, *, state_dim: int, eps: float = 1e-5,
     bc = mm(x1, params["w_bc"].to(dtype))                # [.., S, 2N]
     b_mat, c_mat = bc.chunk(2, dim=-1)
     dt = F.softplus(mm(x1.float(), params["w_dt"])
-                    + per_client(params["b_dt"])).to(dtype)
-    a = per_client(-torch.exp(params["a_log"]))          # [.., d_in, N]
+                    + per_client(params["b_dt"], x1, 1)).to(dtype)
+    a = per_client(-torch.exp(params["a_log"]), x1, 2)   # [.., d_in, N]
 
     d_in = x1.shape[-1]
     state = torch.zeros((math.prod(lead), d_in, state_dim), dtype=F32,
@@ -146,7 +138,7 @@ def mamba_block(params: dict, x, *, state_dim: int, eps: float = 1e-5,
         ys.append(y_c)
     ys = (ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)).reshape(
         *lead, s, d_in)
-    y = ys + (per_client(params["d_skip"]) * x1.float()).to(dtype)
+    y = ys + (per_client(params["d_skip"], x1, 1) * x1.float()).to(dtype)
     y = y * silu(z)
     return mm(y, params["w_out"])
 

@@ -7,6 +7,16 @@ through `kernels.ops.mlstm_scan` (the CUDA kernel on the card, the
 sequential plain version on the CPU); its one-token decode step is inline
 PyTorch, as in the reference.  The sLSTM recurrence is a Python loop over
 time on either device (it is jnp in the reference too, no Pallas kernel).
+
+Training differentiates both: the mLSTM scan through its backward kernel
+on the card (`kernels.mlstm_scan.MLSTMScanFn`), the sLSTM loop through
+autograd.  Both blocks also take client-stacked weights (leaves ``[N,
+...]``, ``x [N, b, S, d]``), the port's form of the reference's vmap over
+clients: the products run per client (`layers.mm`), the norms take grouped
+``[N, d]`` scales, the mLSTM scan folds the clients into its batch (one
+kernel call over ``N·b`` rows) and the sLSTM's recurrent product takes
+each client's own ``r_zifo``.  Unstacked weights run the serving code
+unchanged.
 """
 from __future__ import annotations
 
@@ -16,7 +26,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as KOPS
-from repro_torch.models.layers import _normal, dense_init, gelu, rmsnorm
+from repro_torch.models.layers import (_normal, dense_init, gelu, mm,
+                                      per_client, rmsnorm)
+from repro_torch.utils.cells import apart, by_cell
 
 F32 = torch.float32
 
@@ -51,27 +63,35 @@ def _softplus_log_f(ft):
     return -F.softplus(-ft)
 
 
-def mlstm_block(params: dict, x, n_heads: int, eps: float = 1e-5):
-    """Pre-norm mLSTM block with gated output; residual outside."""
-    b, s, d = x.shape
+def mlstm_block(params: dict, x, n_heads: int, eps: float = 1e-5,
+                cell_size=None):
+    """Pre-norm mLSTM block with gated output; residual outside.  x ``[B,
+    S, d]``, or ``[N, b, S, d]`` on client-stacked weights; ``cell_size``
+    (a grid's N, where the client axis folds G cells) runs the block once
+    per cell, as `models.mamba.mamba_block`."""
+    if apart(x, cell_size):
+        return by_cell(lambda p, xc: mlstm_block(p, xc, n_heads, eps),
+                       cell_size, params, x)
+    *lead, s, d = x.shape
     xn = rmsnorm(x, params["norm_in"], eps)
-    u = xn @ params["w_up"]
-    z = xn @ params["w_z"]
+    u = mm(xn, params["w_up"])
+    z = mm(xn, params["w_z"])
     d_in = u.shape[-1]
     hd = d_in // n_heads
 
-    def heads(t):
-        return t.reshape(b, s, n_heads, hd)
+    def heads(t):   # clients folded into the scan's batch
+        return t.reshape(-1, s, n_heads, hd)
 
-    q, k, v = (heads(u @ params["w_q"]), heads(u @ params["w_k"]),
-               heads(u @ params["w_v"]))
-    gates = xn.float() @ params["w_if"] + params["b_if"]
-    gates = gates.reshape(b, s, 2, n_heads)
+    q, k, v = (heads(mm(u, params["w_q"])), heads(mm(u, params["w_k"])),
+               heads(mm(u, params["w_v"])))
+    gates = (mm(xn.float(), params["w_if"])
+             + per_client(params["b_if"], xn, 1))
+    gates = gates.reshape(-1, s, 2, n_heads)
     h = KOPS.mlstm_scan(q, k, v, gates[:, :, 0].contiguous(),
                         gates[:, :, 1].contiguous())
-    h = h.reshape(b, s, d_in)
+    h = h.reshape(*lead, s, d_in)
     h = rmsnorm(h, params["norm_h"], eps) * F.silu(z)
-    return h @ params["w_down"]
+    return mm(h, params["w_down"])
 
 
 def mlstm_decode_init(batch: int, n_heads: int, hd: int, device=None,
@@ -140,11 +160,15 @@ def slstm_init(gen, d: int, n_heads: int, dtype, device=None, lead=()) -> dict:
 
 def _slstm_cell(params, pre_t, c, n, m, h_prev, n_heads: int):
     """One sLSTM step from the input pre-activations ``pre_t`` [B, 4d]
-    (fp32) and the recurrent state; returns (c, n, m, h)."""
-    b = pre_t.shape[0]
+    (fp32) and the recurrent state; returns (c, n, m, h).  On
+    client-stacked weights ``pre_t`` is ``[N, b, 4d]`` and the state ``[N,
+    b, H, hd]``, each client's rows against its own ``r_zifo [N, H, hd,
+    4hd]``."""
     hd = c.shape[-1]
-    rec = torch.einsum("bhk,hko->bho", h_prev, params["r_zifo"])
-    zifo = pre_t.reshape(b, n_heads, 4 * hd) + rec
+    r = params["r_zifo"]
+    rec = torch.einsum("bhk,hko->bho" if r.dim() == 3 else "nbhk,nhko->nbho",
+                       h_prev, r)
+    zifo = pre_t.reshape(*pre_t.shape[:-1], n_heads, 4 * hd) + rec
     z, i_, f_, o_ = zifo.chunk(4, dim=-1)
     z, o = torch.tanh(z), torch.sigmoid(o_)
     log_f = _softplus_log_f(f_)
@@ -158,31 +182,44 @@ def _slstm_cell(params, pre_t, c, n, m, h_prev, n_heads: int):
 
 
 def slstm_scan(params, xn, n_heads: int):
-    """xn: [B, S, d] (already normed).  Returns h: [B, S, d] (fp32).
+    """xn: [B, S, d] (already normed), or ``[N, b, S, d]`` on
+    client-stacked weights.  Returns h of xn's shape (fp32).
 
     A Python loop over time on either device: a handful of small launches
     per step on the card (PERF.md: fusing it is later work)."""
-    b, s, d = xn.shape
+    *lead, s, d = xn.shape
     hd = d // n_heads
-    pre = (xn.float() @ params["w_zifo"] + params["b_zifo"]).to(xn.dtype)
-    c = torch.zeros((b, n_heads, hd), dtype=F32, device=xn.device)
+    pre = (mm(xn.float(), params["w_zifo"])
+           + per_client(params["b_zifo"], xn, 1)).to(xn.dtype)
+    c = torch.zeros((*lead, n_heads, hd), dtype=F32, device=xn.device)
     n, h = torch.zeros_like(c), torch.zeros_like(c)
     m = torch.full_like(c, -1e30)
     hs = []
     for t in range(s):
-        c, n, m, h = _slstm_cell(params, pre[:, t].float(), c, n, m, h,
+        c, n, m, h = _slstm_cell(params, pre[..., t, :].float(), c, n, m, h,
                                  n_heads)
         hs.append(h)
-    return torch.stack(hs, dim=1).reshape(b, s, d)
+    return torch.stack(hs, dim=-3).reshape(*lead, s, d)
 
 
-def slstm_block(params, x, n_heads: int, eps: float = 1e-5):
-    """Returns the block delta; the caller adds the residual x."""
+def _slstm_block(params, x, n_heads: int, eps: float):
     xn = rmsnorm(x, params["norm_in"], eps)
     h = slstm_scan(params, xn, n_heads).to(x.dtype)
     h = rmsnorm(h, params["norm_h"], eps)
     y = x + h
-    return gelu(y @ params["w_up"]) @ params["w_down"] + y - x
+    return mm(gelu(mm(y, params["w_up"])), params["w_down"]) + y - x
+
+
+def slstm_block(params, x, n_heads: int, eps: float = 1e-5, cell_size=None):
+    """Returns the block delta; the caller adds the residual x.
+    ``cell_size`` as `mlstm_block`'s.  The block uses x three times: on
+    client-stacked weights its uses reach x through one node
+    (`utils.cells.by_cell`), so x's gradient sums alike whether the
+    client axis folds cells or not."""
+    if x.dim() == 4:
+        return by_cell(lambda p, xc: _slstm_block(p, xc, n_heads, eps),
+                       cell_size, params, x)
+    return _slstm_block(params, x, n_heads, eps)
 
 
 def slstm_decode_init(batch: int, n_heads: int, hd: int, device=None,

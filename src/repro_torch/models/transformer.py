@@ -195,8 +195,8 @@ def block_fwd(kind: str, p: dict, x, cfg: ModelConfig, ctx: dict,
     with ``x [N, b, S, d]``: the port's form of the reference's vmap over
     clients.  ``ctx["cell_size"]`` (the grid runner's N, where the client
     axis folds G cells) runs every op whose plan may follow the leading
-    extent once per cell — the products, the MoE and mamba blocks — and
-    plans the norms on one cell's rows; attention and the elementwise ops
+    extent once per cell — the products, the MoE, mamba and xLSTM blocks
+    — and plans the norms on one cell's rows; attention and the elementwise ops
     run once over the fold (cross-attention takes no cell size: whisper's
     Session raises before it)."""
     cell = ctx.get("cell_size")
@@ -221,9 +221,11 @@ def block_fwd(kind: str, p: dict, x, cfg: ModelConfig, ctx: dict,
         return MB.mamba_block(p, x, state_dim=cfg.ssm_state_dim,
                               eps=cfg.norm_eps, cell_size=cell), None
     if kind == "mlstm":
-        return S.mlstm_block(p, x, cfg.n_heads, cfg.norm_eps), None
+        return S.mlstm_block(p, x, cfg.n_heads, cfg.norm_eps,
+                             cell_size=cell), None
     if kind == "slstm":
-        return S.slstm_block(p, x, cfg.n_heads, cfg.norm_eps), None
+        return S.slstm_block(p, x, cfg.n_heads, cfg.norm_eps,
+                             cell_size=cell), None
     raise ValueError(kind)
 
 

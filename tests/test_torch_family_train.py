@@ -3,8 +3,8 @@ the port against the reference, on the CPU.
 
 `dbrx-132b` and `llama4-maverick-400b-a17b` (MoE), `jamba-v0.1-52b`
 (mamba with MoE), `internvl2-1b` (VLM, with patch stubs) and
-`whisper-medium` (encoder-decoder, with frame stubs), each `reduced` and
-at fp32, from the reference's weights (`repro_torch.convert`) and seeded
+`whisper-medium` (encoder-decoder, with frame stubs) and `xlstm-350m`
+(SSM: an mLSTM and an sLSTM block), each `reduced` and at fp32, from the reference's weights (`repro_torch.convert`) and seeded
 numpy batches: ``apply``'s load-balance loss, ``loss`` and its
 gradients against ``jax.grad``, ``stacked_loss`` against each client's
 own ``loss`` (the reference's vmap), ``split_loss`` against the
@@ -44,7 +44,7 @@ LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 TOL = dict(rtol=1e-4, atol=1e-4)
 MOE_ARCHS = ["dbrx-132b", "llama4-maverick-400b-a17b", "jamba-v0.1-52b"]
-FAMILIES = MOE_ARCHS + ["internvl2-1b", "whisper-medium"]
+FAMILIES = MOE_ARCHS + ["internvl2-1b", "whisper-medium", "xlstm-350m"]
 
 
 @pytest.fixture(autouse=True)
@@ -131,7 +131,7 @@ def test_train_inputs_are_bitwise_the_references(arch):
             got[k].dtype)), k
 
 
-@pytest.mark.parametrize("arch", [a for a in ASSIGNED if a != "xlstm-350m"])
+@pytest.mark.parametrize("arch", ASSIGNED)
 def test_train_step_no_nans(arch):
     """The reference's smoke step (`tests/test_smoke_archs.py`) on the
     port: each assigned arch reduced, at its registered type, on the
@@ -219,7 +219,8 @@ def test_loss_and_grads_match_jax(arch, cut, record):
 @pytest.mark.parametrize("arch,case", [
     ("dbrx-132b", "plain"), ("jamba-v0.1-52b", "plain"),
     ("internvl2-1b", "plain"), ("whisper-medium", "plain"),
-    ("dbrx-132b", "drops"), ("dbrx-132b", "chunked")])
+    ("xlstm-350m", "plain"), ("dbrx-132b", "drops"),
+    ("dbrx-132b", "chunked")])
 def test_stacked_loss_is_each_clients_loss(arch, case, record,
                                            monkeypatch):
     """The simulator's client-stacked loss: client i's entry is ``loss``
@@ -291,7 +292,9 @@ def test_stacked_loss_is_each_clients_loss(arch, case, record,
 @pytest.mark.parametrize("arch,cut_reps,remat", [
     ("dbrx-132b", 0, False), ("dbrx-132b", 1, False),
     ("whisper-medium", 1, False), ("internvl2-1b", 1, False),
-    ("jamba-v0.1-52b", 1, False), ("jamba-v0.1-52b", 1, True)])
+    ("jamba-v0.1-52b", 1, False), ("jamba-v0.1-52b", 1, True),
+    ("xlstm-350m", 0, False), ("xlstm-350m", 1, False),
+    ("xlstm-350m", 1, True)])
 def test_split_loss_matches_reference(arch, cut_reps, remat):
     """The SPMD step's loss (client-stacked prefix, one server batch;
     whisper's encoder on the server, each client's prefix on its own rows
@@ -349,7 +352,7 @@ def _session_kw(arch, estimate):
 
 @pytest.mark.parametrize("arch,estimate", [
     ("dbrx-132b", True), ("jamba-v0.1-52b", False),
-    ("internvl2-1b", False)])
+    ("internvl2-1b", False), ("xlstm-350m", True)])
 def test_family_session_matches_reference(arch, estimate):
     """A 6-round fp32 cell (N=4, I=3, HASFL; dbrx with the online G²/σ²
     estimate) from the reference's initial units: decisions and clocks
@@ -393,13 +396,17 @@ def test_whisper_session_raises_like_the_reference():
 
 @pytest.mark.parametrize("arch,opt,cut_reps", [
     ("dbrx-132b", "sgd", 1), ("whisper-medium", "adam", 1),
-    ("jamba-v0.1-52b", "sgd", 0)])
+    ("jamba-v0.1-52b", "sgd", 0), ("xlstm-350m", "sgd", 1)])
 def test_spmd_step_matches_the_reference(arch, opt, cut_reps):
     """Three steps of the port's SPMD HASFL step against the reference's
     from the same weights (dbrx: the lb term in the loss, an MoE block in
     the client-stacked prefix; whisper: frame stubs in the batch; jamba:
-    an empty prefix, every block on the server): losses within 1e-5,
-    client and server trees within 1e-4."""
+    an empty prefix, every block on the server; xlstm: both blocks in the
+    prefix, the mLSTM scan's gradient through autograd on both sides, SGD
+    because Adam's first step moves a weight by ±lr whatever the size of
+    its gradient, so a gradient that is fp32 noise around 0 on both sides
+    moves it by ±3e-4 either way): losses within 1e-5, client and server
+    trees within 1e-4."""
     rcfg, tcfg = _configs(arch)
     kw = dict(n_clients=2, cut_reps=cut_reps, agg_interval=2,
               optimizer_name=opt,

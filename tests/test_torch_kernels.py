@@ -15,6 +15,7 @@ bf16, 2e-2, and 2e-4 fp32 / 3e-2 bf16.
 import bisect
 import contextlib
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -335,7 +336,7 @@ def test_cpu_tensors_take_the_plain_versions():
     assert TOPS.launch_counts() == {
         "batched_matmul": 0, "clip_sgd": 0, "clip_sgd_ext": 0,
         "flash_attention": 0, "flash_attention_bwd": 0, "rmsnorm": 0,
-        "rmsnorm_bwd": 0, "mlstm_scan": 0}
+        "rmsnorm_bwd": 0, "mlstm_scan": 0, "mlstm_scan_bwd": 0}
 
 
 def test_kernel_launchers_refuse_cpu_tensors():
@@ -548,6 +549,101 @@ def test_mlstm_parallel_form_takes_the_stabilizer_branch_on_extreme_gates():
                                    atol=MLSTM_TOL[dtype])
 
 
+# kernel 6's backward: |plain − reference| ≤ bar · max|reference| per input,
+# by the gates' spread.  At spread 6 the two fp32 references themselves sit
+# up to 3.4e-5 · max off an fp64 run of the same recurrence (measured on
+# these cases), so their bar there is 5e-5.
+MLSTM_BWD_REL = {1.0: 2e-5, 3.0: 2e-5, 6.0: 5e-5}
+
+
+def _mlstm_fwd_fp64(q, k, v, ig, fg):
+    """(h, a, m) of the parallel form in fp64 (m as the forward keeps it):
+    the backward's inputs without the forward's fp32 rounding."""
+    b, s, h, hd = q.shape
+    _, g, m_run, m = TMS.mlstm_gate_prefix(ig, fg)
+    g, m_run = (t.permute(0, 2, 1) for t in (g, m_run))
+    causal = torch.ones((s, s), dtype=torch.bool).tril()
+    d = torch.where(causal, torch.exp(g[:, :, None, :]
+                                      - m_run[:, :, :, None]), 0.0)
+    p = torch.einsum("bthd,bshd->bhts", q.double(), k.double()) \
+        / math.sqrt(hd) * d
+    a = p.sum(-1)
+    den = torch.maximum(a.abs(), torch.exp(-m.permute(0, 2, 1).double()))
+    out = torch.einsum("bhts,bshd->bthd", p, v.double()) \
+        / den.permute(0, 2, 1)[..., None]
+    return out, a.permute(0, 2, 1).contiguous(), m
+
+
+@pytest.mark.parametrize("gate_scale", [1.0, 3.0, 6.0])
+@pytest.mark.parametrize("b,s,h,hd,dtype", MLSTM_CASES)
+def test_mlstm_scan_bwd_plain_matches_jax_grad(b, s, h, hd, dtype,
+                                               gate_scale):
+    """`mlstm_scan_bwd_plain` (the backward kernel's formulas, the
+    stabilizer held constant) against ``jax.vjp`` of the reference's
+    sequential ``mlstm_scan_ref`` and against torch autograd of the port's
+    `mlstm_scan_plain`, on the reference's cases (bf16 inputs rounded, the
+    arithmetic fp32) with gates of spread 1, 3 and 6: every one of dq, dk,
+    dv, di and df within `MLSTM_BWD_REL` · max|reference| (fp32 rounding
+    of the two references; the forward's h and a in fp64)."""
+    from repro.models.ssm import mlstm_scan_ref
+
+    rng = np.random.default_rng(11)
+    q, k, v = (_both(rng.standard_normal((b, s, h, hd)), dtype)[1].float()
+               .numpy() for _ in range(3))
+    ig, fg = ((rng.standard_normal((b, s, h)) * gate_scale)
+              .astype(np.float32) for _ in range(2))
+    dh = rng.standard_normal((b, s, h, hd)).astype(np.float32)
+    _, vjp = jax.vjp(mlstm_scan_ref, *map(jnp.asarray, (q, k, v, ig, fg)))
+    ref = vjp(jnp.asarray(dh))
+    ins = [torch.from_numpy(x) for x in (q, k, v, ig, fg)]
+    got = TMS.mlstm_scan_bwd_plain(*ins, *_mlstm_fwd_fp64(*ins),
+                                   torch.from_numpy(dh))
+    leaves = [t.clone().requires_grad_() for t in ins]
+    TMS.mlstm_scan_plain(*leaves).backward(torch.from_numpy(dh))
+    for g, r, t in zip(got, ref, leaves):
+        for want in (np.asarray(r), t.grad.numpy()):
+            assert np.abs(g.numpy() - want).max() \
+                <= MLSTM_BWD_REL[gate_scale] * np.abs(want).max()
+
+
+def test_mlstm_scan_bwd_plain_on_extreme_gates():
+    """Extreme gates (forget pre-activations of ±30, input ones at -1e30):
+    where every input gate so far is -1e30 the floor exp(-m) is inf and h
+    is 0, and the backward gives 0 there (no 0·inf); every gradient is
+    finite."""
+    rng = np.random.default_rng(9)
+    b, s, h, hd = 1, 80, 2, 32
+    fg = rng.choice([-30.0, 30.0], (b, s, h)).astype(np.float32)
+    ig = np.where(rng.random((b, s, h)) < 0.3, -1e30,
+                  rng.standard_normal((b, s, h)) * 5).astype(np.float32)
+    ig[:, :3] = -1e30
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, h, hd))
+                                .astype(np.float32)) for _ in range(3))
+    gates = torch.from_numpy(ig), torch.from_numpy(fg)
+    hh, a, m = TMS.mlstm_parallel_plain(q, k, v, *gates, stats=True)
+    dh = torch.ones_like(hh)
+    grads = TMS.mlstm_scan_bwd_plain(q, k, v, *gates, hh, a, m, dh)
+    assert all(bool(torch.isfinite(t).all()) for t in grads)
+    assert not grads[0][:, :3].any() and not grads[4][:, :3].any()
+
+
+def test_mlstm_parallel_plain_stats_are_the_denominators_parts():
+    """``stats``: h unchanged, ``a`` the signed row sum of P and ``m`` the
+    recurrence's stabilizer ``F + M`` (fp32) from the gate prefix."""
+    ((_, q), (_, k), (_, v)), ig, fg = _mlstm_inputs(1, 40, 2, 32,
+                                                     "float32", seed=4)
+    gates = torch.from_numpy(ig), torch.from_numpy(fg)
+    hh, a, m = TMS.mlstm_parallel_plain(q, k, v, *gates, stats=True)
+    assert torch.equal(hh, TMS.mlstm_parallel_plain(q, k, v, *gates))
+    assert torch.equal(m, TMS.mlstm_gate_prefix(*gates)[3])
+    den = torch.maximum(a.abs(), torch.exp(-m))[..., None]
+    h64, a64, _ = _mlstm_fwd_fp64(q, k, v, *gates)
+    np.testing.assert_allclose(a.numpy(), a64.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(hh.numpy(), h64.float().numpy(), rtol=2e-5,
+                               atol=2e-5)
+    assert den.shape == (1, 40, 2, 1)
+
+
 # ---------------------------------------------------------------------------
 # The split plans of the redesigned kernels (pure Python, reached here)
 # ---------------------------------------------------------------------------
@@ -702,14 +798,26 @@ def test_path_counts_reset_with_the_launch_counts():
 def test_mlstm_path_counts_reset_with_the_launch_counts():
     TMS.mlstm_scan_kernel.launches_tc = 2
     TMS.mlstm_scan_kernel.launches_recurrent = 1
+    TMS.mlstm_scan_bwd_kernel.launches_tc = 3
+    TMS.mlstm_scan_bwd_kernel.launches_fp32 = 4
     TOPS.reset_launch_counts()
     assert TMS.path_launches() == {"tc": 0, "recurrent": 0}
+    assert TMS.bwd_path_launches() == {"tc": 0, "fp32": 0}
 
 
 def test_mlstm_parallel_workspace_covers_whole_tiles():
     # F and M (fp64) and gl (fp32) per (b, h) over S rounded up to 64
     assert TMS.parallel_workspace_bytes(8, 512, 4) == 8 * 4 * 512 * 20
     assert TMS.parallel_workspace_bytes(1, 200, 2) == 2 * 256 * 20
+
+
+def test_mlstm_bwd_workspace_covers_whole_tiles():
+    # per (b, h) over S rounded up to 64 (sp): fp64 g and M, fp32 1/den,
+    # da, the diagonal sums, Q's column and row parts per tile, P' and dS
+    assert TMS.bwd_workspace_bytes(8, 512, 4) == 32 * (
+        512 * 28 + 2 * 8 * 512 * 4 + 2 * 512 * 512 * 4)
+    assert TMS.bwd_workspace_bytes(1, 200, 2) == 2 * (
+        256 * 28 + 2 * 4 * 256 * 4 + 2 * 256 * 256 * 4)
 
 
 # ---------------------------------------------------------------------------

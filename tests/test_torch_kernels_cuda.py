@@ -728,6 +728,57 @@ def test_mlstm_tc_path_matches_parallel_plain():
            TMS.mlstm_parallel_plain(q, k, v, ig, fg), MLSTM_TOL["bfloat16"])
 
 
+# kernel 6's backward: (b, s, h, hd, dtype, gates); bf16 on the tensor
+# cores, fp32 on the CUDA cores, each against the plain formulas in fp64
+MLSTM_BWD_CASES = [
+    (1, 64, 2, 32, "float32", "normal"),
+    (2, 100, 2, 64, "float32", "normal"),
+    (1, 64, 2, 32, "bfloat16", "normal"),
+    (2, 200, 4, 512, "bfloat16", "normal"),
+    (2, 256, 4, 512, "bfloat16", "extreme"),
+    (1, 130, 2, 512, "float32", "extreme"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hd,dtype,gates", MLSTM_BWD_CASES)
+def test_mlstm_scan_bwd_kernel_matches_plain(b, s, h, hd, dtype, gates):
+    """Kernel 6's backward from the forward's h, a and m (h bitwise
+    serving's): one counted launch on its path, every gradient finite and
+    within 2e-5·max|plain| at fp32 (dq and dk sum terms that cancel at
+    extreme gates) and 3e-2·max|plain| at bf16, bitwise repeatable; and
+    `ops.mlstm_scan` under grad reaches it through `MLSTMScanFn`."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    dt = DTYPES[dtype]
+    q, k, v = (_randn(gen, (b, s, h, hd), dt) for _ in range(3))
+    ig, fg = mlstm_gates(gen, (b, s, h), gates)
+    hh, a, m = TMS.mlstm_scan_kernel(q, k, v, ig, fg, stats=True)
+    assert torch.equal(hh, TMS.mlstm_scan_kernel(q, k, v, ig, fg))
+    dh = _randn(gen, hh.shape, dt)
+    ins = (q, k, v, ig, fg, hh, a, m, dh)
+    path = "tc" if dtype == "bfloat16" else "fp32"
+    before = TMS.bwd_path_launches()
+    got = TMS.mlstm_scan_bwd_kernel(*ins)
+    after = TMS.bwd_path_launches()
+    want = TMS.mlstm_scan_bwd_plain(*ins)
+    torch.cuda.synchronize()
+    assert {p: after[p] - before[p] for p in after} == {
+        p: int(p == path) for p in TMS.BWD_PATHS}
+    bar = 2e-5 if dtype == "float32" else 3e-2
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert float((g.float() - w.float()).abs().max()) \
+            <= bar * float(w.float().abs().max())
+    assert all(torch.equal(g, x)
+               for g, x in zip(got, TMS.mlstm_scan_bwd_kernel(*ins)))
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, ig, fg)]
+    before = TMS.mlstm_scan_bwd_kernel.launches
+    TOPS.mlstm_scan(*leaves).backward(dh)
+    assert TMS.mlstm_scan_bwd_kernel.launches == before + 1
+    assert all(torch.equal(t.grad, g) for t, g in zip(leaves, got))
+
+
 # RMSNorm on each plan: (shape, dtype, offset in elements, expected plan
 # kind) — 16-byte vectors with a row in part of a warp, a row over several
 # warps, single elements (d · itemsize not a multiple of 16, or x
@@ -996,7 +1047,7 @@ def test_rmsnorm_bwd_kernel_matches_plain(shape, dtype, groups):
 @pytest.mark.cuda
 def test_grad_requiring_inputs_take_the_functions_or_raise():
     """RMSNorm with a grad-requiring input runs `RMSNormFn` (a forward and
-    a backward launch); the mLSTM scan has no backward and raises."""
+    a backward launch), and so does the mLSTM scan `MLSTMScanFn`."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(8)
     x = _randn(gen, (4, 16, 64), torch.bfloat16).requires_grad_()
@@ -1009,10 +1060,12 @@ def test_grad_requiring_inputs_take_the_functions_or_raise():
     assert x.grad is not None and scale.grad is not None
     q = torch.zeros((1, 8, 2, 32), device="cuda", requires_grad=True)
     g = torch.zeros((1, 8, 2), device="cuda")
-    before = TMS.mlstm_scan_kernel.launches
-    with pytest.raises(NotImplementedError, match="backward"):
-        TOPS.mlstm_scan(q, q, q, g, g)
-    assert TMS.mlstm_scan_kernel.launches == before
+    fwd = TMS.mlstm_scan_kernel.launches
+    bwd = TMS.mlstm_scan_bwd_kernel.launches
+    TOPS.mlstm_scan(q, q, q, g, g).sum().backward()
+    assert TMS.mlstm_scan_kernel.launches == fwd + 1
+    assert TMS.mlstm_scan_bwd_kernel.launches == bwd + 1
+    assert q.grad is not None
 
 
 @pytest.mark.cuda

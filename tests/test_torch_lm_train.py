@@ -279,23 +279,35 @@ def test_rmsnorm_bwd_plain_matches_jax_vjp(shape, dtype, groups):
                                atol=2e-5)
 
 
-def test_grad_requiring_mlstm_scan_raises_on_the_card(monkeypatch):
-    """Kernel 6 has no backward: on the card a grad-requiring input raises
-    instead of returning a tensor cut from the graph.  The card is faked
-    (the dispatch's device check says "card"; the kernel is a trap)."""
+def test_grad_requiring_mlstm_scan_reaches_its_autograd_function(
+        monkeypatch):
+    """On the card a grad-requiring mLSTM scan goes through `MLSTMScanFn`:
+    its forward asks the kernel for the backward's ``a`` and ``m``.  The
+    card is faked (the dispatch's device check says "card"; the kernel is
+    a trap that records how it was called)."""
     from repro_torch.kernels import mlstm_scan as MS
     from repro_torch.kernels import ops
 
     monkeypatch.setattr(ops, "_on_card", lambda t: True)
+    calls = []
 
     def trap(*a, **k):
+        calls.append(k)
         raise AssertionError("the kernel was reached")
 
     monkeypatch.setattr(MS, "mlstm_scan_kernel", trap)
+    seen = []
+    fwd = MS.MLSTMScanFn.forward
+    monkeypatch.setattr(MS.MLSTMScanFn, "forward", staticmethod(
+        lambda ctx, *a: seen.append(len(a)) or fwd(ctx, *a)))
     q = torch.zeros((1, 4, 2, 8), requires_grad=True)
     g = torch.zeros((1, 4, 2))
-    with pytest.raises(NotImplementedError, match="xlstm training"):
+    with pytest.raises(AssertionError, match="reached"):
         ops.mlstm_scan(q, q, q, g, g)
+    assert seen == [5] and calls == [{"stats": True}]
+    with torch.no_grad(), pytest.raises(AssertionError, match="reached"):
+        ops.mlstm_scan(q, q, q, g, g)
+    assert seen == [5] and calls[-1] == {}
 
 
 # ---------------------------------------------------------------------------
@@ -371,13 +383,47 @@ def test_token_session_checks():
         tree_leaves(grid.sim._stacked), tree_leaves(alone.sim._stacked)))
 
 
-def test_unported_families_refuse_training():
-    """Only the SSM family (xlstm) still refuses training, at each of the
-    three entry points, naming its ROADMAP line (the other families are
-    held in `test_torch_family_train.py`)."""
-    model = t_build(TC.reduced(TC.get_config("xlstm-350m")))
-    for fn in (model.loss, model.stacked_loss):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(None, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.split_loss(None, None, None)
+def test_xlstm_trains_at_every_entry_point():
+    """The SSM family (xlstm, reduced: an mLSTM and an sLSTM block) trains
+    at each of the three entry points: ``loss``, ``stacked_loss`` on two
+    clients' units and ``split_loss`` with one repetition on the clients
+    give finite values and finite gradients (their values against the
+    reference: `test_torch_family_train.py`)."""
+    cfg = dataclasses.replace(TC.reduced(TC.get_config("xlstm-350m")),
+                              dtype="float32")
+    assert {"mlstm", "slstm"} <= set(cfg.ssm_pattern.split(","))
+    model = t_build(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+
+    def batch(*lead):
+        return {k: torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (*lead, 8)).astype(np.int32))
+            for k in ("tokens", "labels")}
+
+    def finite(loss, leaves):
+        loss.sum().backward()
+        assert bool(torch.isfinite(loss).all())
+        assert all(t.grad is not None and bool(torch.isfinite(t.grad).all())
+                   for t in leaves)
+
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_()
+    finite(model.loss(params, batch(2))[0], leaves)
+    units, _ = TSP.to_units(cfg, tree_map(lambda a: a.detach(), params))
+    stacked = TSP.replicate_units(units, 2)
+    leaves = tree_leaves(stacked)
+    for t in leaves:
+        t.requires_grad_()
+    finite(model.stacked_loss(stacked, batch(2, 2)), leaves)
+    client, server = TSP.split_stacked(tree_map(lambda a: a.detach(),
+                                                params), 1)
+    client = TSP.replicate_client(client, 2)
+    leaves = tree_leaves([client, server])
+    for t in leaves:
+        t.requires_grad_()
+    # the server's suffix holds no repetition: its empty leaves get no
+    # gradient tensor
+    finite(model.split_loss(client, server, batch(2, 2))[0],
+           [t for t in leaves if t.numel()])

@@ -39,7 +39,8 @@ BF16_ULP = 2.0 ** -7
 CHURNY = dict(n_users=500, arrival_rate=300.0, mean_dwell=0.02,
               buffer_frac=0.5, staleness_alpha=0.5, shard_size=40, seed=3)
 FAMILIES = ["qwen3-1.7b", "glm4-9b", "phi3-mini-3.8b", "dbrx-132b",
-            "llama4-maverick-400b-a17b", "jamba-v0.1-52b", "internvl2-1b"]
+            "llama4-maverick-400b-a17b", "jamba-v0.1-52b", "internvl2-1b",
+            "xlstm-350m"]
 
 
 @pytest.fixture(autouse=True)

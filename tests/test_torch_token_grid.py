@@ -51,7 +51,8 @@ CELLS = [dict(policy="fixed(b=4,cut=1)", seed=0),
          dict(policy="fixed(b=8,cut=1)", seed=1)]
 # the families that train, beside smollm and dbrx above
 FAMILIES = ["qwen3-1.7b", "glm4-9b", "phi3-mini-3.8b",
-            "llama4-maverick-400b-a17b", "jamba-v0.1-52b", "internvl2-1b"]
+            "llama4-maverick-400b-a17b", "jamba-v0.1-52b", "internvl2-1b",
+            "xlstm-350m"]
 
 
 @pytest.fixture(autouse=True)

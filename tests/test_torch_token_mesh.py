@@ -57,7 +57,7 @@ ROOT = Path(__file__).resolve().parents[1]
 BF16_ULP = 2.0 ** -7     # a bf16 value's ulp, relative, at most
 FAMILIES = ["smollm-tiny", "qwen3-1.7b", "glm4-9b", "phi3-mini-3.8b",
             "dbrx-132b", "llama4-maverick-400b-a17b", "jamba-v0.1-52b",
-            "internvl2-1b"]
+            "internvl2-1b", "xlstm-350m"]
 
 
 @pytest.fixture(autouse=True)

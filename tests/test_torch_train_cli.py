@@ -7,13 +7,13 @@ on the CPU.
   reference).
 - The command line parses to the reference's arguments, defaults
   included (plus ``--device``).
-- ``--mode spmd --device cpu`` on a reduced MoE arch logs the
-  reference's rows from the reference's initial state; on whisper, whose
-  loss needs the frames the launcher does not make, both raise
+- ``--mode spmd --device cpu`` on a reduced MoE arch and on xlstm logs
+  the reference's rows from the reference's initial state; on whisper,
+  whose loss needs the frames the launcher does not make, both raise
   ``KeyError('frame_embeddings')``.
-- ``--mode spmd`` on xlstm and the ``legacy``/``vectorized`` engines
-  raise `NotImplementedError`; without ``--device`` and without a card
-  the launcher raises rather than fall back to the CPU.
+- The ``legacy``/``vectorized`` engines raise `NotImplementedError`;
+  without ``--device`` and without a card the launcher raises rather
+  than fall back to the CPU.
 """
 import csv
 import dataclasses
@@ -116,23 +116,22 @@ def _reference_main(monkeypatch, argv):
     RTRAIN.main()
 
 
-def test_spmd_mode_on_an_moe_arch_logs_the_references_rows(tmp_path,
-                                                           monkeypatch):
-    """``--mode spmd`` on an fp32 copy of dbrx, cut by the launcher to 2
-    layers (an MoE block in the client prefix, the lb term in the loss),
-    3 Adam steps: started from the reference's initial state, the port's
-    logged losses are the reference's rows within 1e-5."""
+def _spmd_rows_match_the_reference(tmp_path, monkeypatch, arch, steps):
+    """``--mode spmd`` for ``steps`` steps on an fp32 copy of ``arch``
+    (the launcher cuts it to 2 layers), started from the reference's
+    initial state on both sides: the port's logged losses against the
+    reference's rows within 1e-5."""
     import jax
     import repro.core.sfl as RSFL
     import repro_torch.core.sfl as TSFL
     from repro_torch.convert import params_from_numpy
     from repro_torch.training.optim import make_optimizer
 
-    name = "dbrx-cli-f32"
+    name = f"{arch}-cli-f32"
     for C in (RC, TC):
-        C.register(dataclasses.replace(C.get_config("dbrx-132b"),
+        C.register(dataclasses.replace(C.get_config(arch),
                                        arch_id=name, dtype="float32"))
-    argv = SPMD_ARGS + ["--arch", name]
+    argv = SPMD_ARGS + ["--arch", name, "--steps", str(steps)]
     seen = {}
     r_make, t_make = RSFL.make_hasfl_train_step, TSFL.make_hasfl_train_step
 
@@ -159,9 +158,25 @@ def test_spmd_mode_on_an_moe_arch_logs_the_references_rows(tmp_path,
     with open(path) as f:
         ref = [float(r["loss"]) for r in csv.DictReader(f)]
     rows = TRAIN.main(argv + ["--device", "cpu"])
-    assert [r["step"] for r in rows] == [1, 2, 3]
+    assert [r["step"] for r in rows] == list(range(1, steps + 1))
     np.testing.assert_allclose([r["loss"] for r in rows], ref, rtol=1e-5,
                                atol=1e-5)
+
+
+def test_spmd_mode_on_an_moe_arch_logs_the_references_rows(tmp_path,
+                                                           monkeypatch):
+    """``--mode spmd`` on an fp32 copy of dbrx, cut by the launcher to 2
+    layers (an MoE block in the client prefix, the lb term in the loss),
+    3 Adam steps: started from the reference's initial state, the port's
+    logged losses are the reference's rows within 1e-5."""
+    _spmd_rows_match_the_reference(tmp_path, monkeypatch, "dbrx-132b", 3)
+
+
+def test_spmd_mode_on_xlstm_logs_the_references_rows(tmp_path, monkeypatch):
+    """``--mode spmd --arch xlstm-350m --steps 2`` on an fp32 copy, cut by
+    the launcher to 2 layers (an mLSTM and an sLSTM block, both in the
+    client prefix), 2 Adam steps: the reference's rows within 1e-5."""
+    _spmd_rows_match_the_reference(tmp_path, monkeypatch, "xlstm-350m", 2)
 
 
 def test_spmd_mode_on_whisper_raises_as_the_reference(monkeypatch):
@@ -175,7 +190,6 @@ def test_spmd_mode_on_whisper_raises_as_the_reference(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mode", "spmd", "--arch", "xlstm-350m", "--steps", "2"], "spmd"),
     (["--engine", "legacy"], "legacy"),
     (["--engine", "vectorized"], "vectorized"),
 ])
