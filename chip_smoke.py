@@ -228,6 +228,28 @@ nothing of the reference package.  Phases, each printing one JSON line:
    ``churn-heavy`` with deadline faults and then on the streaming plane
    (`TRAFFIC`), each uninterrupted, checkpointed every 3 rounds (~1.1 GB
    a snapshot) and resumed from round 3, bitwise.
+28. ``serve_ring``: qwen3-1.7b at published widths decoding from a ring
+   (`SERVE_RING`: window and ring of 8192 slots, the long_500k combo's,
+   batch 1, an 8192-token prefill, 64 bf16 greedy steps that wrap the
+   ring, positions on the card): every step's 28 flash launches on the
+   split-KV path, the stored positions the reference's ring arithmetic,
+   the logits recorded beside the same steps on the plain decode at
+   ``tests/test_decode.py``'s bars with the witness of bf16 rounding
+   alone (the plain decode without its P rounding), the greedy ids that
+   agree; the same ring in fp32 for 16 steps, held against the plain
+   decode at 1e-4 · (1 + |plain|); kernel 4's decode at this shape on the
+   real cache, timed beside its bound, its plain version and SDPA (a
+   boolean mask from the positions, ``enable_gqa``).
+29. ``decode_positions``: qwen3-1.7b at published widths, 8 sequences
+   prefilled alone at 384 + 16·i tokens into one 576-slot cache, then
+   decoded together each at its own position (32 bf16 steps, recorded;
+   8 fp32 steps, held at 1e-4 · (1 + |alone|)) against each sequence
+   decoded alone at batch 1.
+30. ``dryrun``: `launch.dryrun.run_combo` on the host mesh (1 x 1), on
+   the ``meta`` device (no card): ``spmd``'s step and ``serve_ring``'s
+   decode step (the long_500k combo), each combo's FLOPs, bytes,
+   roofline terms, model-FLOPs share and predicted per-device bytes
+   beside the phase's measured seconds and peak.
 
 ``grid_cross`` also folds token grids (`TOKEN_GRIDS`: smollm-tiny fp32
 and bf16, reduced dbrx fp32), each cell bitwise its own run on the card;
@@ -236,6 +258,11 @@ kernel 3) card against CPU in fp32 (losses and parameters 1e-4) and bf16
 (losses 1e-3); ``dynamic_cross`` also the reference's resume spec
 (`tests/test_resume.py`, bf16) card against CPU (losses 1e-3); the
 ``kernels`` phase also holds kernel 3 on bf16 leaves with a bf16 mean;
+``serve_cross`` also decodes qwen3 (2 layers, fp32) from a 16-slot ring
+under a window of 16 after a 40-token prompt (not a multiple of 16: the
+windowed prefill's slot order, kept from the reference, runs on both
+sides) and four sequences at their own positions (20-44 tokens in 64
+slots), card against CPU at 1e-4, ids equal;
 ``token_families`` runs qwen3, glm4, phi3, llama4, jamba and internvl2
 (`reduced`, fp32) through a two-cell `run_grid` (bitwise), mesh mode
 with and without a bank, and a scenario and a traffic cell resumed
@@ -280,6 +307,7 @@ detail goes to ``--detail`` (default ``build/chip_smoke.json``).
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -1061,11 +1089,17 @@ def _flash_checks(detail):
         flops = 4.0 * b * hq * hd * _flash_pairs(sq, sk, causal, window, nv)
         nbytes = itemsize * (2.0 * b * sq * hq * hd + 2.0 * b * nv * hkv * hd)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k[:, :nv], v[:, :nv]))
+        call = functools.partial(FA.flash_attention_kernel, q, k, v, **kw)
+        if sq == 1:   # as decode calls it: positions stored on the card
+            slots = torch.arange(sk, dtype=torch.int32, device="cuda")
+            k_pos = torch.where(slots < nv, slots, -1).expand(b, sk) \
+                .contiguous()
+            cur = torch.full((b,), sk, dtype=torch.int32, device="cuda")
+            call = functools.partial(FA.flash_decode_kernel, q, k, v, k_pos,
+                                     cur)
         rows[role] = dict(
             shape=list(case[:9]), sk_valid=nv, calls=calls, path=path,
-            max_abs_err=err,
-            ms=time_ms(_span(lambda: FA.flash_attention_kernel(
-                q, k, v, **kw), calls)),
+            max_abs_err=err, ms=time_ms(_span(call, calls)),
             plain_ms=time_ms(_span(lambda: FA.flash_attention_plain(
                 q, k, v, **kw), calls)),
             library_ms=time_ms(_span(lambda: F.scaled_dot_product_attention(
@@ -2799,6 +2833,9 @@ def phase_serve_cross():
                "mlstm_paths": MS.path_launches()}
         res["reduced"] = {k: [v, getattr(published, k)]
                           for k, v in cut.items()}
+        if arch == "qwen3-1.7b":
+            res["decode_cases"] = _serve_cross_decode_cases(
+                model, on_card, on_cpu, tol)
         if cpu_experts:
             res["moe_calls"] = len(cpu_experts)
             res["experts_equal"] = len(card_experts) == len(cpu_experts) \
@@ -2840,6 +2877,11 @@ def phase_serve_cross():
         check(res["ids_equal"], f"serve_cross {arch}: greedy ids")
         check(res.get("experts_equal", True),
               f"serve_cross {arch}: chosen experts differ")
+        for case, r in res.get("decode_cases", {}).items():
+            check(r["over_bar"] <= 0 and r["ids_equal"],
+                  f"serve_cross {arch} {case}: logits differ by "
+                  f"{max(r['prefill_err'], r['decode_err'])}, ids equal "
+                  f"{r['ids_equal']}")
         kernels = ["rmsnorm"] + (["mlstm_scan"] if arch == "xlstm-350m"
                                  else ["flash_attention"])
         for kernel in kernels:
@@ -4811,6 +4853,546 @@ def phase_dynamic_lm(detail):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Decode from ring, windowed and per-sequence caches; the dry-run on meta
+# ---------------------------------------------------------------------------
+
+# serve_ring: qwen3-1.7b at published widths under the long_500k combo's
+# sliding window (`launch.dryrun.SLIDING_WINDOW_500K`), batch 1 (that
+# combo's batch), a ring of as many slots, a prompt of a whole ring (so
+# the ring starts in order), then greedy steps that wrap it
+SERVE_RING = dict(arch="qwen3-1.7b", batch=1, gen=64, seed=3)
+# the same ring at fp32, where kernel and plain decode are held at 1e-4
+SERVE_RING_FP32_STEPS = 16
+DECODE_BAR = dict(rtol=0.07, atol=0.05)    # tests/test_decode.py's bars
+# decode_positions: sequence i prefilled alone at 384 + 16·i tokens into
+# row i of one cache of 576 slots, then steps taken together
+DECODE_POSITIONS = dict(arch="qwen3-1.7b", batch=8, base=384, stride=16,
+                        slots=576, gen=32, seed=4)
+DECODE_POSITIONS_FP32_STEPS = 8
+# serve_cross's two new cases (fp32, qwen3 cut to 2 layers, card vs CPU):
+# a ring of 16 slots under a window of 16 from a 40-token prompt (not a
+# multiple of 16: the windowed prefill's slot order, kept from the
+# reference, runs on both sides) and 24 steps; four sequences of 20..44
+# tokens at their own positions in a 64-slot cache, 8 steps
+SERVE_CROSS_RING = dict(window=16, prompt=40, gen=24)
+SERVE_CROSS_POSITIONS = dict(lengths=(20, 28, 36, 44), slots=64, gen=8)
+
+
+def _clone_tree(tree):
+    from repro_torch.utils.tree import tree_map
+
+    return tree_map(lambda t: t.clone(), tree)
+
+
+def _decode_run(model, params, cache, first_tokens, positions, steps,
+                feed=None, window=None):
+    """``steps`` decode steps from ``cache`` (updated in place), the first
+    fed ``first_tokens`` [B] at ``positions`` [B] (tensors on the model's
+    device), then each step's greedy ids (or ``feed[:, i]``); returns the
+    fp32 logits [B, steps, V] and the ids [B, steps] on the host, and the
+    seconds of the loop (ending in a sync on the card)."""
+    import torch
+
+    def sync():
+        if positions.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    tok, pos = first_tokens, positions
+    outs, ids = [], []
+    sync()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        logits, cache = model.decode_step(
+            params, cache, {"tokens": tok[:, None], "positions": pos},
+            window=window)
+        outs.append(logits[:, 0].float())
+        ids.append(logits[:, 0].argmax(dim=-1))
+        tok = ids[-1] if feed is None else feed[:, i]
+        pos = pos + 1
+    sync()
+    secs = time.perf_counter() - t0
+    return (torch.stack(outs, 1).cpu().numpy(),
+            torch.stack(ids, 1).cpu().numpy(), secs)
+
+
+@contextlib.contextmanager
+def _plain_decode(round_p: bool = True):
+    """Kernel 4's decode swapped for its plain version (on the card); with
+    ``round_p`` False, the same without rounding the probabilities to the
+    cache's type (the kernel keeps them fp32): the witness of what that
+    rounding alone moves."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+
+    saved = ops.flash_decode
+
+    def plain(q, k, v, k_pos, cur_pos, *, window=0):
+        if round_p:
+            return FA.flash_decode_plain(q, k, v, k_pos, cur_pos,
+                                         window=window)
+        b, _, hq, hd = q.shape
+        hkv = k.shape[2]
+        qg = q.reshape(b, 1, hkv, hq // hkv, hd).float()
+        s = torch.einsum("bqhrd,bkhd->bhrqk", qg, k.float()) / math.sqrt(hd)
+        valid = (k_pos >= 0) & (k_pos <= cur_pos[:, None])
+        if window:
+            valid = valid & (k_pos > cur_pos[:, None] - window)
+        s = torch.where(valid[:, None, None, None, :], s, FA.NEG_INF)
+        o = torch.einsum("bhrqk,bkhd->bqhrd", torch.softmax(s, dim=-1),
+                         v.float())
+        return o.reshape(b, 1, hq, hd).to(q.dtype)
+
+    ops.flash_decode = plain
+    try:
+        yield
+    finally:
+        ops.flash_decode = saved
+
+
+def _rel_bar(got, want, tol):
+    """Max |got - want| and how far it lies over ``tol · (1 + |want|)``."""
+    import numpy as np
+
+    diff = np.abs(got - want)
+    return {"max_abs_err": float(diff.max()), "tol": tol,
+            "over_bar": float((diff - tol * (1 + np.abs(want))).max())}
+
+
+def _close_bars(got, want):
+    """Max |got - want| and how far it lies over DECODE_BAR."""
+    import numpy as np
+
+    diff = np.abs(got - want)
+    over = diff - (DECODE_BAR["atol"] + DECODE_BAR["rtol"] * np.abs(want))
+    return float(diff.max()), float(over.max())
+
+
+def _ring_positions(s: int, c: int, steps: int):
+    """The slot positions the reference's arithmetic leaves after a
+    prefill of ``s`` tokens into ``c`` slots and ``steps`` decode steps:
+    prefill writes the last min(s, c) positions into slots [0, take), then
+    position p goes to slot p % c."""
+    import numpy as np
+
+    pos = np.full(c, -1, np.int64)
+    take = min(s, c)
+    pos[:take] = np.arange(s - take, s)
+    for p in range(s, s + steps):
+        pos[p % c] = p
+    return pos
+
+
+def _decode_kernel_row(cache, q_heads, cur, window, calls):
+    """Kernel 4's stored-position decode at one layer's real cache: its
+    ms for one forward's ``calls`` calls, the plain version's and SDPA's
+    (a boolean mask built from the positions, ``enable_gqa``) on the same
+    inputs, its error against the plain version, and its bound (bytes:
+    the valid slots' K and V, and the positions)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+
+    k, v, k_pos = cache["k"], cache["v"], cache["pos"]
+    b, c, hkv, hd = k.shape
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn((b, 1, q_heads, hd), device="cuda",
+                    generator=gen).to(k.dtype)
+    cur_t = torch.full((b,), cur, dtype=torch.int32, device="cuda")
+    valid = (k_pos >= 0) & (k_pos <= cur_t[:, None])
+    if window:
+        valid = valid & (k_pos > cur_t[:, None] - window)
+    n_valid = int(valid.sum())
+    got = FA.flash_decode_kernel(q, k, v, k_pos, cur_t, window=window)
+    want = FA.flash_decode_plain(q, k, v, k_pos, cur_t, window=window)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mask = valid[:, None, None, :]
+    nbytes = 2.0 * n_valid * hkv * hd * k.element_size() \
+        + k_pos.numel() * 4 + 2.0 * q.numel() * q.element_size()
+    flops = 4.0 * b * q_heads * n_valid * hd
+    return dict(
+        shape=[b, 1, c, q_heads, hkv, hd], window=window, valid_slots=n_valid,
+        calls=calls, max_abs_err=err,
+        ms=time_ms(_span(lambda: FA.flash_decode_kernel(
+            q, k, v, k_pos, cur_t, window=window), calls)),
+        plain_ms=time_ms(_span(lambda: FA.flash_decode_plain(
+            q, k, v, k_pos, cur_t, window=window), calls)),
+        library_ms=time_ms(_span(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True), calls)),
+        bound_ms=calls * _bound(flops, nbytes, PEAK_BF16_FLOPS),
+        bound_by="operations" if flops / PEAK_BF16_FLOPS
+        >= nbytes / PEAK_BYTES else "bytes",
+        bytes=calls * nbytes, flops=calls * flops)
+
+
+def _ring_case(dtype: str, n_gen: int, witness: bool):
+    """One `SERVE_RING` run at ``dtype``: prefill a whole ring, then
+    ``n_gen`` greedy steps with the kernel (counters zeroed and read around
+    them, timed), the same steps with the plain decode fed the kernel's
+    ids, and (``witness``) with the plain decode keeping fp32
+    probabilities.  Returns the record, the kernel run's final cache and
+    the config."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import SLIDING_WINDOW_500K
+    from repro_torch.launch.serve import seeded_inputs
+    from repro_torch.models import build_model
+
+    r = SERVE_RING
+    window = c = SLIDING_WINDOW_500K
+    cfg = dataclasses.replace(get_config(r["arch"]), sliding_window=window,
+                              dtype=dtype)
+    model = build_model(cfg)
+    b, s = r["batch"], c
+    torch.cuda.reset_peak_memory_stats()
+    params, prompts = seeded_inputs(cfg, b, s, r["seed"], "cuda")
+    toks = torch.as_tensor(prompts, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = model.prefill(params, {"tokens": toks}, cache_len=c)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    start = _clone_tree(cache)
+    first = logits[:, 0].argmax(dim=-1)
+    pos0 = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        _decode_run(model, params, _clone_tree(start), first, pos0, 2)
+        ops.reset_launch_counts()
+        k_logits, k_ids, secs = _decode_run(model, params, cache, first,
+                                            pos0, n_gen)
+        launches, paths = ops.launch_counts(), FA.path_launches()
+        peak = torch.cuda.max_memory_allocated()
+        feed = torch.as_tensor(k_ids, device="cuda")
+        runs = {}
+        for name, rnd in (("plain", True), ("fp32_p_plain", False)):
+            if name == "fp32_p_plain" and not witness:
+                continue
+            with _plain_decode(round_p=rnd):
+                runs[name] = _decode_run(model, params, _clone_tree(start),
+                                         first, pos0, n_gen, feed=feed)[:2]
+    del params, start
+    p_logits, p_ids = runs["plain"]
+    want_pos = _ring_positions(s, c, n_gen)
+    out = {"dtype": dtype, "gen": n_gen, "prefill_ms": prefill_s * 1e3,
+           "decode_ms_per_step": secs * 1e3 / n_gen,
+           "max_memory_allocated": peak, "launches": launches,
+           "flash_paths": paths,
+           "finite": bool(np.isfinite(k_logits).all()),
+           "stored_pos_ok": all(
+               bool((lc["b0"]["pos"].cpu().numpy()
+                     == want_pos[None, None]).all())
+               for lc in cache.values() if "pos" in lc.get("b0", {})),
+           "greedy_ids_agree": int((k_ids == p_ids).sum()),
+           "greedy_ids": int(k_ids.size),
+           "vs_plain": _rel_bar(k_logits, p_logits,
+                                SERVE_CROSS["default_tol"]),
+           "vs_plain_decode_bars": dict(zip(("max_abs_err", "over_bar"),
+                                            _close_bars(k_logits, p_logits))),
+           "per_step_err_vs_plain": np.abs(k_logits - p_logits).max(
+               axis=(0, 2)).tolist()}
+    if witness:
+        f_logits, f_ids = runs["fp32_p_plain"]
+        out["witness"] = {
+            "kernel_vs_fp32_p_plain_bars": _close_bars(k_logits, f_logits),
+            "plain_vs_fp32_p_plain_bars": _close_bars(p_logits, f_logits),
+            "fp32_p_plain_ids_agree": int((k_ids == f_ids).sum())}
+    return out, cache, cfg
+
+
+def phase_serve_ring(detail):
+    """qwen3-1.7b at published widths decoding from a ring cache: window
+    and ring of ``SLIDING_WINDOW_500K`` slots, batch 1, a prompt of a whole
+    ring, then greedy steps that wrap it, positions on the card.  In bf16
+    (`SERVE_RING`'s 64 steps; counters zeroed just before the decode loop
+    and read just after: every step's 28 flash launches on the split-KV
+    path) the run is timed, and its logits beside the same steps with
+    kernel 4's decode swapped for its plain version (fed the kernel's
+    ids) are recorded at `DECODE_BAR`, with the witness of what bf16
+    rounding alone moves there (the plain version against itself keeping
+    fp32 probabilities); the greedy ids that agree are reported.  In fp32
+    (`SERVE_RING_FP32_STEPS` steps) the kernel's logits must match the
+    plain decode's within ``serve_cross``'s 1e-4 · (1 + |plain|).  Every
+    layer's stored positions must equal the reference's ring arithmetic
+    in both.  Then kernel 4's decode at this shape on layer 0's bf16
+    cache, timed beside its bound, its plain version and SDPA."""
+    import torch
+
+    r = SERVE_RING
+    bf16, cache, cfg = _ring_case("bfloat16", r["gen"], witness=True)
+    layers = _blocks(cfg).count("attn")
+    s = cache["l0"]["b0"]["k"].shape[2]
+    row = _decode_kernel_row({k: v[0] for k, v in cache["l0"]["b0"].items()},
+                             cfg.n_heads, s + r["gen"] - 1,
+                             cfg.sliding_window, layers)
+    del cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp32, cache, _ = _ring_case("float32", SERVE_RING_FP32_STEPS,
+                                witness=False)
+    del cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"phase": "serve_ring", "arch": r["arch"], "n_layers": cfg.n_layers,
+           "batch": r["batch"], "prompt": s, "window": cfg.sliding_window,
+           "cache_slots": s, "wraps": (s + r["gen"] - 1) // s,
+           **{k: bf16[k] for k in ("gen", "prefill_ms", "decode_ms_per_step",
+                                   "max_memory_allocated", "launches",
+                                   "flash_paths")},
+           "bf16": bf16, "fp32": fp32, "kernel": row}
+    emit(out)
+    detail["serve_ring"] = out
+    for run in (bf16, fp32):
+        n = run["gen"]
+        check(run["finite"], f"serve_ring {run['dtype']}: non-finite logits")
+        check(run["flash_paths"] == {"tc": 0, "split_kv": layers * n,
+                                     "fp32": 0},
+              f"serve_ring {run['dtype']}: flash paths {run['flash_paths']}"
+              f", expected {layers * n} split-KV")
+        check(run["stored_pos_ok"], f"serve_ring {run['dtype']}: stored "
+              "positions differ from the ring's")
+    check(fp32["vs_plain"]["over_bar"] <= 0, "serve_ring fp32: logits "
+          f"{fp32['vs_plain']['max_abs_err']} off the plain decode's")
+    check(fp32["greedy_ids_agree"] == fp32["greedy_ids"],
+          "serve_ring fp32: greedy ids differ from the plain decode's")
+    check(row["max_abs_err"] <= FLASH_TOL["bfloat16"],
+          f"serve_ring: decode kernel {row['max_abs_err']} off its plain")
+    return out
+
+
+def _prefill_rows(model, params, prompts, slots, dev):
+    """Each prompt prefilled alone into a cache of ``slots``; returns
+    their last logits [B, V] and one batch cache holding prompt i's cache
+    in row i (leaves ``[R, B, ...]``)."""
+    import torch
+    from repro_torch.utils.tree import tree_leaves
+
+    batch_cache = model.init_cache(len(prompts), slots, device=dev)
+    firsts = []
+    for i, p in enumerate(prompts):
+        lg, c1 = model.prefill(
+            params, {"tokens": torch.as_tensor(p, device=dev)[None]},
+            cache_len=slots)
+        firsts.append(lg[0, 0])
+        for dst, src in zip(tree_leaves(batch_cache), tree_leaves(c1)):
+            dst[:, i] = src[:, 0]
+    return torch.stack(firsts), batch_cache
+
+
+def _positions_case(dtype: str, n_gen: int):
+    """One `DECODE_POSITIONS` run at ``dtype``: the batch's steps
+    (counters zeroed and read around them, timed), then each sequence
+    alone at batch 1 fed the batch run's ids.  Returns the record."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import seeded_inputs
+    from repro_torch.models import build_model
+
+    r = DECODE_POSITIONS
+    cfg = dataclasses.replace(get_config(r["arch"]), dtype=dtype)
+    model = build_model(cfg)
+    lens = [r["base"] + r["stride"] * i for i in range(r["batch"])]
+    torch.cuda.reset_peak_memory_stats()
+    params, _ = seeded_inputs(cfg, 1, 1, r["seed"], "cuda")
+    rng = np.random.default_rng(r["seed"])
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    with torch.no_grad():
+        firsts, cache = _prefill_rows(model, params, prompts, r["slots"],
+                                      "cuda")
+        pos = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
+        ops.reset_launch_counts()
+        logits, ids, secs = _decode_run(model, params, cache,
+                                        firsts.argmax(-1), pos, n_gen)
+        launches, paths = ops.launch_counts(), FA.path_launches()
+        peak = torch.cuda.max_memory_allocated()
+        feed = torch.as_tensor(ids, device="cuda")
+        alone = []
+        for i, p in enumerate(prompts):
+            _, c1 = _prefill_rows(model, params, [p], r["slots"], "cuda")
+            alone.append(_decode_run(
+                model, params, c1, firsts[i:i + 1].argmax(-1),
+                pos[i:i + 1], n_gen, feed=feed[i:i + 1])[0])
+    del params, cache
+    alone = np.concatenate(alone)
+    return {"dtype": dtype, "gen": n_gen, "prompt_lens": lens,
+            "decode_ms_per_step": secs * 1e3 / n_gen,
+            "max_memory_allocated": peak, "launches": launches,
+            "flash_paths": paths, "finite": bool(np.isfinite(logits).all()),
+            "vs_alone": _rel_bar(logits, alone, SERVE_CROSS["default_tol"]),
+            "vs_alone_decode_bars": dict(zip(("max_abs_err", "over_bar"),
+                                             _close_bars(logits, alone))),
+            "per_row_err": np.abs(logits - alone).max(axis=(1, 2)).tolist()}
+
+
+def phase_decode_positions(detail):
+    """qwen3-1.7b at published widths, 8 sequences each at its own
+    position: sequence i prefilled alone at 384 + 16·i tokens into row i
+    of a 576-slot batch cache, then greedy steps taken together (the
+    decode counters zeroed and read around them).  Each row's logits
+    beside the same sequence decoded alone at batch 1 on the card, fed the
+    batch run's ids: in bf16 (32 steps, timed) recorded at `DECODE_BAR`;
+    in fp32 (8 steps) held at ``serve_cross``'s 1e-4 · (1 + |alone|)."""
+    import torch
+    from repro_torch.config import get_config
+
+    runs = {}
+    for dtype, n_gen in (("bfloat16", DECODE_POSITIONS["gen"]),
+                         ("float32", DECODE_POSITIONS_FP32_STEPS)):
+        runs[dtype] = _positions_case(dtype, n_gen)
+        gc.collect()
+        torch.cuda.empty_cache()
+    bf16, fp32 = runs["bfloat16"], runs["float32"]
+    layers = _blocks(get_config(DECODE_POSITIONS["arch"])).count("attn")
+    out = {"phase": "decode_positions", "arch": DECODE_POSITIONS["arch"],
+           "batch": DECODE_POSITIONS["batch"],
+           "cache_slots": DECODE_POSITIONS["slots"],
+           **{k: bf16[k] for k in ("prompt_lens", "gen",
+                                   "decode_ms_per_step",
+                                   "max_memory_allocated", "launches",
+                                   "flash_paths")},
+           "bf16": bf16, "fp32": fp32}
+    emit(out)
+    detail["decode_positions"] = out
+    for run in (bf16, fp32):
+        check(run["finite"], f"decode_positions {run['dtype']}: non-finite")
+        check(run["flash_paths"] == {"tc": 0,
+                                     "split_kv": layers * run["gen"],
+                                     "fp32": 0},
+              f"decode_positions {run['dtype']}: paths {run['flash_paths']}")
+    check(fp32["vs_alone"]["over_bar"] <= 0, "decode_positions fp32: a "
+          f"row's logits off its own run by {fp32['vs_alone']}")
+    return out
+
+
+def _serve_cross_decode_cases(model, on_card, on_cpu, tol):
+    """`SERVE_CROSS_RING` and `SERVE_CROSS_POSITIONS` card against CPU:
+    each side's logits from the same prompts, the card teacher-forced
+    with the CPU's ids; returns each case's errors (`_errors`)."""
+    import numpy as np
+    import torch
+
+    res = {}
+    rc = SERVE_CROSS_RING
+    rng = np.random.default_rng(SERVE_CROSS["seed"])
+    prompt = rng.integers(0, model.cfg.vocab_size, (1, rc["prompt"]))
+    runs = {}
+    for side, params, dev in (("cpu", on_cpu, "cpu"),
+                              ("card", on_card, "cuda")):
+        with torch.no_grad():
+            lg, cache = model.prefill(
+                params, {"tokens": torch.as_tensor(prompt, device=dev)},
+                cache_len=rc["window"], window=rc["window"])
+            feed = None if side == "cpu" else torch.as_tensor(
+                runs["cpu"][1], device=dev)
+            first = lg[:, 0].argmax(-1) if side == "cpu" else \
+                torch.as_tensor(runs["cpu"][2], device=dev)
+            logits, ids, _ = _decode_run(
+                model, params, cache, first,
+                torch.full((1,), rc["prompt"], dtype=torch.int32,
+                           device=dev), rc["gen"], feed=feed,
+                window=rc["window"])
+        runs[side] = (np.concatenate([lg[:, :1].float().cpu().numpy(),
+                                      logits], 1), ids,
+                      lg[:, 0].argmax(-1).cpu().numpy())
+    res["ring"] = {**_errors(runs["card"][0], runs["cpu"][0], tol),
+                   "window": rc["window"], "prompt": rc["prompt"],
+                   "gen": rc["gen"],
+                   "ids_equal": bool((runs["card"][1]
+                                      == runs["cpu"][1]).all())}
+    pc = SERVE_CROSS_POSITIONS
+    prompts = [rng.integers(0, model.cfg.vocab_size, n)
+               for n in pc["lengths"]]
+    runs = {}
+    for side, params, dev in (("cpu", on_cpu, "cpu"),
+                              ("card", on_card, "cuda")):
+        with torch.no_grad():
+            firsts, cache = _prefill_rows(model, params, prompts,
+                                          pc["slots"], dev)
+            feed = None if side == "cpu" else torch.as_tensor(
+                runs["cpu"][1], device=dev)
+            first = firsts.argmax(-1) if side == "cpu" else \
+                torch.as_tensor(runs["cpu"][2], device=dev)
+            logits, ids, _ = _decode_run(
+                model, params, cache, first,
+                torch.as_tensor(pc["lengths"], dtype=torch.int32,
+                                device=dev), pc["gen"], feed=feed)
+        runs[side] = (np.concatenate([firsts[:, None].float().cpu().numpy(),
+                                      logits], 1), ids,
+                      firsts.argmax(-1).cpu().numpy())
+    res["positions"] = {**_errors(runs["card"][0], runs["cpu"][0], tol),
+                        "lengths": list(pc["lengths"]), "gen": pc["gen"],
+                        "ids_equal": bool((runs["card"][1]
+                                           == runs["cpu"][1]).all())}
+    return res
+
+
+def phase_dryrun(detail, spmd, serve_ring):
+    """`launch.dryrun` on the host mesh (1 x 1), on ``meta`` (no card):
+    the count of ``spmd``'s step (qwen3-1.7b, N=2, cut 1, b=4, S=512,
+    Adam, remat off) and of ``serve_ring``'s decode step (the long_500k
+    combo: batch 1, a ring of 8192 under a window of 8192), each combo's
+    FLOPs, bytes, roofline terms, model FLOPs share and predicted
+    per-device bytes printed beside the phase's measured seconds and
+    peak, with the card's name and power limit."""
+    import torch
+    from repro_torch.config import InputShape
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import make_host_mesh
+
+    host = make_host_mesh()
+    t0 = time.perf_counter()
+    shape = InputShape("spmd", SPMD["seq"],
+                       SPMD["n_clients"] * SPMD["batch"], "train")
+    combos = {
+        "spmd": (DR.run_combo(SPMD["arch"], "train_4k", False, mesh=host,
+                              shape=shape, n_clients=SPMD["n_clients"],
+                              cut_reps=SPMD["cut_reps"], grad_accum=1,
+                              remat=False, optimizer_name="adam"),
+                 spmd["runs"][0]["steady_seconds_per_step"],
+                 spmd["runs"][0]["peak_gb"] * 1e9),
+        "serve_ring": (DR.run_combo(SERVE_RING["arch"], "long_500k", False,
+                                    mesh=host),
+                       serve_ring["decode_ms_per_step"] / 1e3,
+                       serve_ring["max_memory_allocated"])}
+    out = {"phase": "dryrun", "seconds": time.perf_counter() - t0,
+           "device": torch.cuda.get_device_name(0),
+           "nvidia_smi": detail.get("gpu")}
+    for name, (rec, measured_s, peak) in combos.items():
+        rf = rec["roofline"]
+        out[name] = {"status": rec["status"], "flops": rf["flops"],
+                     "bytes": rf["hbm_bytes"],
+                     "t_compute_s": rf["t_compute_s"],
+                     "t_memory_s": rf["t_memory_s"],
+                     "t_collective_s": rf["t_collective_s"],
+                     "bottleneck": rf["bottleneck"],
+                     "model_flops_share": rf["useful_flops_frac"],
+                     "predicted_per_device_bytes": rec["per_device_bytes"],
+                     "measured_s": measured_s,
+                     "measured_peak_bytes": peak,
+                     "roofline_s_over_measured": max(
+                         rf["t_compute_s"], rf["t_memory_s"],
+                         rf["t_collective_s"]) / measured_s}
+    emit(out)
+    detail["dryrun"] = out
+    for name in combos:
+        check(out[name]["status"] == "ok" and out[name]["flops"] > 0,
+              f"dryrun {name}: {out[name]['status']}")
+    return out
+
+
 def _token_launches(name, grid_lm, mesh_lm, dynamic_lm) -> dict:
     """A kernel's launches in the token phases of the grid runner (folded
     and one cell after another), mesh mode and the dynamic edge."""
@@ -4914,7 +5496,10 @@ def main(argv=None) -> int:
     serve_ssm = phase_serve("xlstm-350m", "serve_ssm")
     serves = {name: phase_serve(arch, name, layers)
               for name, arch, layers in FAMILY_SERVES}
+    serve_ring = phase_serve_ring(detail)
+    decode_positions = phase_decode_positions(detail)
     phase_serve_cross()
+    phase_dryrun(detail, spmd, serve_ring)
 
     launches = train["launches"]
     kernels = [
@@ -4977,6 +5562,16 @@ def main(argv=None) -> int:
          "library_ms": flash["prefill"]["library_ms"],
          "decode": {k: flash["decode"][k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         # the stored-position decode from a wrapped ring (serve_ring) and
+         # at per-sequence positions (decode_positions): launches by path,
+         # and the kernel at serve_ring's shape on its real cache
+         "launches_serve_ring": serve_ring["flash_paths"],
+         "launches_decode_positions": decode_positions["flash_paths"],
+         "serve_ring_decode": {
+             "launches": serve_ring["flash_paths"]["split_kv"],
+             **{k: serve_ring["kernel"][k] for k in (
+                 "shape", "window", "valid_slots", "calls", "max_abs_err",
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
          "launches_families": {name: r["launches"]["flash_attention"]
                                for name, r in serves.items()},
          "launches_train_moe": moe["launches"]["flash_attention"],

@@ -281,6 +281,37 @@ class MeshConfig:
 
 
 # ---------------------------------------------------------------------------
+# Hardware constants (NVIDIA H100 SXM target)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class HWSpec:
+    """One card's peak rates and memory, as the dry-run's roofline prices
+    them (`launch/roofline.py`).
+
+    ``link_bw`` is the slowest link that a mesh axis crosses: an axis of
+    more cards than one node holds (``node_cards``) crosses the nodes'
+    network, an axis within a node runs on NVLink (``nvlink_bw``).  Both
+    production axes (16 cards) cross nodes of 8, so the roofline's
+    collective term is priced at ``link_bw``."""
+
+    peak_flops: float = 989e12     # dense bf16 FLOP/s per card
+    hbm_bw: float = 3.35e12        # HBM3 bytes/s per card
+    link_bw: float = 50e9          # bytes/s each way: one 400 Gb/s NIC a card
+    hbm_bytes: float = 80e9        # HBM3 capacity
+    nvlink_bw: float = 450e9       # NVLink 4, bytes/s each way per card
+    node_cards: int = 8            # cards one NVLink domain holds
+
+
+# NVIDIA H100 SXM5 data sheet: 989 TFLOP/s dense bf16 (1,979 with
+# sparsity), 3.35 TB/s, 80 GB; NVLink 4 at 900 GB/s a card (450 each way)
+# among the 8 cards of an HGX/DGX H100 node.  Between nodes, the DGX H100
+# data sheet's eight single-port ConnectX-7 adapters at 400 Gb/s, one a
+# card: 50 GB/s each way.
+H100_SXM = HWSpec()
+
+
+# ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
 

@@ -654,11 +654,20 @@ def make_hasfl_train_step(
     agg_interval: int, optimizer_name: str = "adam",
     lr: float = 3e-4, optimizer_dtype: str = "float32",
     grad_accum: int = 1, remat: bool = True,
+    shard_fn=None, unroll: bool = False,
+    param_shardings=None, rep_shard_fn=None
 ):
     """Build ``(init_state, train_step)``: the reference's
-    `repro.core.sfl.make_hasfl_train_step` on one device (its GSPMD
-    arguments — ``shard_fn``, ``param_shardings``, ``rep_shard_fn``,
-    ``unroll`` — are left out; ROADMAP §1: the GSPMD parts).
+    `repro.core.sfl.make_hasfl_train_step` on one device, with its GSPMD
+    arguments.  ``shard_fn`` and ``rep_shard_fn`` are `dist.sharding`'s
+    activation and per-repetition weight hooks, handed to the loss;
+    ``param_shardings`` (``(client, server)`` `NamedSharding` trees) pins
+    the accumulated gradients to the parameter layout between
+    micro-batches.  On plain tensors (one card, the dry-run's ``meta``
+    state) the hooks and the pin change nothing, so the step equals the
+    step without them bitwise; on DTensors they redistribute.
+    ``unroll`` is a no-op: the micro-batches and the stack are Python
+    loops already.
 
     State: ``{"client": per-client stacked prefix [N, ...], "server":
     suffix, "opt": optimizer state, "step": int}``.  Batch: ``{"tokens",
@@ -693,8 +702,23 @@ def make_hasfl_train_step(
                 "step": 0}
 
     def mean_loss(client, server, batch):
-        loss, _ = model.split_loss(client, server, batch, remat=remat)
+        loss, _ = model.split_loss(client, server, batch, shard_fn=shard_fn,
+                                   remat=remat, unroll=unroll,
+                                   rep_shard_fn=rep_shard_fn)
         return loss
+
+    def constrain(gc, gs):
+        """The gradients laid out as the parameters (``param_shardings``):
+        DTensors redistributed, plain tensors as they are."""
+        if param_shardings is None:
+            return gc, gs
+        from torch.distributed.tensor import DTensor
+
+        def pin(g, sh):
+            return g.redistribute(g.device_mesh, sh.placements) \
+                if isinstance(g, DTensor) else g
+        return (tree_map(pin, gc, param_shardings[0]),
+                tree_map(pin, gs, param_shardings[1]))
 
     def train_step(state, batch):
         client, server = _with_grad(state["client"]), \
@@ -710,8 +734,9 @@ def make_hasfl_train_step(
                 lk.backward()
                 loss = loss + lk.detach()
             scale = 1.0 / grad_accum
-            gc = tree_map(lambda g: g * scale, _grads(client))
-            gs = tree_map(lambda g: g * scale, _grads(server))
+            gc, gs = constrain(_grads(client), _grads(server))
+            gc = tree_map(lambda g: g * scale, gc)
+            gs = tree_map(lambda g: g * scale, gs)
             loss = loss * scale
         else:
             loss = mean_loss(client, server, batch)

@@ -1,11 +1,12 @@
 // Flash attention forward for Hopper (sm_90a), with GQA, causal and
-// sliding-window masks and a key-count limit (sk_valid).
+// sliding-window masks, a key-count limit (sk_valid) in prefill, and a
+// decode that masks each cache slot by the position it stores.
 //
 // Replaces the TPU kernel `_kernel` / `flash_attention` of
 // src/repro/kernels/flash_attention.py: online-softmax attention over
 // q [B, Sq, Hq, hd] and k, v [B, Sk, Hkv, hd], every attention block of the
 // dense token models in prefill (Sq = Sk = prompt) and in decode (Sq = 1
-// against the KV cache, sk_valid = position + 1).  Three kernels share the
+// against the KV cache, each slot masked by its stored position).  Three kernels share the
 // contract (GQA folded into a block's rows, row = position * G +
 // head-in-group, so K/V is never copied per head; masked scores -1e30
 // before the row max; KV tiles wholly masked are skipped; the output is
@@ -42,17 +43,28 @@
 //    barriers, stores) and the math alone each take longer than a library
 //    call takes for both.
 // 2. `dec::flash_decode_split_kernel` + `dec::flash_decode_combine_kernel`,
-//    Sq == 1 (decode), fp32 or bf16.  Bound: bytes (the valid cache rows
-//    are read once).  One (b, kv head) has too few keys for one block to
-//    keep the memory busy, so the valid keys [0, sk_valid) are cut into
-//    `splits` chunks of whole 32-key tiles (chosen by the wrapper so that
-//    the grid fills the card at least twice); each block streams its chunk
-//    through a 4-stage cp.async ring, computes the scores and the online
-//    softmax of the G query rows on the CUDA cores in fp32 (P stays fp32),
-//    and writes its unnormalised (m, l, acc) to an fp32 workspace; the
+//    Sq == 1 (decode), fp32 or bf16, against a cache whose slots carry the
+//    absolute position they hold: k_pos [B, C] (int32, -1 = empty) and the
+//    query's position cur [B] (int32), both in device memory, and the
+//    window.  Key j of sequence b counts when k_pos[b, j] >= 0,
+//    k_pos[b, j] <= cur[b] and, with a window, k_pos[b, j] > cur[b] -
+//    window: the reference's `decode_attention` for any slot order (a ring
+//    cache, a windowed cache, each sequence at its own position).  Bound:
+//    bytes (the valid cache rows and the positions, read once).  One (b, kv
+//    head) has too few keys for one block to keep the memory busy, so the
+//    C slots are cut into `splits` chunks of whole 32-key tiles (planned on
+//    the host from C alone, so no position is read there); each block
+//    streams its chunk through a 4-stage cp.async ring.  A tile's 32
+//    positions are read (one 4-byte load a lane) before its K/V: their
+//    validity bits become the tile's mask (one ballot), and only the valid
+//    keys' K/V rows are copied (the rest zero-filled); a tile with no valid
+//    key costs its positions and nothing else, so a cache filled only at
+//    its start costs about its filled part.  Scores and the online softmax
+//    of the G query rows run on the CUDA cores in fp32 (P stays fp32); each
+//    block writes its unnormalised (m, l, acc) to an fp32 workspace and the
 //    combine kernel merges the splits in a fixed order (no atomics, so
-//    repeated calls are bitwise equal).  A split or warp that sees no valid
-//    key keeps m = -1e30, l = 0, acc = 0 and adds exactly 0.
+//    repeated calls are bitwise equal).  A split or warp that sees no
+//    valid key keeps m = -1e30, l = 0, acc = 0 and adds exactly 0.
 // The prefill kernels (1) and (3) also write, when asked (the training
 // forward), each row's fp32 log-sum-exp lse = m + log(l) of the scaled
 // scores, [B, Hq, Sq], from which the backward (flash_attention_bwd.cu)
@@ -693,20 +705,24 @@ constexpr int merge_bytes() {
 }
 
 // grid (splits, hkv * ceil(G / GR), b): split s of (b, kv head) covers the
-// valid keys [s * chunk, min(kv_end, (s + 1) * chunk)) for GR of the G
-// query rows; writes (m, l) and acc (fp32, log2 domain) per (b, head, s)
+// slots [s * chunk, min(sk, (s + 1) * chunk)) for GR of the G query rows;
+// writes (m, l) and acc (fp32, log2 domain) per (b, head, s)
 template <typename T, int HD, int GR>
 __global__ void __launch_bounds__(THREADS)
 flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, float* __restrict__ ws_ml,
+                          const T* __restrict__ v,
+                          const int* __restrict__ kpos,
+                          const int* __restrict__ cur,
+                          float* __restrict__ ws_ml,
                           float* __restrict__ ws_acc, int64_t sk, int64_t hq,
-                          int64_t hkv, int64_t kv_end, int64_t chunk,
+                          int64_t hkv, int64_t window, int64_t chunk,
                           int64_t splits, float scale_log2) {
   constexpr int DPL = HD / 32;                  // dims per lane
   constexpr int VEC = 16 / static_cast<int>(sizeof(T));
   constexpr int CPR = HD / VEC;                 // 16-byte chunks per key
   constexpr int TILE = KT * HD;                 // elements per K (V) tile
   extern __shared__ __align__(16) uint8_t smem_raw[];
+  __shared__ uint32_t tmask[STAGES];            // valid keys of each stage
   T* ks = reinterpret_cast<T*>(smem_raw);
   T* vs = ks + STAGES * TILE;
 
@@ -715,22 +731,33 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t group = hq / hkv, groups = (group + GR - 1) / GR;
   const int64_t hk = blockIdx.y / groups, g0 = (blockIdx.y % groups) * GR;
   const int64_t k_lo = s * chunk;
-  const int64_t k_hi = kv_end < k_lo + chunk ? kv_end : k_lo + chunk;
+  const int64_t k_hi = sk < k_lo + chunk ? sk : k_lo + chunk;
   const int n_tiles =
       k_hi > k_lo ? static_cast<int>((k_hi - k_lo + KT - 1) / KT) : 0;
+  const int64_t now = cur[b];
+  const int64_t oldest = window > 0 ? now - window : INT64_MIN;
 
+  // every warp reads the tile's 32 positions and forms the same mask; only
+  // valid keys' rows are copied, a tile without one issues no copy
   auto issue = [&](int tile) {
     const int st = tile % STAGES;
     const int64_t k0 = k_lo + static_cast<int64_t>(tile) * KT;
+    bool ok = false;
+    if (k0 + lane < k_hi) {
+      const int64_t p = kpos[b * sk + k0 + lane];
+      ok = p >= 0 && p <= now && p > oldest;
+    }
+    const uint32_t live = __ballot_sync(0xffffffffu, ok);
+    if (tid == 0) tmask[st] = live;
+    if (live == 0) return;
 #pragma unroll
     for (int it = 0; it < KT * CPR / THREADS; ++it) {
       const int e = tid + it * THREADS;
       const int j = e / CPR, c = e % CPR;
-      const int64_t kp = k0 + j;
       int64_t off = 0;
       int bytes = 0;
-      if (kp < k_hi) {
-        off = ((b * sk + kp) * hkv + hk) * HD + c * VEC;
+      if ((live >> j) & 1u) {
+        off = ((b * sk + k0 + j) * hkv + hk) * HD + c * VEC;
         bytes = 16;
       }
       const int at = st * TILE + j * HD + c * VEC;
@@ -768,11 +795,13 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int tile = 0; tile < n_tiles; ++tile) {
     cp_wait<STAGES - 2>();
     __syncthreads();  // tile landed for all; tile - 1's stage is free
+    const uint32_t tile_live = tmask[tile % STAGES];
+    const uint32_t live = tile_live >> (warp * 8);  // this warp's 8 keys
     if (tile + STAGES - 1 < n_tiles) issue(tile + STAGES - 1);
     cp_commit();
+    if (tile_live == 0) continue;  // the same for the whole block
     const T* kt = ks + (tile % STAGES) * TILE + warp * 8 * HD + lane * DPL;
     const T* vt = vs + (tile % STAGES) * TILE + warp * 8 * HD + lane * DPL;
-    const int64_t kbase = k_lo + static_cast<int64_t>(tile) * KT + warp * 8;
 
     // this warp's 8 keys: scores of every row, reduced over the warp
     float sc[GR][8];
@@ -800,13 +829,13 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float mx = NEG_INF;
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj)
-        if (kbase + jj < k_hi) mx = fmaxf(mx, sc[i][jj]);
+        if ((live >> jj) & 1u) mx = fmaxf(mx, sc[i][jj]);
       const float mn = fmaxf(m[i], mx);
       const float corr = exp2f(m[i] - mn);
       float sum = 0.f;
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
-        pv[i][jj] = kbase + jj < k_hi ? exp2f(sc[i][jj] - mn) : 0.f;
+        pv[i][jj] = (live >> jj) & 1u ? exp2f(sc[i][jj] - mn) : 0.f;
         sum += pv[i][jj];
       }
       m[i] = mn;
@@ -881,9 +910,10 @@ flash_decode_combine_kernel(const float* __restrict__ ws_ml,
 }
 
 template <typename T, int HD, int GR>
-int launch(const void* q, const void* k, const void* v, void* out, float* ws,
-           int64_t b, int64_t sk, int64_t hq, int64_t hkv, int64_t kv_end,
-           int64_t splits, int64_t chunk, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, const int* kpos,
+           const int* cur, void* out, float* ws, int64_t b, int64_t sk,
+           int64_t hq, int64_t hkv, int64_t window, int64_t splits,
+           int64_t chunk, float scale, cudaStream_t stream) {
   constexpr int RING = ring_bytes<T, HD>(), MERGE = merge_bytes<HD, GR>();
   constexpr int SMEM = RING > MERGE ? RING : MERGE;
   auto split_kernel = flash_decode_split_kernel<T, HD, GR>;
@@ -905,8 +935,8 @@ int launch(const void* q, const void* k, const void* v, void* out, float* ws,
                   static_cast<unsigned>(b));
   split_kernel<<<grid, THREADS, SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), ws_ml, ws_acc, sk, hq, hkv, kv_end, chunk,
-      splits, scale * 1.4426950408889634f);
+      static_cast<const T*>(v), kpos, cur, ws_ml, ws_acc, sk, hq, hkv,
+      window, chunk, splits, scale * 1.4426950408889634f);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   flash_decode_combine_kernel<T, HD>
@@ -917,22 +947,23 @@ int launch(const void* q, const void* k, const void* v, void* out, float* ws,
 
 template <typename T, int GR>
 int dispatch_hd(int64_t hd, const void* q, const void* k, const void* v,
-                void* out, float* ws, int64_t b, int64_t sk, int64_t hq,
-                int64_t hkv, int64_t kv_end, int64_t splits, int64_t chunk,
-                float scale, cudaStream_t st) {
+                const int* kpos, const int* cur, void* out, float* ws,
+                int64_t b, int64_t sk, int64_t hq, int64_t hkv,
+                int64_t window, int64_t splits, int64_t chunk, float scale,
+                cudaStream_t st) {
   switch (hd) {
     case 32:
-      return launch<T, 32, GR>(q, k, v, out, ws, b, sk, hq, hkv, kv_end,
-                               splits, chunk, scale, st);
+      return launch<T, 32, GR>(q, k, v, kpos, cur, out, ws, b, sk, hq, hkv,
+                               window, splits, chunk, scale, st);
     case 64:
-      return launch<T, 64, GR>(q, k, v, out, ws, b, sk, hq, hkv, kv_end,
-                               splits, chunk, scale, st);
+      return launch<T, 64, GR>(q, k, v, kpos, cur, out, ws, b, sk, hq, hkv,
+                               window, splits, chunk, scale, st);
     case 96:
-      return launch<T, 96, GR>(q, k, v, out, ws, b, sk, hq, hkv, kv_end,
-                               splits, chunk, scale, st);
+      return launch<T, 96, GR>(q, k, v, kpos, cur, out, ws, b, sk, hq, hkv,
+                               window, splits, chunk, scale, st);
     case 128:
-      return launch<T, 128, GR>(q, k, v, out, ws, b, sk, hq, hkv, kv_end,
-                                splits, chunk, scale, st);
+      return launch<T, 128, GR>(q, k, v, kpos, cur, out, ws, b, sk, hq, hkv,
+                                window, splits, chunk, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -995,30 +1026,35 @@ extern "C" int repro_flash_attention_tc(const void* q, const void* k,
   }
 }
 
-// The split-KV decode (2): q, out [B, 1, Hq, hd]; k, v [B, Sk, Hkv, hd];
-// the valid keys are [0, kv_end), cut into `splits` chunks of `chunk` keys
-// (a multiple of 32, every chunk non-empty); `rows` query rows of a group
-// per block (2 or 8); ws holds B * Hq * splits * (hd + 2) floats.
+// The split-KV decode (2): q, out [B, 1, Hq, hd]; k, v [B, C, Hkv, hd];
+// kpos [B, C] int32 (the position each slot holds, -1 = empty) and cur
+// [B] int32 (the query's position), in device memory; window 0 = none.
+// The C slots are cut into `splits` chunks of `chunk` slots (a multiple of
+// 32, every chunk non-empty); `rows` query rows of a group per block (2 or
+// 8); ws holds B * Hq * splits * (hd + 2) floats.
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
+                                  const void* kpos, const void* cur,
                                   void* out, void* ws, int64_t b, int64_t sk,
                                   int64_t hq, int64_t hkv, int64_t hd,
-                                  int64_t kv_end, int64_t splits,
+                                  int64_t window, int64_t splits,
                                   int64_t chunk, int64_t rows, float scale,
                                   int dtype, void* stream) {
   if (b == 0 || hq == 0) return 0;
-  // every split non-empty, together exactly [0, kv_end); kv_end = 0 is one
-  // empty split (the output is then 0, as with no valid key in prefill)
-  const bool plan_ok = kv_end == 0 ? splits == 1
-                                   : (splits - 1) * chunk < kv_end &&
-                                         splits * chunk >= kv_end;
+  // every split non-empty, together exactly [0, C); C = 0 is one empty
+  // split (the output is then 0, as with no valid key in prefill)
+  const bool plan_ok = sk == 0 ? splits == 1
+                               : (splits - 1) * chunk < sk &&
+                                     splits * chunk >= sk;
   if (hkv <= 0 || hq % hkv != 0 || splits < 1 || chunk <= 0 ||
-      chunk % dec::KT != 0 || kv_end < 0 || kv_end > sk || !plan_ok)
+      chunk % dec::KT != 0 || sk < 0 || window < 0 || !plan_ok)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);
+  const int* kp = static_cast<const int*>(kpos);
+  const int* cp = static_cast<const int*>(cur);
 #define REPRO_DEC(T, GR)                                                     \
-  dec::dispatch_hd<T, GR>(hd, q, k, v, out, w, b, sk, hq, hkv, kv_end,       \
-                          splits, chunk, scale, s)
+  dec::dispatch_hd<T, GR>(hd, q, k, v, kp, cp, out, w, b, sk, hq, hkv,       \
+                          window, splits, chunk, scale, s)
   if (dtype == 0 && rows == 2) return REPRO_DEC(float, 2);
   if (dtype == 0 && rows == 8) return REPRO_DEC(float, 8);
   if (dtype == 1 && rows == 2) return REPRO_DEC(__nv_bfloat16, 2);

@@ -163,8 +163,13 @@ def main(argv=None) -> dict:
     qt, kt, vt = (t.transpose(1, 2) for t in (q1, kc[:, :valid],
                                               vc[:, :valid]))
 
+    # as decode calls it: the positions stored with the cache, on the card
+    slots = torch.arange(cache, dtype=torch.int32, device="cuda")
+    k_pos = torch.where(slots < valid, slots, -1).expand(b, cache).contiguous()
+    cur = torch.full((b,), valid - 1, dtype=torch.int32, device="cuda")
+
     def decode():
-        FA.flash_attention_kernel(q1, kc, vc, causal=False, sk_valid=valid)
+        FA.flash_decode_kernel(q1, kc, vc, k_pos, cur)
 
     def sdpa():
         F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)

@@ -30,12 +30,24 @@ wrapper picks one of three kernels by the inputs, and counts each path:
   inside the bf16 bar 2e-2).  hd 32 and 96 sit zero-padded to 64 and
   128 dims in shared memory.  Bound: bytes at qwen3's prefill shape,
   operations (989 TFLOP/s) at longer ones.
-- ``Sq == 1`` (decode), fp32 or bf16 — split-KV (``launches_split_kv``):
-  the valid keys are cut into `decode_splits` chunks so that the grid
-  fills the card; each block writes its unnormalised (m, l, acc) to an
-  fp32 workspace and a combine kernel merges the chunks in a fixed order
-  (bitwise repeatable).  P stays fp32.  Bound: bytes (the valid cache
-  rows read once).
+- decode, fp32 or bf16 — split-KV (``launches_split_kv``,
+  `flash_decode_kernel`): one query token against a cache whose slots
+  carry the position they hold, ``k_pos [B, C]`` (int32, -1 = empty), with
+  the query at ``cur_pos [B]`` and an optional window, all read by the
+  kernel from device memory.  Key ``j`` of sequence ``b`` counts when
+  ``0 <= k_pos[b, j] <= cur_pos[b]`` and, with a window, ``k_pos[b, j] >
+  cur_pos[b] - window``: the reference's `decode_attention` for any slot
+  order (ring, windowed, per-sequence caches).  The C slots are cut into
+  `decode_splits` chunks planned from C alone (no position is read on the
+  host), so that the grid fills the card; a 32-slot tile's positions are
+  read before its K/V, and a tile without a valid key copies no K/V.  Each
+  block writes its unnormalised (m, l, acc) to an fp32 workspace and a
+  combine kernel merges the chunks in a fixed order (bitwise repeatable).
+  P stays fp32.  Bound: bytes (the valid cache rows and the positions
+  read once).  `flash_attention_kernel` with ``Sq == 1`` (whisper's
+  decode cross-attention, a one-token prompt) runs the same kernel, its
+  query at position 0 and slot ``j`` holding position ``j`` below
+  ``sk_valid`` (`_one_token_positions`, made once a shape).
 - fp32 with ``Sq > 1`` — the CUDA-core kernel (``launches_fp32``): fp32
   products have no tensor-core form without TF32, which the port's fp32
   parity rule excludes.
@@ -52,14 +64,16 @@ with one block per (batch, q head, row tile); bf16 on the tensor cores
 (``mma.sync``, fp32 accumulators, P and dS rounded to bf16 for the three
 products), fp32 on the CUDA cores in fp32; no atomics (bitwise
 repeatable).  One call
-(three launches) counts one launch.  ``sk_valid`` stays decode-only: the
-backward refuses it.  `FlashAttentionFn` is the autograd `Function`
+(three launches) counts one launch.  The backward takes no ``sk_valid``.  `FlashAttentionFn` is the autograd `Function`
 (forward: the kernel with ``lse``; backward: this kernel), which
 `kernels.ops.flash_attention` takes when an input requires grad.
 
 `flash_attention_plain` is the plain PyTorch version (CPU tensors and
-tests): the naive attention with the same masks; `flash_attention_bwd_plain`
-the backward's formula in plain torch ops (tests).
+tests): the naive attention with the same masks; `flash_decode_plain` the
+decode's (the reference's `decode_attention` in plain torch ops, which
+`models.attention` names `decode_attention_plain`);
+`flash_attention_bwd_plain` the backward's formula in plain torch ops
+(tests).
 """
 from __future__ import annotations
 
@@ -144,27 +158,27 @@ def decode_rows(group: int) -> int:
     return 2 if group <= 2 else 8
 
 
-def decode_splits(lanes: int, kv_end: int, sms: int = H100_SMS):
-    """(splits, chunk) of the split-KV decode: the valid keys ``[0,
-    kv_end)`` of each of ``lanes`` (batch × kv head × row group) are cut
-    into ``splits`` chunks of ``chunk`` keys, a multiple of the 32-key
-    tile, every chunk holding at least one valid key, so that
-    ``lanes · splits`` fills ``sms`` SMs at least twice where the keys
-    allow it."""
-    if kv_end <= 0:
+def decode_splits(lanes: int, slots: int, sms: int = H100_SMS):
+    """(splits, chunk) of the split-KV decode: the ``slots`` cache slots
+    of each of ``lanes`` (batch × kv head × row group)
+    are cut into ``splits`` chunks of ``chunk`` slots, a multiple of the
+    32-slot tile, every chunk non-empty, so that ``lanes · splits`` fills
+    ``sms`` SMs at least twice where the slots allow it.  The plan depends
+    on shapes only, never on the positions the cache holds."""
+    if slots <= 0:
         return 1, DECODE_TILE
-    tiles = -(-kv_end // DECODE_TILE)
+    tiles = -(-slots // DECODE_TILE)
     want = max(1, min(-(-2 * sms // max(lanes, 1)), tiles))
     chunk = tiles // want * DECODE_TILE      # at least `want` splits
-    return -(-kv_end // chunk), chunk
+    return -(-slots // chunk), chunk
 
 
 @functools.lru_cache(maxsize=None)
-def _decode_plan(b: int, hkv: int, group: int, kv_end: int, index: int):
+def _decode_plan(b: int, hkv: int, group: int, slots: int, index: int):
     """(rows, splits, chunk) of the split-KV decode on card ``index``."""
     rows = decode_rows(group)
     sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return (rows, *decode_splits(b * hkv * -(-group // rows), kv_end, sms))
+    return (rows, *decode_splits(b * hkv * -(-group // rows), slots, sms))
 
 
 @functools.lru_cache(maxsize=1)
@@ -176,7 +190,7 @@ def _symbols():
                                    + [ctypes.c_int64] * 9
                                    + [ctypes.c_float, ctypes.c_void_p,
                                       ctypes.c_void_p])
-    dec.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 9
+    dec.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int64] * 9
                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     for fn in (simt, tc, dec):
         fn.restype = ctypes.c_int
@@ -229,29 +243,21 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
     if lse and sq == 1:
         raise ValueError("flash_attention_kernel writes lse on the prefill "
                          "paths (Sq > 1) only")
+    if sq == 1:
+        return flash_decode_kernel(q, k, v, *_one_token_positions(
+            b, sk, sk_valid, causal, q.device.index))
     out = torch.empty_like(q)
     lse_t = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) \
         if lse else None
     if out.numel() == 0:
         return (out, lse_t) if lse else out
     lp = lse_t.data_ptr() if lse else None
-    simt, tc, dec = _symbols()
+    simt, tc, _ = _symbols()
     scale = 1.0 / math.sqrt(hd)
-    fn = flash_attention_kernel
     index = q.device.index
     with device_scope(index):
         stream = raw_stream(index)
-        if sq == 1:
-            path = "split_kv"
-            kv_end = min(sk_valid, 1) if causal else sk_valid
-            rows, splits, chunk = _decode_plan(b, hkv, hq // hkv, kv_end,
-                                               index)
-            ws = torch.empty(b * hq * splits * (hd + 2), device=q.device,
-                             dtype=torch.float32)
-            err = dec(qp, kp, vp, out.data_ptr(), ws.data_ptr(), b, sk, hq,
-                      hkv, hd, kv_end, splits, chunk, rows, scale, _DTYPES[dt],
-                      stream)
-        elif dt == torch.bfloat16:
+        if dt == torch.bfloat16:
             path = "tc"
             err = tc(qp, kp, vp, out.data_ptr(), b, sq, sk, hq, hkv, hd,
                      int(causal), int(window), sk_valid, scale, lp, stream)
@@ -263,14 +269,103 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
         raise RuntimeError(f"flash_attention kernel ({path}) launch failed: "
                            f"CUDA error {err} at q{tuple(q.shape)} "
                            f"k{tuple(k.shape)} {q.dtype}")
-    fn.launches += 1
-    if path == "split_kv":
-        fn.launches_split_kv += 1
-    elif path == "tc":
-        fn.launches_tc += 1
+    flash_attention_kernel.launches += 1
+    if path == "tc":
+        flash_attention_kernel.launches_tc += 1
     else:
-        fn.launches_fp32 += 1
+        flash_attention_kernel.launches_fp32 += 1
     return (out, lse_t) if lse else out
+
+
+@functools.lru_cache(maxsize=32)
+def _one_token_positions(b: int, sk: int, sk_valid: int, causal: bool,
+                         index: int):
+    """(k_pos, cur_pos) on card ``index`` that make the stored-position
+    decode compute a one-token query's attention (whisper's decode
+    cross-attention, a one-token prompt): the query at position 0, slot j
+    holding position j below ``sk_valid`` (-1 past it), so causal or not,
+    key 0 alone or ``[0, sk_valid)`` count.  Made once a shape."""
+    slots = torch.arange(sk, dtype=torch.int32, device=f"cuda:{index}")
+    k_pos = torch.where(slots < sk_valid, slots, -1).expand(b, sk)
+    cur = torch.full((b,), 0 if causal else sk, dtype=torch.int32,
+                     device=slots.device)
+    return k_pos.contiguous(), cur
+
+
+def flash_decode_plain(q, k_cache, v_cache, k_pos, cur_pos, *, window=0):
+    """Single-token decode: q [B, 1, Hq, hd] against a (possibly ring)
+    cache [B, C, Hkv, hd], masked by the positions stored in the cache.
+
+    ``k_pos`` [B, C]: absolute position stored in each cache slot (-1 =
+    empty).  ``cur_pos`` [B]: position of the query token (its k/v already
+    written).  Products of the working type accumulate in fp32; the
+    probabilities are rounded to the cache's type before the PV product,
+    as in the reference's `decode_attention`.
+    """
+    b, _, hq, hd = q.shape
+    hkv = k_cache.shape[2]
+    n_rep = hq // hkv
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(b, 1, hkv, n_rep, hd).float()
+    scores = torch.einsum("bqhrd,bkhd->bhrqk", qg, k_cache.float()) * scale
+    valid = (k_pos >= 0) & (k_pos <= cur_pos[:, None])
+    if window:
+        valid = valid & (k_pos > cur_pos[:, None] - window)
+    scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v_cache.dtype).float()
+    out = torch.einsum("bhrqk,bkhd->bqhrd", probs, v_cache.float())
+    return out.reshape(b, 1, hq, hd).to(q.dtype)
+
+
+def flash_decode_kernel(q, k_cache, v_cache, k_pos, cur_pos, *,
+                        window: int = 0):
+    """Decode attention on the card: q ``[B, 1, Hq, hd]`` against the cache
+    k, v ``[B, C, Hkv, hd]`` (contiguous, 16-byte aligned, all fp32 or all
+    bf16, hd in 32/64/96/128), each slot masked by the position it holds,
+    ``k_pos [B, C]``, against the query's ``cur_pos [B]`` and ``window``
+    (0 = none): the function of `flash_decode_plain`.  ``k_pos`` and
+    ``cur_pos`` stay on the card (int32; other integer types are cast
+    there); nothing is read back.  Returns a new tensor in q's type and
+    raises on anything else and on a refused launch.  One call is one
+    counted launch (``flash_attention_kernel.launches`` and
+    ``launches_split_kv``)."""
+    b, sq, hq, hd, c, hkv = _check(q, k_cache, v_cache, "flash_decode_kernel")
+    if sq != 1:
+        raise ValueError(f"flash_decode_kernel takes one query token, got "
+                         f"q{tuple(q.shape)}")
+    if tuple(k_pos.shape) != (b, c) or tuple(cur_pos.shape) != (b,) \
+            or k_pos.device != q.device or cur_pos.device != q.device \
+            or k_pos.is_floating_point() or cur_pos.is_floating_point():
+        raise ValueError(f"k_pos must be an integer [{b}, {c}] and cur_pos "
+                         f"an integer [{b}] on {q.device}, got "
+                         f"{tuple(k_pos.shape)} {k_pos.dtype} on "
+                         f"{k_pos.device}, {tuple(cur_pos.shape)} "
+                         f"{cur_pos.dtype} on {cur_pos.device}")
+    if window < 0:
+        raise ValueError(f"window {window} < 0")
+    k_pos = k_pos.to(torch.int32).contiguous()
+    cur_pos = cur_pos.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    _, _, dec = _symbols()
+    index = q.device.index
+    rows, splits, chunk = _decode_plan(b, hkv, hq // hkv, c, index)
+    ws = torch.empty(b * hq * splits * (hd + 2), device=q.device,
+                     dtype=torch.float32)
+    with device_scope(index):
+        err = dec(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                  k_pos.data_ptr(), cur_pos.data_ptr(), out.data_ptr(),
+                  ws.data_ptr(), b, c, hq, hkv, hd, int(window), splits,
+                  chunk, rows, 1.0 / math.sqrt(hd), _DTYPES[q.dtype],
+                  raw_stream(index))
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel (split_kv) launch "
+                           f"failed: CUDA error {err} at q{tuple(q.shape)} "
+                           f"cache{tuple(k_cache.shape)} {q.dtype}")
+    flash_attention_kernel.launches += 1
+    flash_attention_kernel.launches_split_kv += 1
+    return out
 
 
 @functools.lru_cache(maxsize=1)

@@ -3,7 +3,11 @@
 Counterpart of `repro.kernels.ops`.  Each op goes by the device of the
 tensors it is given: a CUDA tensor launches the hand-written kernel (or
 the launch raises), a CPU tensor runs the kernel's plain PyTorch version.
-There is no impl knob and no fallback on the card.
+A ``meta`` tensor (the dry-run, `launch/dryrun.py`) runs the plain
+version too, which only propagates shapes there — except flash attention,
+its decode and the mLSTM scan, whose shapes-only stand-ins charge the
+kernels' work (`kernels.meta`).  There is no impl knob and no fallback on
+the card.
 
 Gradients: on the CPU the plain versions carry autograd.  On the card,
 when grad mode is on and an input requires grad, flash attention, RMSNorm
@@ -19,6 +23,7 @@ import torch
 from repro_torch.kernels import batched_conv as BC
 from repro_torch.kernels import clip_sgd as CS
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import meta as META
 from repro_torch.kernels import mlstm_scan as MS
 from repro_torch.kernels import rmsnorm as RN
 from repro_torch.utils.cells import apart, by_cell
@@ -29,9 +34,12 @@ def _needs_grad(*ts) -> bool:
 
 
 def _on_card(t) -> bool:
+    """True for a CUDA tensor; False on the CPU and on the ``meta`` device
+    (the dry-run's shapes-only tensors), where the plain versions run and
+    no kernel does."""
     if t.device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"unsupported device {t.device}")
 
@@ -84,6 +92,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     sk_valid=None):
     """GQA attention, q ``[B, Sq, Hq, hd]`` against k, v ``[B, Sk, Hkv,
     hd]``; keys at or past ``sk_valid`` (default ``Sk``) are masked."""
+    if q.is_meta:
+        return META.attention(q, k, v, causal, window)
     if not _on_card(q):
         return FA.flash_attention_plain(q, k, v, causal=causal,
                                         window=window, sk_valid=sk_valid)
@@ -95,6 +105,21 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         return FA.FlashAttentionFn.apply(q, k, v, causal, window)
     return FA.flash_attention_kernel(q, k, v, causal=causal, window=window,
                                      sk_valid=sk_valid)
+
+
+def flash_decode(q, k_cache, v_cache, k_pos, cur_pos, *, window: int = 0):
+    """One query token ``q [B, 1, Hq, hd]`` against the cache ``[B, C, Hkv,
+    hd]``, each slot masked by the position it holds (``k_pos [B, C]``, -1
+    = empty) against ``cur_pos [B]`` and ``window``: any cache the
+    reference's ``decode_attention`` takes (ring, windowed, per-sequence).
+    On the card the positions stay there."""
+    if q.is_meta:
+        return META.decode(q, k_cache, v_cache, k_pos)
+    if not _on_card(q):
+        return FA.flash_decode_plain(q, k_cache, v_cache, k_pos, cur_pos,
+                                     window=window)
+    return FA.flash_decode_kernel(q, k_cache, v_cache, k_pos, cur_pos,
+                                  window=window)
 
 
 def rmsnorm(x, scale, eps: float = 1e-5, *, cell_size=None):
@@ -118,6 +143,8 @@ def mlstm_scan(q, k, v, i_gate, f_gate):
     gate pre-activations ``[B, S, H]``.  On the card a grad-requiring
     input goes through `MLSTMScanFn` (the forward kernel, which also keeps
     each row's ``a_t`` and ``m_t``, and the backward kernel)."""
+    if q.is_meta:
+        return META.mlstm_scan(q, k, v, i_gate, f_gate)
     if not _on_card(q):
         return MS.mlstm_scan_plain(q, k, v, i_gate, f_gate)
     if _needs_grad(q, k, v, i_gate, f_gate):

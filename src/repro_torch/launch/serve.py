@@ -100,7 +100,8 @@ def serve(cfg, params, tokens, gen: int, device=None) -> ServeResult:
     with record_function("serve.decode"):
         for i in range(gen):
             step = {"tokens": tok[:, None],
-                    "positions": torch.full((b,), s + i, dtype=torch.int32)}
+                    "positions": torch.full((b,), s + i, dtype=torch.int32,
+                                            device=device)}
             logits, cache = model.decode_step(params, cache, step)
             tok = logits[:, 0].argmax(dim=-1)
             out.append(tok)

@@ -18,6 +18,7 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
+from repro_torch.dist.sharding import client_axis_spec
 from repro_torch.utils.tree import tree_map
 
 
@@ -74,6 +75,16 @@ class ProcessMesh:
         the participation plan."""
         return idx[:, self.lo:self.lo + self.n_local]
 
+    @property
+    def shape(self) -> dict:
+        """The clients-only mesh, ``{"clients": d}``: `dist.sharding` reads
+        it as any mesh."""
+        return {"clients": self.d}
+
+    @property
+    def axis_names(self) -> tuple:
+        return ("clients",)
+
     def local_rows(self, a):
         """This rank's rows of an ``[N, ...]`` array."""
         return a[self.lo:self.lo + self.n_local]
@@ -97,6 +108,16 @@ class ProcessMesh:
             return (s / self.n).to(a.dtype)
 
         return [tree_map(mean, u) for u in stacked]
+
+
+def stacked_specs(stacked, mesh, axis: str = "clients"):
+    """PartitionSpec tree for the ``[N, ...]``-stacked unit list, via the
+    `repro_torch.dist.sharding` inference (leading client axis ->
+    ``axis``, inner dims unsharded on the clients-only mesh), as the
+    reference's: rank r of the mesh holds the slice of dim 0 that
+    `ProcessMesh.local_rows` takes.  ``mesh`` is a `ProcessMesh` or any
+    mesh-shaped object."""
+    return tree_map(lambda a: client_axis_spec(a.shape, mesh, axis), stacked)
 
 
 def build_process_mesh(mspec, n_clients: int) -> ProcessMesh:

@@ -4,9 +4,10 @@
 Shapes: q [B, S, Hq, hd]; k, v [B, S, Hkv, hd] with Hq % Hkv == 0.
 `naive_attention`, `blockwise_attention` and `decode_attention_plain` are
 the reference's jnp forms in plain PyTorch.  The model calls `attention`
-(prefill / full forward) and `decode_attention` (one token against the
-cache), which go through `kernels.ops.flash_attention`: the CUDA kernel on
-the card, its plain version on the CPU.
+(prefill / full forward, `kernels.ops.flash_attention`) and
+`decode_attention` (one token against the cache, `kernels.ops.
+flash_decode`): the CUDA kernels on the card, their plain versions on the
+CPU.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops as KOPS
 
 NEG_INF = -1e30
@@ -84,53 +86,17 @@ def attention(q, k, v, *, causal=True, window=0):
     return KOPS.flash_attention(q, k, v, causal=causal, window=window)
 
 
-def decode_attention_plain(q, k_cache, v_cache, k_pos, cur_pos, *, window=0):
-    """Single-token decode: q [B, 1, Hq, hd] against a (possibly ring)
-    cache [B, C, Hkv, hd], masked by the positions stored in the cache.
-
-    ``k_pos`` [B, C]: absolute position stored in each cache slot (-1 =
-    empty).  ``cur_pos`` [B]: position of the query token (its k/v already
-    written).  Products of the working type accumulate in fp32; the
-    probabilities are rounded to the cache's type before the PV product,
-    as in the reference.
-    """
-    b, _, hq, hd = q.shape
-    hkv = k_cache.shape[2]
-    n_rep = hq // hkv
-    scale = 1.0 / math.sqrt(hd)
-    qg = q.reshape(b, 1, hkv, n_rep, hd).float()
-    scores = torch.einsum("bqhrd,bkhd->bhrqk", qg, k_cache.float()) * scale
-    valid = (k_pos >= 0) & (k_pos <= cur_pos[:, None])
-    if window:
-        valid = valid & (k_pos > cur_pos[:, None] - window)
-    scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(v_cache.dtype).float()
-    out = torch.einsum("bhrqk,bkhd->bqhrd", probs, v_cache.float())
-    return out.reshape(b, 1, hq, hd).to(q.dtype)
+# the decode kernel's plain version (the reference's ``decode_attention``
+# in plain torch ops): the tests hold the card's kernel against it
+decode_attention_plain = FA.flash_decode_plain
 
 
-def decode_attention(q, k_cache, v_cache, k_pos, cur_pos, *, window=0,
-                     kv_len=None):
-    """Decode attention of one token against the cache.
-
-    On the CPU this is `decode_attention_plain`, for any cache.  On the card
-    it is the flash kernel with ``sk_valid = kv_len``: that equals the
-    plain form when every sequence of the batch sits at the same position
-    ``kv_len - 1``, the cache was filled from slot 0 in order and has not
-    wrapped (``kv_len <= C``), and there is no window — as on the serving
-    path, where the cache holds prompt + generated tokens.  ``kv_len`` is
-    that host-side count (None when the positions differ).  Any other
-    cache on the card raises `NotImplementedError` (ROADMAP queue 2).
-    """
-    if not KOPS._on_card(q):
-        return decode_attention_plain(q, k_cache, v_cache, k_pos, cur_pos,
-                                      window=window)
-    c_len = k_cache.shape[1]
-    if window or kv_len is None or not 0 < kv_len <= c_len:
-        raise NotImplementedError(
-            "decode attention on the card takes a cache filled in order "
-            "from slot 0, not wrapped, with no window and one position for "
-            f"the whole batch (window={window}, kv_len={kv_len}, cache "
-            f"{c_len}); ring and per-sequence caches are ROADMAP queue 2")
-    return KOPS.flash_attention(q, k_cache, v_cache, causal=False,
-                                sk_valid=kv_len)
+def decode_attention(q, k_cache, v_cache, k_pos, cur_pos, *, window=0):
+    """Decode attention of one token against the cache, masked by the
+    position each slot stores (``k_pos [B, C]``, -1 = empty) against
+    ``cur_pos [B]`` and ``window``: a ring cache, a windowed cache and
+    sequences at their own positions alike.  Through
+    `kernels.ops.flash_decode`: the split-KV kernel on the card (the
+    positions stay there), `decode_attention_plain` on the CPU."""
+    return KOPS.flash_decode(q, k_cache, v_cache, k_pos, cur_pos,
+                             window=window)

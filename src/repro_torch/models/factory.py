@@ -152,7 +152,7 @@ def _build_transformer(cfg: ModelConfig) -> Model:
         """The sinusoidal table's first ``s`` rows, in the model's type."""
         return L.sinusoidal_table(s, cfg.d_model, dtype, device)
 
-    def _encode(enc_stack, final_norm, frame_embeddings):
+    def _encode(enc_stack, final_norm, frame_embeddings, shard_fn=None):
         """The encoder over ``frame_embeddings [*lead, Senc, d]``:
         ``enc_stack`` the ``[R, ...]`` tree, or the per-repetition list
         of client-stacked ``[N, ...]`` trees with ``lead`` ``(N, b)``."""
@@ -162,7 +162,8 @@ def _build_transformer(cfg: ModelConfig) -> Model:
         x = torch.as_tensor(frame_embeddings, device=dev).to(dtype) \
             + _positions(s, dev)[None]
         x, _ = T.stack_fwd(enc_stack, x, cfg, enc_prog,
-                           {"positions": torch.arange(s, device=dev)[None, :]})
+                           {"positions": torch.arange(s, device=dev)[None, :],
+                            "shard_fn": shard_fn})
         return L.rmsnorm(x, final_norm, cfg.norm_eps)
 
     def _embed_inputs(emb, batch, cell=None):
@@ -188,38 +189,52 @@ def _build_transformer(cfg: ModelConfig) -> Model:
         head = params["embed"].T if cfg.tie_embeddings else params["head"]
         return x @ head
 
-    def _ctx(params, batch, s, device, window):
-        ctx = {"positions": torch.arange(s, device=device)[None, :]}
+    def _ctx(params, batch, s, device, window, shard_fn=None,
+             rep_shard_fn=None):
+        ctx = {"positions": torch.arange(s, device=device)[None, :],
+               "shard_fn": shard_fn, "rep_shard_fn": rep_shard_fn}
         if window is not None:
             ctx["window"] = window
         if cfg.is_enc_dec:
             ctx["enc_out"] = _encode(params["enc_stack"],
                                      params["enc_final_norm"],
-                                     batch["frame_embeddings"])
+                                     batch["frame_embeddings"], shard_fn)
         return ctx
 
-    def apply(params, batch, window=None):
-        x, aux = _hidden(params, batch, window=window)
+    # The GSPMD arguments, as the reference's signatures have them:
+    # ``shard_fn`` / ``rep_shard_fn`` are `dist.sharding`'s constraint hooks
+    # (identity on plain tensors), ``remat`` recomputes each super-block in
+    # the backward, ``unroll`` is a no-op (the stack is a Python loop).
+
+    def apply(params, batch, shard_fn=None, remat=False, window=None,
+              unroll=False, rep_shard_fn=None):
+        x, aux = _hidden(params, batch, shard_fn=shard_fn, remat=remat,
+                         window=window, unroll=unroll,
+                         rep_shard_fn=rep_shard_fn)
         head = params["embed"].T if cfg.tie_embeddings else params["head"]
         return x @ head, {"lb_loss": aux}
 
-    def _hidden(params, batch, window=None):
+    def _hidden(params, batch, shard_fn=None, remat=False, window=None,
+                unroll=False, rep_shard_fn=None):
         tokens = batch["tokens"]
         x = _embed_inputs(params["embed"], batch)
         x, aux = T.stack_fwd(params["stack"], x, cfg, program,
                              _ctx(params, batch, tokens.shape[1], x.device,
-                                  window))
+                                  window, shard_fn, rep_shard_fn),
+                             remat=remat, unroll=unroll)
         return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
 
     def _lb(aux):
         """The loss's load-balance term of a stack's summed aux."""
         return 0.01 * aux / max(1, repeats)
 
-    def loss(params, batch):
+    def loss(params, batch, shard_fn=None, remat=False, unroll=False,
+             rep_shard_fn=None):
         """Cross-entropy through `_chunked_ce` plus the MoE load-balance
         term (the reference's ``loss``); returns ``(ce + 0.01 · lb /
         max(1, R), {"ce", "lb_loss"})``."""
-        x, aux = _hidden(params, batch)
+        x, aux = _hidden(params, batch, shard_fn=shard_fn, remat=remat,
+                         unroll=unroll, rep_shard_fn=rep_shard_fn)
         head = params["embed"].T if cfg.tie_embeddings else params["head"]
         ce = _chunked_ce(x, head, batch["labels"], batch.get("loss_mask"))
         return ce + _lb(aux), {"ce": ce, "lb_loss": aux}
@@ -261,7 +276,8 @@ def _build_transformer(cfg: ModelConfig) -> Model:
                      x, head, batch["labels"], batch.get("loss_mask"))
         return ce + _lb(aux)
 
-    def split_loss(client_stacked, server, batch, *, remat=False):
+    def split_loss(client_stacked, server, batch, *, shard_fn=None,
+                   remat=False, unroll=False, rep_shard_fn=None):
         """HASFL split-training loss (paper Sec. III-B), as the
         reference's: each client's embedding and prefix repetitions run
         per client (client-stacked ``[N, c, ...]`` leaves, one product a
@@ -280,23 +296,27 @@ def _build_transformer(cfg: ModelConfig) -> Model:
         if cfg.is_enc_dec:
             fe = batch["frame_embeddings"]
             enc_out = _encode(server["enc_stack"], server["enc_final_norm"],
-                              fe.reshape(n * bsz, *fe.shape[2:]))
+                              fe.reshape(n * bsz, *fe.shape[2:]), shard_fn)
         x = _embed_inputs(client_stacked["embed"], batch)     # [N, b, S, d]
-        ctx = {"positions": positions}
+        # the hooks see the prefix's [N, b, S, d] activations with the
+        # client axis in front: `make_shard_fn` lays it over the data axes,
+        # where the batch sharding puts each client's inputs
+        ctx = {"positions": positions, "shard_fn": shard_fn,
+               "rep_shard_fn": rep_shard_fn}
         if enc_out is not None:
             ctx["enc_out"] = enc_out.reshape(n, bsz, *enc_out.shape[1:])
         aux_c = 0.0
         prefix = client_stacked["stack_prefix"]
         if T.n_repeats(prefix, axis=1):
             x, aux_c = T.stack_fwd(_client_reps(prefix), x, cfg, program,
-                                   ctx, remat=remat)
+                                   dict(ctx, rep_shard_fn=None),
+                                   remat=remat, unroll=unroll)
         # activation hand-off: the client batches concatenated
         x = x.reshape(n * bsz, s, x.shape[-1])
-        ctx = {"positions": positions}
         if enc_out is not None:
             ctx["enc_out"] = enc_out
         x, aux_s = T.stack_fwd(server["stack_suffix"], x, cfg, program, ctx,
-                               remat=remat)
+                               remat=remat, unroll=unroll)
         x = L.rmsnorm(x, server["final_norm"], cfg.norm_eps)
         head = client_stacked["embed"].mean(dim=0).T if cfg.tie_embeddings \
             else server["head"]
@@ -308,7 +328,8 @@ def _build_transformer(cfg: ModelConfig) -> Model:
     def init_cache(batch, cache_len, window=None, device=None):
         return T.cache_init(cfg, batch, cache_len, window, device)
 
-    def prefill(params, batch, cache_len=None, window=None):
+    def prefill(params, batch, cache_len=None, window=None, unroll=False,
+                shard_fn=None):
         """Logits of the last prompt position ``[B, 1, V]`` and the cache
         for ``cache_len`` positions (default: the prompt length).  The
         batch carries the family's stubs (``frame_embeddings``;
@@ -316,18 +337,20 @@ def _build_transformer(cfg: ModelConfig) -> Model:
         tokens = batch["tokens"]
         b, s = tokens.shape
         x = _embed_inputs(params["embed"], batch)
-        ctx = _ctx(params, batch, s, x.device, window)
+        ctx = _ctx(params, batch, s, x.device, window, shard_fn)
         cache = T.cache_init(cfg, b, cache_len or s, window, x.device)
         x, cache = T.stack_prefill(params["stack"], cache, x, cfg, program,
                                    ctx)
         return _logits(params, x[:, -1:].contiguous()), cache
 
-    def decode_step(params, cache, batch, window=None):
+    def decode_step(params, cache, batch, window=None, unroll=False,
+                    shard_fn=None):
         """One token per sequence: ``batch["tokens"]`` [B, 1] at
-        ``batch["positions"]`` [B].  The cache is updated in place and
-        returned.  Positions are best passed as a CPU tensor: the card's
-        decode attention needs them on the host (one position for the
-        whole batch), and a CUDA tensor costs a device sync to read."""
+        ``batch["positions"]`` [B], each sequence at its own position.  The
+        cache is updated in place and returned.  Positions may lie on the
+        card: nothing is read back to the host (the decode kernel masks
+        each slot by its stored position on the device).  ``unroll`` and
+        ``shard_fn`` are the reference's dry-run arguments (no-ops here)."""
         tokens, positions = batch["tokens"], batch["positions"]
         x = params["embed"][tokens]                 # [B, 1, d]
         dev_pos = positions.to(x.device)
@@ -336,10 +359,7 @@ def _build_transformer(cfg: ModelConfig) -> Model:
             rows = L.SINUSOIDAL_ROWS
             table = _positions(rows, x.device)
             x = x + table[dev_pos.long().clamp(0, rows - 1)][:, None]
-        host = positions.cpu()
-        ctx = {"positions": dev_pos,
-               "kv_len": int(host[0]) + 1 if bool((host == host[0]).all())
-               else None}
+        ctx = {"positions": dev_pos, "shard_fn": shard_fn}
         if window is not None:
             ctx["window"] = window
         x, cache = T.stack_decode(params["stack"], cache, x, cfg, program,
@@ -358,10 +378,10 @@ def _build_cnn(cfg: ModelConfig) -> Model:
     def init(gen, device=None):
         return C.cnn_init(gen, cfg, device)
 
-    def apply(params, batch):
+    def apply(params, batch, shard_fn=None, **kw):
         return C.cnn_forward_layers(params, batch["images"], cfg), {}
 
-    def loss(params, batch):
+    def loss(params, batch, shard_fn=None, **kw):
         return C.cnn_loss(params, batch["images"], batch["labels"], cfg,
                           loss_mask=batch.get("loss_mask"))
 

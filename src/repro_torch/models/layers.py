@@ -22,7 +22,10 @@ from repro_torch.utils.cells import by_cell
 
 def _normal(gen, shape, device):
     """Standard normal fp32 draws on the generator's device, moved to
-    ``device``."""
+    ``device``; on the ``meta`` device (the dry-run's shapes-only state)
+    nothing is drawn."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape, device="meta")
     return torch.randn(shape, generator=gen, device=gen.device).to(device)
 
 

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import meta as META
 from repro_torch.models.layers import (_normal, dense_init, mm, per_client,
                                       rmsnorm, silu)
 from repro_torch.utils.cells import apart, by_cell
@@ -126,16 +127,19 @@ def mamba_block(params: dict, x, *, state_dim: int, eps: float = 1e-5,
     d_in = x1.shape[-1]
     state = torch.zeros((math.prod(lead), d_in, state_dim), dtype=F32,
                         device=x.device)
-    ys = []
-    for t0 in range(0, s, SCAN_CHUNK):
-        part = [t[..., t0:t0 + SCAN_CHUNK, :]
-                for t in (dt, x1, b_mat, c_mat)]
-        if torch.is_grad_enabled():
-            y_c, state = checkpoint(_scan_chunk, state, a, *part,
-                                    use_reentrant=False)
-        else:
-            y_c, state = _scan_chunk(state, a, *part)
-        ys.append(y_c)
+    if x.is_meta:      # the dry-run: the loop's shapes and work only
+        ys = [META.mamba_loop(dt, x1, b_mat, c_mat, a, state_dim)]
+    else:
+        ys = []
+        for t0 in range(0, s, SCAN_CHUNK):
+            part = [t[..., t0:t0 + SCAN_CHUNK, :]
+                    for t in (dt, x1, b_mat, c_mat)]
+            if torch.is_grad_enabled():
+                y_c, state = checkpoint(_scan_chunk, state, a, *part,
+                                        use_reentrant=False)
+            else:
+                y_c, state = _scan_chunk(state, a, *part)
+            ys.append(y_c)
     ys = (ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)).reshape(
         *lead, s, d_in)
     y = ys + (per_client(params["d_skip"], x1, 1) * x1.float()).to(dtype)

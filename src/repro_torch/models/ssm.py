@@ -25,6 +25,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import meta as META
 from repro_torch.kernels import ops as KOPS
 from repro_torch.models.layers import (_normal, dense_init, gelu, mm,
                                       per_client, rmsnorm)
@@ -191,6 +192,9 @@ def slstm_scan(params, xn, n_heads: int):
     hd = d // n_heads
     pre = (mm(xn.float(), params["w_zifo"])
            + per_client(params["b_zifo"], xn, 1)).to(xn.dtype)
+    if xn.is_meta:     # the dry-run: the loop's shapes and work only
+        return META.slstm_loop(pre, params["r_zifo"], n_heads,
+                               (*lead, s, d))
     c = torch.zeros((*lead, n_heads, hd), dtype=F32, device=xn.device)
     n, h = torch.zeros_like(c), torch.zeros_like(c)
     m = torch.full_like(c, -1e30)

@@ -239,7 +239,15 @@ def layer_fwd(layer: tuple, params: dict, x, cfg: ModelConfig, ctx: dict):
         x = x + delta
         if aux is not None:
             aux_sum = aux_sum + aux
+        x = _shard(ctx, x)
     return x, aux_sum
+
+
+def _shard(ctx: dict, x):
+    """The activation constraint ``ctx["shard_fn"]`` (`dist.sharding`), if
+    any, on ``x``."""
+    shard = ctx.get("shard_fn")
+    return x if shard is None else shard(x)
 
 
 # ---------------------------------------------------------------------------
@@ -280,7 +288,7 @@ def stack_params(reps: list) -> dict:
 
 
 def stack_fwd(stacked, x, cfg: ModelConfig, program, ctx: dict,
-              remat: bool = False):
+              remat: bool = False, unroll: bool = False):
     """The stack over ``x``; returns ``(x, aux)``.
 
     ``stacked`` is the ``[R, ...]`` tree or a list of per-repetition
@@ -292,11 +300,18 @@ def stack_fwd(stacked, x, cfg: ModelConfig, program, ctx: dict,
     routers through the recomputation.  ``aux`` is the MoE load-balance
     losses summed per super-block and over the repetitions, as the
     reference's (``[N]`` on client-stacked weights; 0.0 without an MoE
-    block)."""
+    block).  ``ctx["rep_shard_fn"]`` (`dist.sharding.make_rep_shard_fn`)
+    pins each repetition's params to their layout, and ``ctx["shard_fn"]``
+    each layer's output.  ``unroll`` is the reference's dry-run switch for
+    its ``lax.scan``; this stack is a Python loop already, so it changes
+    nothing."""
     reps = stacked if isinstance(stacked, list) \
         else unstack_params(stacked, n_repeats(stacked))
+    rep_fn = ctx.get("rep_shard_fn")
 
     def superblock(x, rep):
+        if rep_fn is not None:
+            rep = rep_fn(rep)
         aux_total = 0.0
         for li, layer in enumerate(program):
             x, aux = layer_fwd(layer, rep[f"l{li}"], x, cfg, ctx)
@@ -396,7 +411,7 @@ def block_decode(kind: str, p: dict, x, cache, cfg: ModelConfig, ctx: dict):
         cache["pos"][bidx, slot] = pos.to(torch.int32)
         window = ctx.get("window", cfg.sliding_window)
         o = A.decode_attention(q, cache["k"], cache["v"], cache["pos"], pos,
-                               window=window, kv_len=ctx.get("kv_len"))
+                               window=window)
         return o.reshape(b, 1, -1) @ p["wo"], cache
     if kind == "xattn":
         return _xattn(p, cfg, x, cache["k"], cache["v"]), cache
@@ -428,6 +443,7 @@ def stack_decode(stacked: dict, caches: dict, x, cfg: ModelConfig, program,
                 x = x + delta
                 if cache_b is not None and new_c is not cache_b:
                     tree_map(lambda dst, src: dst.copy_(src), cache_b, new_c)
+            x = _shard(ctx, x)
     return x, caches
 
 
@@ -469,4 +485,5 @@ def stack_prefill(stacked: dict, caches: dict, x, cfg: ModelConfig, program,
                 else:
                     delta, _ = block_fwd(kind, p, x, cfg, ctx)
                 x = x + delta
+            x = _shard(ctx, x)
     return x, caches

@@ -217,33 +217,39 @@ def test_serve_cli_without_device_raises_without_a_card():
 @pytest.mark.parametrize("case", ["window", "wrapped", "positions-differ"])
 def test_card_decode_attention_raises_on_unsupported_caches(case,
                                                             monkeypatch):
-    """On the card, decode attention runs the flash kernel with
-    ``sk_valid = kv_len`` only for an in-order, unwrapped, windowless cache
-    with one position for the batch; any other cache raises
-    `NotImplementedError` before a kernel is reached (no plain fallback).
-    The card is faked: the dispatch's device check says "card" for CPU
-    tensors, and the kernel itself is replaced by a trap."""
+    """On the card, decode attention raises for no cache: a windowed cache,
+    a wrapped ring and sequences at their own positions all reach the
+    stored-position decode kernel, with the positions handed over as
+    tensors (nothing is read back to the host) and no plain fallback.  The
+    card is faked: the dispatch's device check says "card" for CPU
+    tensors, and the kernel itself is replaced by a recorder."""
     import torch
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops
     from repro_torch.models import attention as A
 
     monkeypatch.setattr(ops, "_on_card", lambda t: True)
 
     def trap(*a, **k):
-        raise AssertionError("the kernel was reached")
+        raise AssertionError("the plain version was reached")
 
-    monkeypatch.setattr(ops, "flash_attention", trap)
+    monkeypatch.setattr(FA, "flash_decode_plain", trap)
+    seen = []
+    monkeypatch.setattr(FA, "flash_decode_kernel",
+                        lambda *a, **k: seen.append((a, k)) or "kernel")
     q = torch.zeros((2, 1, 4, 32))
     kc = torch.zeros((2, 8, 2, 32))
-    k_pos = torch.arange(8).repeat(2, 1)
-    kw = {"window": dict(window=4, kv_len=6),
-          "wrapped": dict(window=0, kv_len=9),
-          "positions-differ": dict(window=0, kv_len=None)}[case]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        A.decode_attention(q, kc, kc, k_pos, torch.tensor([5, 5]), **kw)
-    monkeypatch.setattr(ops, "flash_attention", lambda *a, **k: "kernel")
-    assert A.decode_attention(q, kc, kc, k_pos, torch.tensor([5, 5]),
-                              kv_len=6) == "kernel"
+    k_pos, cur, window = {
+        "window": (torch.arange(8).repeat(2, 1), torch.tensor([5, 5]), 4),
+        "wrapped": (torch.tensor([[8, 9, 2, 3, 4, 5, 6, 7]] * 2),
+                    torch.tensor([9, 9]), 0),
+        "positions-differ": (torch.tensor([[0, 1, 2, 3, -1, -1, -1, -1],
+                                           [0, 1, 2, 3, 4, 5, 6, -1]]),
+                             torch.tensor([3, 6]), 0)}[case]
+    assert A.decode_attention(q, kc, kc, k_pos, cur,
+                              window=window) == "kernel"
+    (args, kw), = seen
+    assert args[3] is k_pos and args[4] is cur and kw == {"window": window}
 
 
 def test_mesh_session_without_device_raises_without_a_card():

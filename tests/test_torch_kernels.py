@@ -422,11 +422,13 @@ def test_blockwise_attention_matches_reference(b, sq, sk, hq, hkv, hd,
 @pytest.mark.parametrize("b,c,hq,hkv,hd,pos", DECODE_CASES)
 def test_flash_decode_form_matches_reference_decode_attention(
         b, c, hq, hkv, hd, pos, dtype):
-    """The card's decode route, ``flash_attention(causal=False,
-    sk_valid=pos+1)``, against the reference's ``decode_attention`` on a
-    cache whose slots past ``pos`` are empty (-1) and hold garbage K/V.
-    The reference rounds the probabilities to bf16 before the PV product
-    and the kernel keeps them fp32, so bf16 takes the bf16 bar."""
+    """The card's decode route, ``flash_decode`` on the stored positions,
+    against the reference's ``decode_attention`` on a cache whose slots
+    past ``pos`` are empty (-1) and hold garbage K/V; and the one-token
+    prefill route, ``flash_attention(causal=False, sk_valid=pos+1)``, which
+    the card runs through the same kernel.  The reference rounds the
+    probabilities to bf16 before the PV product and the kernel keeps them
+    fp32, so bf16 takes the bf16 bar."""
     rng = np.random.default_rng(11)
     (qj, qt), (kj, kt), (vj, vt) = (
         _both(rng.standard_normal(shape), dtype)
@@ -435,6 +437,9 @@ def test_flash_decode_form_matches_reference_decode_attention(
     k_pos = np.broadcast_to(k_pos, (b, c)).astype(np.int32)
     ref = r_decode_attention(qj, kj, vj, jnp.asarray(k_pos),
                              jnp.full((b,), pos, jnp.int32))
+    out = TOPS.flash_decode(qt, kt, vt, torch.from_numpy(k_pos),
+                            torch.full((b,), pos, dtype=torch.int32))
+    _assert_close(out, ref, FLASH_TOL[dtype])
     out = TOPS.flash_attention(qt, kt, vt, causal=False, sk_valid=pos + 1)
     _assert_close(out, ref, FLASH_TOL[dtype])
 

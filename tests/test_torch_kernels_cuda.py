@@ -503,6 +503,83 @@ def test_flash_attention_decode_form_matches_plain(b, c, hq, hkv, hd, pos,
     _close(got, want, FLASH_TOL[dtype])
 
 
+def _decode_positions(layout, b, c, rng):
+    """(k_pos [B, C], cur_pos [B], window) of a stored-position decode
+    case: ``ring`` a ring of C slots wrapped past its end (slot p % C holds
+    p), ``empty`` a cache filled at its start (the rest -1), ``window`` a
+    wrapped ring under a window shorter than C, ``per_seq`` each row at
+    its own position (row 0 with one valid key), ``middle`` valid keys
+    only in the cache's middle tiles (the first and last tiles empty)."""
+    k_pos = np.full((b, c), -1, np.int64)
+    cur = np.zeros(b, np.int64)
+    window = 0
+    for i in range(b):
+        if layout in ("ring", "window"):
+            end = c + 37 + 5 * i               # positions [0, end) written
+            for p in range(end):
+                k_pos[i, p % c] = p
+            cur[i] = end - 1
+            window = c // 2 + 3 if layout == "window" else 0
+        elif layout == "empty":
+            n = min(c, 7 + 11 * i)
+            k_pos[i, :n] = np.arange(n)
+            cur[i] = n - 1
+        elif layout == "per_seq":
+            n = 1 if i == 0 else int(rng.integers(2, c + 1))
+            k_pos[i, :n] = np.arange(n)
+            cur[i] = n - 1
+        else:                                  # middle
+            lo, hi = 40, c - 40
+            k_pos[i, lo:hi] = np.arange(hi - lo)
+            cur[i] = hi - lo - 1 - i
+    return k_pos, cur, window
+
+
+DECODE_POSITION_CASES = [
+    # (b, c, hq, hkv, hd, layout)
+    (2, 100, 4, 2, 64, "ring"), (3, 257, 16, 8, 128, "ring"),
+    (2, 96, 8, 2, 64, "empty"), (1, 8192, 16, 8, 128, "window"),
+    (3, 300, 32, 32, 96, "window"), (8, 576, 16, 8, 128, "per_seq"),
+    (4, 200, 14, 2, 64, "per_seq"), (2, 160, 4, 1, 128, "middle"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,c,hq,hkv,hd,layout", DECODE_POSITION_CASES)
+def test_flash_decode_stored_positions_match_plain(b, c, hq, hkv, hd, layout,
+                                                   dtype):
+    """The split-KV decode masking each slot by its stored position
+    against its plain version (the reference's ``decode_attention``):
+    wrapped rings, empty slots holding NaN, windows, rows at their own
+    positions, empty tiles; one counted launch on the split-KV path,
+    positions left on the card, bitwise repeatable."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    dt = DTYPES[dtype]
+    q = _randn(gen, (b, 1, hq, hd), dt)
+    k, v = (_randn(gen, (b, c, hkv, hd), dt) for _ in range(2))
+    k_pos, cur, window = _decode_positions(layout, b, c,
+                                           np.random.default_rng(7))
+    empty = torch.as_tensor(k_pos < 0, device="cuda")
+    k[empty] = float("nan")              # empty slots must never be read
+    v[empty] = float("nan")
+    kp = torch.as_tensor(k_pos, dtype=torch.int32, device="cuda")
+    cp = torch.as_tensor(cur, dtype=torch.int32, device="cuda")
+    before = TFA.path_launches()
+    got = TOPS.flash_decode(q, k, v, kp, cp, window=window)
+    after = TFA.path_launches()
+    want = TFA.flash_decode_plain(q, torch.nan_to_num(k), torch.nan_to_num(v),
+                                  kp, cp, window=window)
+    torch.cuda.synchronize()
+    assert {p: after[p] - before[p] for p in after} == {
+        p: int(p == "split_kv") for p in TFA.PATHS}
+    assert torch.isfinite(got).all()
+    _close(got, want, FLASH_TOL[dtype])
+    assert torch.equal(got, TFA.flash_decode_kernel(q, k, v, kp, cp,
+                                                    window=window))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype", RMSNORM_CASES + [
     ((8, 512, 2048), "bfloat16"), ((8, 512, 16, 128), "bfloat16"),
