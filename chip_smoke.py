@@ -12,7 +12,9 @@ nothing of the reference package.  Phases, each printing one JSON line:
    sources (one ``nvcc`` a source, all started together) and times it.
 3. ``kernels``: each kernel against its plain PyTorch version on the card
    at the main path's shapes — the client-batched GEMM at every VGG-16
-   forward/dW/dx shape at N=8, b=64; `BatchedConv`'s forward and dx/dW/db
+   forward/dW/dx shape at N=8, b=64, and again at N=1, b=64 (the legacy
+   engine's one client at a time) and at N=8, b=24 (a vectorized ``b_max``
+   off the power-of-two buckets); `BatchedConv`'s forward and dx/dW/db
    against the plain autograd path (stride 2 and a zeroed cotangent row
    included); the fused clip+SGD update over every participation pattern
    of N=4, a fractional lone survivor, the full cohort, and the 32 VGG-16
@@ -79,8 +81,25 @@ nothing of the reference package.  Phases, each printing one JSON line:
    and parameters within 1e-4, each grid cell bitwise equal to its own
    run on the card.
 13. ``cli``: `repro_torch.launch.train.main(CLI_ARGS + ["--csv", ...])`
-   on the card: one CSV row per eval, the ``.spec.json`` reloading equal,
-   the numbers bitwise equal to `Session(spec).run()`.
+   on the card, on the scan engine and with ``--engine vectorized`` and
+   ``--engine legacy``: one CSV row per eval, the ``.spec.json``
+   reloading equal, the numbers bitwise equal to `Session(spec).run()`,
+   the same clock on every engine.
+   Then ``engines``: VGG-16 at full width (`ENGINES`: N=8, 4096 images, 6
+   rounds, evals every 2, I=3) on the scan, vectorized and legacy engines
+   from the same initial units, under ``fixed(b=24,cut=3)``, HASFL
+   (priors) and ``fixed(b=32,cut=3)``; counters zeroed and read around
+   each run.  Decisions, clocks
+   and every sampler draw bitwise equal across the engines; legacy
+   against vectorized within the reference's seed-loop bars; vectorized
+   against scan recorded as bitwise or not (held bitwise where every
+   ``b_max`` is a power of two); the stacked engines' update once a
+   round, legacy's never, the GEMM > 0 on all.  Seconds a round, peak
+   memory, and legacy's GEMM launches against vectorized's.  And
+   ``engines_cross``: the vectorized and legacy engines card against CPU
+   from the same weights, vgg9 at ``cross_device``'s sizes and a fp32
+   smollm-tiny cell: decisions, clocks and draws bitwise, losses and
+   parameters within 1e-4.
 14. ``serve``: the token-model serving path, `repro_torch.launch.serve.serve`
    for qwen3-1.7b at full width (28 layers, d 2048, vocab 151936, bf16)
    with the port's seeded init and `launch.serve.FULL_WIDTH_TRAFFIC`
@@ -363,6 +382,21 @@ TRAFFIC = dict(n_users=100_000, arrival_rate=20.0, mean_dwell=0.5,
 TRAFFIC_CROSS = dict(n_users=500, arrival_rate=300.0, mean_dwell=0.02,
                      buffer_frac=0.5, staleness_alpha=0.5, shard_size=40,
                      seed=3)
+# the engines phase's cell: the train phase's VGG-16 at full width on
+# each round engine from the same initial units, under a fixed policy
+# whose b_max (24) is off the power-of-two buckets, under HASFL's own
+# decisions (priors only: decisions from the host plane alone), and at
+# b = 32, where the scan engine pads no wider than the vectorized one
+ENGINES = dict(arch="vgg16-cifar", n_clients=8, partition="iid",
+               n_train=4096, n_test=512, rounds=6, eval_every=2)
+ENGINES_AGG = 3
+ENGINES_POLICIES = {"fixed": dict(policy="fixed(b=24,cut=3)"),
+                    "hasfl": dict(policy="hasfl", estimate=False),
+                    "fixed_pow2": dict(policy="fixed(b=32,cut=3)")}
+# the reference's legacy == vectorized bars (tests/test_dist_sharding.py):
+# losses and parameters, and accuracy (a few of 512 test images)
+SEED_LOOP = dict(rtol=2e-3, atol=2e-4)
+SEED_LOOP_ACC = 0.051
 # the cli phase's command line (the reference launcher's small edge run,
 # under a scenario), its CSV under build/
 CLI_ARGS = ["--mode", "edge", "--arch", "vgg9-cifar-small", "--clients", "4",
@@ -534,7 +568,14 @@ def phase_build():
     emit({"phase": "build", "seconds": round(seconds, 3), "ptxas": ptxas})
 
 
-def _gemm_checks(detail):
+def _gemm_checks(detail, n: int = 8, batch: int = 64):
+    """Kernel 1 at every GEMM of one VGG-16 round at ``n`` clients of
+    ``batch`` images (N=8, b=64: the stacked engines' main path; N=1, b=64: the
+    legacy engine's per-client shapes; N=8, b=24: a ``b_max`` off the
+    power-of-two buckets, as the vectorized engine pads): each against
+    its plain version at `GEMM_RTOL`, every split-K plan bitwise
+    repeatable, timed beside ``torch.bmm`` and its bound.  Returns the
+    sums over the round's shapes; the rows go to ``detail``."""
     import torch
     from repro_torch.kernels import batched_conv as BC
 
@@ -542,9 +583,8 @@ def _gemm_checks(detail):
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                max_abs_err=0.0, flops=0.0, bytes=0.0)
     rows = []
-    n = 8
     sms = torch.cuda.get_device_properties("cuda").multi_processor_count
-    for name, kind, m, k, c in vgg16_gemm_shapes(n):
+    for name, kind, m, k, c in vgg16_gemm_shapes(n, batch):
         if kind == "dW":
             # patchesᵀ as a transposed view, as the main path passes it
             a = torch.randn((n, k, m), device="cuda",
@@ -555,11 +595,13 @@ def _gemm_checks(detail):
         out = BC.batched_matmul_kernel(a, b)
         ref = BC.batched_matmul_plain(a, b)
         splits = BC.gemm_splits(n, m, k, c, sms)[0]
-        if name in ("conv1.dW", "conv2.dW"):
+        if (n, batch) == (8, 64) and name in ("conv1.dW", "conv2.dW"):
+            check(splits > 1, f"GEMM {name}: no split-K")
+        if splits > 1:
             # split-K reduces its partials in a fixed order
-            check(splits > 1 and torch.equal(out, BC.batched_matmul_kernel(
-                a, b)), f"GEMM {name}: split-K ({splits} splits) not "
-                "bitwise repeatable")
+            check(torch.equal(out, BC.batched_matmul_kernel(a, b)),
+                  f"GEMM {name} {(n, m, k, c)}: split-K ({splits} splits) "
+                  "not bitwise repeatable")
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
         scale = float(ref.abs().max())
@@ -582,7 +624,7 @@ def _gemm_checks(detail):
         tot["flops"] += flops
         tot["bytes"] += nbytes
         del a, b, out, ref
-    detail["gemm_vgg16_n8_b64"] = rows
+    detail[f"gemm_vgg16_n{n}_b{batch}"] = rows
     tot["bound_by"] = ("operations" if tot["flops"] / PEAK_FP32_FLOPS
                        >= tot["bytes"] / PEAK_BYTES else "bytes")
     return tot
@@ -1408,6 +1450,11 @@ def phase_kernels(detail):
 
     disable_tf32()
     gemm = _gemm_checks(detail)
+    # the per-round engines' GEMMs: legacy's one client at a time, and a
+    # vectorized b_max of 24 (the engines phase's fixed policy)
+    gemm_engines = {"legacy_n1_b64": _gemm_checks(detail, 1, 64),
+                    "vectorized_n8_b24": _gemm_checks(detail, 8, 24)}
+    gemm.update(gemm_engines)
     conv_err = _conv_checks()
     clip = _clip_checks(detail)
     ext = _clip_ext_checks(detail)
@@ -1418,6 +1465,9 @@ def phase_kernels(detail):
     emit({"phase": "kernels",
           "batched_matmul": {k: gemm[k] for k in (
               "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")},
+          **{f"batched_matmul_{key}": {k: tot[k] for k in (
+              "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+              "max_abs_err")} for key, tot in gemm_engines.items()},
           "batched_conv_max_err": conv_err,
           "clip_sgd": {k: clip[k] for k in (
               "ms", "device_ms", "host_ms", "plain_ms", "bound_ms",
@@ -1443,7 +1493,8 @@ def phase_kernels(detail):
               "name", "shape", "splits", "unplanned_splits",
               "unplanned_bitwise", "ms", "library_ms")}
               for r in grid["gemm"]], "clip_sgd": grid["clip_sgd"]},
-          "note": "GEMM: one VGG-16 round's shapes summed at N=8 (b=64); "
+          "note": "GEMM: one VGG-16 round's shapes summed at N=8 (b=64), "
+                  "at N=1 (b=64, one legacy client) and N=8 (b=24); "
                   "clip_sgd (N=8) and clip_sgd_ext (N=16): one round's 32 "
                   "leaves in one call; "
                   "flash, rmsnorm and mlstm_scan: one forward's calls "
@@ -2347,8 +2398,45 @@ def _cross_errors(ra, rb, sa, sb):
         ra.train_loss + ra.test_loss + ra.test_acc,
         rb.train_loss + rb.test_loss + rb.test_acc))
     param = max(float(np.max(np.abs(a - b))) for a, b in zip(
-        _host_f32(sa.sim._stacked), _host_f32(sb.sim._stacked)))
+        _host_f32(_clients(sa)), _host_f32(_clients(sb))))
     return loss, param
+
+
+def _clients(sess) -> list:
+    """A session's client parameters as ``[N, ...]``-stacked units, on
+    every engine (the legacy engine's client lists stacked)."""
+    from repro_torch.core import split as SP
+
+    if sess.sim.vectorized:
+        return sess.sim._stacked
+    return SP.stack_unit_trees(sess.sim.client_units)
+
+
+@contextlib.contextmanager
+def _draw_log():
+    """While the block runs, every index draw of the host sampling
+    routine (`data.pipeline.draw_indices`, which `ClientSampler.sample`
+    and `DeviceClientStore.segment_indices` both call, in round and
+    client order) goes to the list the latest ``start()`` returned."""
+    from repro_torch.data import pipeline as P
+
+    draw = P.draw_indices
+    log = [[]]
+
+    def recording(rng, pool, batch):
+        take = draw(rng, pool, batch)
+        log[0].append(take.copy())
+        return take
+
+    def start():
+        log[0] = []
+        return log[0]
+
+    P.draw_indices = recording
+    try:
+        yield start
+    finally:
+        P.draw_indices = draw
 
 
 def _host_f32(tree) -> list:
@@ -2546,11 +2634,212 @@ def phase_token_families(detail):
     check(not bad, "token_families: " + "; ".join(bad))
     return out
 
+def _excess(xs, ys, rtol: float, atol: float):
+    """max(|x − y| − (atol + rtol·|y|)) over two lists of tensors on the
+    card (≤ 0: within the bars), and max|x − y|."""
+    worst = diff = -math.inf
+    for x, y in zip(xs, ys):
+        d = (x.float() - y.float()).abs()
+        worst = max(worst, float((d - (atol + rtol * y.float().abs()))
+                                 .max()))
+        diff = max(diff, float(d.max()))
+    return worst, diff
+
+
+def phase_engines(detail):
+    """The three round engines on VGG-16 at full width (`ENGINES`: N=8,
+    4096 images, 6 rounds, evals every 2, I=3) from the same initial
+    units, under each of `ENGINES_POLICIES`; counters zeroed just before
+    each run and read just after.  Decisions, clocks and every draw of
+    the host sampler bitwise equal across the engines; legacy against
+    vectorized within the reference's seed-loop bars (`SEED_LOOP`,
+    accuracy `SEED_LOOP_ACC`); vectorized against scan recorded as
+    bitwise or not, and held bitwise where every ``b_max`` was a power of
+    two (the scan engine then pads no wider).  Launches: the stacked
+    engines' update once a round, legacy's never, the GEMM > 0 on all
+    and the external-mean update on none.  Seconds a round (with and
+    without the policy calls), peak memory."""
+    import numpy as np
+    import torch
+    from repro_torch.api import ExperimentSpec, Session
+    from repro_torch.config import SFLConfig, get_config
+    from repro_torch.convert import units_to_numpy
+    from repro_torch.core.sfl import pow2_bucket
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    init = units_to_numpy(build_model(get_config(ENGINES["arch"])).init(
+        torch.Generator().manual_seed(0)))
+    rounds = ENGINES["rounds"]
+    out = {"phase": "engines", **ENGINES, "agg_interval": ENGINES_AGG,
+           "policies": {}}
+    bad = []
+    with _draw_log() as start:
+        for pname, pol in ENGINES_POLICIES.items():
+            runs = {}
+            for engine in ("scan", "vectorized", "legacy"):
+                spec = ExperimentSpec(
+                    **ENGINES, **pol, engine=engine,
+                    sfl=SFLConfig(lr=0.05, agg_interval=ENGINES_AGG))
+                sess = Session(spec, init_units=init)
+                policy_s = _timed_policies([sess])
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                at_start = torch.cuda.memory_allocated()
+                draws = start()
+                ops.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = sess.run()
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                launches = ops.launch_counts()
+                peak = torch.cuda.max_memory_allocated()
+                runs[engine] = dict(
+                    res=res, draws=draws, launches=launches,
+                    # host copies: the next engine's peak holds none
+                    leaves=[t.detach().cpu()
+                            for t in tree_leaves(_clients(sess))],
+                    info=dict(
+                        seconds=seconds, seconds_per_round=seconds / rounds,
+                        policy_seconds=policy_s[0],
+                        round_seconds_without_policy=(
+                            seconds - policy_s[0]) / rounds,
+                        max_memory_allocated=peak,
+                        memory_allocated_at_start=at_start,
+                        launches=launches,
+                        gemm_launches_per_round=(
+                            launches["batched_matmul"] / rounds),
+                        train_loss=res.train_loss, test_loss=res.test_loss,
+                        test_acc=res.test_acc))
+                del sess
+            scan, vec, leg = (runs[e] for e in ("scan", "vectorized",
+                                                "legacy"))
+            res = {e: r["res"] for e, r in runs.items()}
+            b_max = [int(np.max(b)) for b in res["scan"].b_history]
+            pow2 = all(pow2_bucket(b) == b for b in b_max)
+            loss_excess, loss_diff = _excess(
+                [torch.tensor(leg["res"].train_loss + leg["res"].test_loss)],
+                [torch.tensor(vec["res"].train_loss + vec["res"].test_loss)],
+                **SEED_LOOP)
+            acc_diff = max(abs(a - b) for a, b in zip(
+                leg["res"].test_acc, vec["res"].test_acc))
+            param_excess, param_diff = _excess(leg["leaves"], vec["leaves"],
+                                               **SEED_LOOP)
+            vec_scan_bitwise = _same_result(vec["res"], scan["res"]) and all(
+                torch.equal(a, b) for a, b in zip(vec["leaves"],
+                                                  scan["leaves"]))
+            vec_scan_diff = max(float((a - b).abs().max()) for a, b in zip(
+                vec["leaves"], scan["leaves"]))
+            rec = {
+                "b_history": [list(map(int, b)) for b in res["scan"].b_history],
+                "cut_history": [list(map(int, c))
+                                for c in res["scan"].cut_history],
+                "b_max": b_max, "b_max_all_pow2": pow2,
+                "clock": res["scan"].clock,
+                "legacy_vs_vectorized": dict(
+                    loss_max_abs_diff=loss_diff, loss_excess=loss_excess,
+                    acc_max_abs_diff=acc_diff,
+                    param_max_abs_diff=param_diff,
+                    param_excess=param_excess),
+                "vectorized_vs_scan_bitwise": vec_scan_bitwise,
+                "vectorized_vs_scan_param_max_abs_diff": vec_scan_diff,
+                "legacy_gemm_launches_per_vectorized": (
+                    leg["launches"]["batched_matmul"]
+                    / max(1, vec["launches"]["batched_matmul"])),
+                **{e: r["info"] for e, r in runs.items()}}
+            out["policies"][pname] = rec
+            for e in ("vectorized", "legacy"):
+                r = res[e]
+                if not (_same(r.b_history, res["scan"].b_history)
+                        and _same(r.cut_history, res["scan"].cut_history)
+                        and r.clock == res["scan"].clock
+                        and r.rounds == res["scan"].rounds):
+                    bad.append(f"{pname}: {e}'s decisions or clock differ "
+                               "from scan's")
+                if not _same(runs[e]["draws"], scan["draws"]) \
+                        or len(scan["draws"]) != rounds * ENGINES["n_clients"]:
+                    bad.append(f"{pname}: {e}'s sampler draws differ")
+            if not all(math.isfinite(v) for r in res.values()
+                       for v in r.train_loss + r.test_loss + r.clock):
+                bad.append(f"{pname}: a non-finite loss or clock")
+            if loss_excess > 0 or param_excess > 0 \
+                    or acc_diff > SEED_LOOP_ACC:
+                bad.append(f"{pname}: legacy and vectorized part by more "
+                           f"than the seed-loop bars ({rec['legacy_vs_vectorized']})")
+            if pow2 and not vec_scan_bitwise:
+                bad.append(f"{pname}: vectorized is not scan bitwise at "
+                           f"power-of-two b_max {b_max}")
+            for e, r in runs.items():
+                n = r["launches"]
+                want = 0 if e == "legacy" else rounds
+                if n["batched_matmul"] == 0 or n["clip_sgd"] != want \
+                        or n["clip_sgd_ext"] != 0:
+                    bad.append(f"{pname}: {e}'s launches {n}")
+            del runs, scan, vec, leg
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    detail["engines"] = out
+    check(not bad, "engines: " + "; ".join(bad))
+    return out
+
+
+def phase_engines_cross(detail):
+    """The vectorized and legacy engines on the card against the CPU from
+    the same weights: vgg9 at ``cross_device``'s sizes (N=4, 4 rounds) and
+    a fp32 smollm-tiny cell (N=4, S=16, 4 rounds).  Decisions, clocks and
+    the sampler's draws bitwise; losses, accuracies and every client's
+    parameters within `CROSS_TOL`."""
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.config import SFLConfig
+
+    t_phase = time.perf_counter()
+    _register_cut("smollm-tiny", "smollm-tiny-engines")
+    specs = {
+        "vgg9": dict(arch="vgg9-cifar-small", n_clients=4, partition="iid",
+                     n_train=400, n_test=100),
+        "smollm": dict(arch="smollm-tiny-engines", n_clients=4,
+                       partition="iid", n_train=128, n_test=16, seq_len=16)}
+    out = {"phase": "engines_cross", "cells": {}}
+    bad = []
+    with _draw_log() as start:
+        for name, kw in specs.items():
+            for engine in ("vectorized", "legacy"):
+                spec = ExperimentSpec(
+                    **kw, rounds=4, eval_every=2, policy="hasfl",
+                    estimate=False, engine=engine,
+                    sfl=SFLConfig(lr=0.05, agg_interval=2))
+                (sg, rg, dg), (sc, rc, dc) = _cross_pair(
+                    spec, lambda sess: start())
+                loss_err, param_err = _cross_errors(rg, rc, sg, sc)
+                same = (_same(rg.b_history, rc.b_history)
+                        and _same(rg.cut_history, rc.cut_history)
+                        and rg.clock == rc.clock and _same(dg, dc)
+                        and len(dg) == 4 * spec.n_clients)
+                out["cells"][f"{name}_{engine}"] = dict(
+                    decisions_clock_draws_bitwise=same,
+                    loss_acc_max_err=loss_err, param_max_err=param_err,
+                    b_history=[list(map(int, b)) for b in rg.b_history])
+                if not same:
+                    bad.append(f"{name} {engine}: decisions, clock or draws")
+                if loss_err > CROSS_TOL or param_err > CROSS_TOL:
+                    bad.append(f"{name} {engine}: {loss_err}, {param_err}")
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    detail["engines_cross"] = out
+    check(not bad, "engines_cross: " + "; ".join(bad))
+    return out
+
+
 def phase_cli(detail):
     """`repro_torch.launch.train.main` in process, edge mode on the card
-    (`CLI_ARGS`, a CSV under build/): one CSV row per eval, the
-    ``.spec.json`` beside it reloading equal to the spec, and the numbers
-    bitwise equal to `Session(spec).run()` on the card."""
+    (`CLI_ARGS`, a CSV under build/), on the default scan engine and with
+    ``--engine vectorized`` and ``--engine legacy``: one CSV row per eval,
+    the ``.spec.json`` beside it reloading equal to the spec, and the
+    numbers bitwise equal to `Session(spec).run()` on the card."""
     import csv
     import shutil
     import tempfile
@@ -2559,33 +2848,44 @@ def phase_cli(detail):
     from repro_torch.launch import train
 
     (ROOT / "build").mkdir(exist_ok=True)
-    d = tempfile.mkdtemp(prefix="cli_", dir=ROOT / "build")
-    try:
-        path = str(Path(d) / "edge.csv")
-        t0 = time.perf_counter()
-        spec, res = train.main(CLI_ARGS + ["--csv", path])
-        seconds = time.perf_counter() - t0
-        with open(path) as f:
-            rows = list(csv.DictReader(f))
-        reloaded = ExperimentSpec.load(path + ".spec.json")
-    finally:
-        shutil.rmtree(d, ignore_errors=True)
-    alone = Session(spec).run()
-    out = {"phase": "cli", "argv": CLI_ARGS, "seconds": seconds,
-           "csv_rows": len(rows), "evals": len(res.rounds),
-           "spec_reloads_equal": reloaded == spec,
-           "csv_matches": [float(r["clock"]) for r in rows] == res.clock
-           and [float(r["train_loss"]) for r in rows] == res.train_loss,
-           "bitwise_session_run": _same_result(res, alone),
-           "test_acc": res.test_acc, "clock": res.clock}
+    out = {"phase": "cli", "argv": CLI_ARGS, "engines": {}}
+    bad = []
+    for engine in ("scan", "vectorized", "legacy"):
+        argv = CLI_ARGS + ([] if engine == "scan" else ["--engine", engine])
+        d = tempfile.mkdtemp(prefix="cli_", dir=ROOT / "build")
+        try:
+            path = str(Path(d) / "edge.csv")
+            t0 = time.perf_counter()
+            spec, res = train.main(argv + ["--csv", path])
+            seconds = time.perf_counter() - t0
+            with open(path) as f:
+                rows = list(csv.DictReader(f))
+            reloaded = ExperimentSpec.load(path + ".spec.json")
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        alone = Session(spec).run()
+        rec = {"seconds": seconds, "engine": spec.engine,
+               "csv_rows": len(rows), "evals": len(res.rounds),
+               "spec_reloads_equal": reloaded == spec,
+               "csv_matches": [float(r["clock"]) for r in rows] == res.clock
+               and [float(r["train_loss"]) for r in rows] == res.train_loss,
+               "bitwise_session_run": _same_result(res, alone),
+               "test_acc": res.test_acc, "clock": res.clock}
+        out["engines"][engine] = rec
+        if not (rec["engine"] == engine and rec["csv_rows"] == rec["evals"]
+                == spec.rounds // spec.eval_every):
+            bad.append(f"{engine}: {rec['csv_rows']} CSV rows for "
+                       f"{rec['evals']} evals on {rec['engine']}")
+        for key in ("spec_reloads_equal", "csv_matches",
+                    "bitwise_session_run"):
+            if not rec[key]:
+                bad.append(f"{engine}: {key}")
+    clocks = [r["clock"] for r in out["engines"].values()]
+    if any(c != clocks[0] for c in clocks):
+        bad.append("the engines' clocks differ")
     emit(out)
     detail["cli"] = out
-    check(out["csv_rows"] == out["evals"] == spec.rounds // spec.eval_every,
-          f"cli: {out['csv_rows']} CSV rows for {out['evals']} evals")
-    check(out["spec_reloads_equal"], "cli: the spec file reloads unequal")
-    check(out["csv_matches"], "cli: the CSV differs from the result")
-    check(out["bitwise_session_run"],
-          "cli: the launcher's run differs from Session(spec).run()")
+    check(not bad, "cli: " + "; ".join(bad))
     return out
 
 
@@ -5393,6 +5693,13 @@ def phase_dryrun(detail, spmd, serve_ring):
     return out
 
 
+def _engine_launches(engines, name) -> dict:
+    """A kernel's launches in the engines phase, by policy and engine."""
+    return {pname: {e: rec[e]["launches"][name]
+                    for e in ("scan", "vectorized", "legacy")}
+            for pname, rec in engines["policies"].items()}
+
+
 def _token_launches(name, grid_lm, mesh_lm, dynamic_lm) -> dict:
     """A kernel's launches in the token phases of the grid runner (folded
     and one cell after another), mesh mode and the dynamic edge."""
@@ -5441,6 +5748,8 @@ def main(argv=None) -> int:
     phase_dynamic_cross(detail)
     phase_token_families(detail)
     phase_cli(detail)
+    engines = phase_engines(detail)
+    phase_engines_cross(detail)
     gc.collect()
     torch.cuda.empty_cache()
     train_lm, lm_seen = phase_train_lm(detail)
@@ -5510,9 +5819,16 @@ def main(argv=None) -> int:
          "launches_grid": grid["launches"]["batched_matmul"],
          "launches_scenario": scenario["launches"]["batched_matmul"],
          "launches_traffic": traffic["launches"]["batched_matmul"],
+         "launches_engines": _engine_launches(engines, "batched_matmul"),
          "max_abs_err": gemm["max_abs_err"], "ms": gemm["ms"],
          "plain_ms": gemm["plain_ms"], "bound_ms": gemm["bound_ms"],
-         "bound_by": gemm["bound_by"], "library_ms": gemm["library_ms"]},
+         "bound_by": gemm["bound_by"], "library_ms": gemm["library_ms"],
+         # the per-round engines' GEMMs: one legacy client (N=1, b=64)
+         # and a vectorized b_max of 24 (N=8), each a round's shapes
+         **{key: {k: gemm[key][k] for k in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")}
+            for key in ("legacy_n1_b64", "vectorized_n8_b24")}},
         {"name": "clip_sgd", "route": "cuda",
          "source": "src/repro_torch/csrc/clip_sgd.cu",
          "replaces": "src/repro/kernels/clip_sgd.py:29",
@@ -5520,6 +5836,7 @@ def main(argv=None) -> int:
          "launches_grid": grid["launches"]["clip_sgd"],
          "launches_scenario": scenario["launches"]["clip_sgd"],
          "launches_traffic": traffic["launches"]["clip_sgd"],
+         "launches_engines": _engine_launches(engines, "clip_sgd"),
          "max_abs_err": clip["max_abs_err"], "ms": clip["ms"],
          "device_ms": clip["device_ms"],
          "plain_ms": clip["plain_ms"], "bound_ms": clip["bound_ms"],

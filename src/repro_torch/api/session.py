@@ -148,6 +148,7 @@ class Session:
             self.sfl,
             self.profile,
             seed=spec.seed,
+            engine=spec.resolved_engine,
             update_impl=spec.update_impl,
             fault_mode=spec.fault_mode,
             deadline_factor=spec.deadline_factor,
@@ -205,6 +206,10 @@ class Session:
             "labels": labels[spec.n_train :],
         }
         return train, test, None
+
+    @property
+    def engine(self) -> str:
+        return self.sim.engine
 
     @property
     def plane(self):

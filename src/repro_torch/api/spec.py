@@ -1,8 +1,7 @@
 """Declarative experiment descriptions (DESIGN.md §10).  Port of
-`repro.api.spec`: the same fields and the same JSON form, so a spec file
-written for the reference loads here.  The port runs the scan engine's
-semantics only: ``engine`` other than ``"scan"`` (or None) raises
-``NotImplementedError``.
+`repro.api.spec`: the same fields, the same JSON form and the same
+checks, so a spec file written for the reference loads here and runs on
+the engine it names.
 
 An `ExperimentSpec` is the *complete* recipe for one simulation cell —
 model architecture, data partition, cohort size, `SFLConfig`, scenario
@@ -51,8 +50,9 @@ class ExperimentSpec:
     `SFLConfig` knob (agg interval, lr, clip, server resources, the
     Assumption-2 priors) is taken verbatim.
 
-    ``engine=None`` picks the round-scan engine's semantics, the only
-    ones the port runs.
+    ``engine=None`` picks the round-scan engine, the only one
+    `Session.run_grid` folds; ``"vectorized"`` and ``"legacy"`` run the
+    reference's per-round engines of the same names.
     ``estimate`` enables the online G²/σ² re-estimation inside the
     HASFL controller (ignored by the non-adaptive policies).
 
@@ -209,16 +209,7 @@ class ExperimentSpec:
                     "cohort-bank runs (mesh.population) cannot ride a "
                     "scenario preset — traces are per resident slot, not "
                     "per logical client")
-        self._check_ported()
         return self
-
-    def _check_ported(self) -> None:
-        """Raise ``NotImplementedError`` for the engines the port does not
-        carry (ROADMAP.md §1)."""
-        if self.engine not in (None, "scan"):
-            raise NotImplementedError(
-                f"engine={self.engine!r} (legacy/vectorized engines) is "
-                f"not ported yet; see ROADMAP.md queue 1")
 
     # -- derived views ------------------------------------------------------
 

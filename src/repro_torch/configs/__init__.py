@@ -25,3 +25,17 @@ from repro_torch.configs.input_shapes import (  # noqa: F401
     concrete_inputs,
     input_specs,
 )
+
+# the token architectures, in the reference's order
+ASSIGNED = [
+    "llama4-maverick-400b-a17b",
+    "phi3-mini-3.8b",
+    "glm4-9b",
+    "whisper-medium",
+    "xlstm-350m",
+    "smollm-135m",
+    "internvl2-1b",
+    "dbrx-132b",
+    "jamba-v0.1-52b",
+    "qwen3-1.7b",
+]

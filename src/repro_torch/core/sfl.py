@@ -1,5 +1,5 @@
 """The SFL/HASFL edge simulator in PyTorch.  Port of
-`repro.core.sfl.SFLEdgeSimulator`, scan-engine semantics.
+`repro.core.sfl.SFLEdgeSimulator` with its three round engines.
 
 N heterogeneous clients with per-client batch b_i and cut c_i; the
 server-common sub-model is aggregated every round (Eq. 4), the
@@ -9,40 +9,54 @@ set.  Within a round, split execution computes exactly the gradients of
 full-model execution, so the simulator computes per-client full-model
 gradients and applies HASFL's per-component update rules (DESIGN.md §2).
 
-`run()` is a segment scheduler, as the reference's scan engine: the round
-range is chopped at eval / reconfiguration boundaries, each segment's
-gather plan is pre-drawn from the authoritative host RNG, and the
-segment's rounds run as a Python loop on the device.  Per round: gather
-the padded per-client batch (`DeviceClientStore.device_batch`), one
-backward of the *sum* of the stacked per-client losses (every conv
-through the client-batched GEMM), the per-client fp32 clip factor, and
-the fused HASFL update.  The stacked parameter tensors are updated in
-place — the analogue of the reference's donated scan carry — and the
-per-round losses stay on the device until the segment's eval fetches
-them.
+The engines share the host plane (policy calls, clock, draws, metrics)
+and the update rule; they differ in how a round reaches the device:
+
+- ``scan``: `run()` is a segment scheduler, as the reference's scan
+  engine: the round range is chopped at eval / reconfiguration
+  boundaries, each segment's gather plan is pre-drawn from the
+  authoritative host RNG, and the segment's rounds run as a Python loop
+  on the device.  Per round: gather the padded per-client batch
+  (`DeviceClientStore.device_batch`), one backward of the *sum* of the
+  stacked per-client losses (every conv through the client-batched
+  GEMM), the per-client fp32 clip factor, and the fused HASFL update.
+  The stacked parameter tensors are updated in place — the analogue of
+  the reference's donated scan carry — and the per-round losses stay on
+  the device until the segment's eval fetches them.
+- ``vectorized`` (the default when ``engine`` is unset, as in the
+  reference): one round at a time over the same ``[N, ...]`` stack and
+  the same round body; each round's batches are drawn on the host with
+  `ClientSampler.sample` in client order, padded to that round's
+  ``b_max``, stacked and uploaded once.
+- ``legacy``: the reference's per-client loop over N separate unit
+  lists: each client's clipped gradient of the single-model loss, then
+  the update as the reference's loop algebra (`_legacy_round`).
 
 A scenario (``run(scenario=)``, DESIGN.md §9) prices each round and
-draws its participation on that round's trace state; ``checkpoint_every``
-adds segment boundaries at which ``snapshot_cb`` fires, and ``resume``
-continues a run from a restored snapshot bitwise (DESIGN.md §12); a
-traffic plane (``run(traffic=)``, DESIGN.md §14) turns the run into
-semi-async rounds over a live population (`_run_traffic`).
+draws its participation on that round's trace state, on every engine.
+The rest is the scan engine's alone, as in the reference:
+``checkpoint_every`` adds segment boundaries at which ``snapshot_cb``
+fires, and ``resume`` continues a run from a restored snapshot bitwise
+(DESIGN.md §12); a traffic plane (``run(traffic=)``, DESIGN.md §14) turns
+the run into semi-async rounds over a live population (`_run_traffic`).
 
-Mesh mode (``mesh=``, DESIGN.md §15) runs the same scheduler on every
+Mesh mode (``mesh=``, DESIGN.md §15) runs the scan scheduler on every
 rank of a `torch.distributed` process group: each rank holds an ``N/d``
 slice of the stacked units, replicates the host plane, and combines the
 Eq. 4/7 mean across ranks (`core.split.two_tier_common`); the clock
 follows the tiered Eq. 28-39 model and an optional `mesh.CohortBank`
 rotates a logical population through the resident slots.
 
-A token arch runs the same scheduler on its unit list (embedding, one
-unit a super-block repetition, head) through the model's client-stacked
-``stacked_loss``, whose per-client losses carry the MoE load-balance
-term; its eval is per token.  `make_hasfl_train_step` is the reference's
-SPMD HASFL step on one device, for every token family.
+A token arch runs on its unit list (embedding, one unit a super-block
+repetition, head): the stacked engines through the model's
+client-stacked ``stacked_loss``, whose per-client losses carry the MoE
+load-balance term, the legacy engine through its ``loss``; its eval is
+per token.  `make_hasfl_train_step` is the reference's SPMD HASFL step on
+one device, for every token family.
 """
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Sequence
 
@@ -120,13 +134,21 @@ def _grads(tree):
 
 
 class SFLEdgeSimulator:
-    """Paper-faithful edge simulation on one device.
+    """Paper-faithful edge simulation on one device, with three equivalent
+    round engines (``engine``: ``"scan"``, ``"vectorized"`` — the default
+    when unset, as in the reference — or ``"legacy"``; the module's note
+    says how they differ).  The pre-scan ``vectorized`` bool is deprecated
+    (`DeprecationWarning`): it still maps to ``"vectorized"``/``"legacy"``
+    when ``engine`` is unset.
 
     ``device`` picks the card (default) or, when asked, the CPU; on the
-    card every conv and every update leaf runs through the hand-written
-    kernels whatever ``update_impl`` says.  On the CPU the convs take the
-    GEMM's plain version, and ``update_impl=None`` keeps the inline plain
-    update algebra (any other value: the fused op's plain version).
+    card every conv and every stacked engine's update leaf runs through
+    the hand-written kernels whatever ``update_impl`` says.  On the CPU the
+    convs take the GEMM's plain version, and ``update_impl=None`` keeps
+    the inline plain update algebra (any other value: the fused op's plain
+    version).  The legacy engine has no stacked state and ignores
+    ``update_impl``, as the reference's: its update is the reference's
+    per-client loop algebra (`_legacy_round`).
     ``init_units`` (a unit list of tensors) replaces the port's own seeded
     init — how parity tests carry the reference's weights across.
 
@@ -140,6 +162,8 @@ class SFLEdgeSimulator:
         self, model: Model, sampler, test_batch: dict,
         devices: Sequence[DeviceProfile], sfl: SFLConfig,
         profile: LayerProfile, seed: int = 0,
+        vectorized: Optional[bool] = None,
+        engine: Optional[str] = None,
         update_impl: Optional[str] = None,
         fault_mode: str = "soft",
         deadline_factor: float = 2.0,
@@ -161,10 +185,26 @@ class SFLEdgeSimulator:
         self.n = len(devices)
         self.available = np.ones(self.n, bool)
         self.rng = np.random.default_rng(seed)
+        if vectorized is not None:
+            # the pre-scan bool, kept as an alias so old drivers run; the
+            # engine name is the real API
+            warnings.warn(
+                "SFLEdgeSimulator(vectorized=...) is deprecated; pass "
+                "engine='vectorized'/'legacy' (or leave engine unset for "
+                "the default) instead",
+                DeprecationWarning, stacklevel=2)
+            if engine is None:
+                engine = "vectorized" if vectorized else "legacy"
+        if engine is None:
+            engine = "vectorized"
+        if engine not in ("legacy", "vectorized", "scan"):
+            raise ValueError(f"unknown round engine {engine!r}")
+        self.engine = engine
+        self.vectorized = engine != "legacy"
         # Mesh mode (DESIGN.md §15): shard the stacked client axis over a
-        # process group with two-tier Eq. 4/7 aggregation; soft faults
-        # only (the dropout/deadline planners reason over the flat
-        # barrier, not the tiered one).
+        # process group with two-tier Eq. 4/7 aggregation; scan engine
+        # and soft faults only (the dropout/deadline planners reason over
+        # the flat barrier, not the tiered one).
         self.mesh_spec = mesh
         self._shard = None
         self._group = None
@@ -172,6 +212,8 @@ class SFLEdgeSimulator:
         self._bank = None
         if mesh is not None:
             mesh.validated()
+            if engine != "scan":
+                raise ValueError("mesh mode needs engine='scan'")
             if fault_mode != "soft":
                 raise ValueError(
                     "mesh mode v1 runs fault_mode='soft' — tiered "
@@ -214,18 +256,36 @@ class SFLEdgeSimulator:
             self._edge_size = self.n // mesh.n_edges
             self.n_local = self._shard.n_local
             self._segment_fn = make_sharded_segment(self, self._shard)
-        self._stacked = SP.replicate_units(self.units, self.n_local)
-        self.store = DeviceClientStore.from_sampler(sampler, self.device)
+        if self.vectorized:
+            self._stacked = SP.replicate_units(self.units, self.n_local)
+        else:
+            # one list of units a client, each in storage of its own
+            self._client_units = [tree_map(torch.clone, self.units)
+                                  for _ in range(self.n)]
+        if engine == "scan":
+            # the per-round engines draw through ``sampler`` itself: a
+            # store sharing its RNG must never draw for them
+            self.store = DeviceClientStore.from_sampler(sampler, self.device)
         if cohort_bank is not None:
             self._bank = cohort_bank
             cohort_bank.attach(self)
 
     @property
     def client_units(self):
-        """Per-client unit lists (read-only nested tuples of views) of
-        this rank's clients."""
-        return tuple(tuple(units) for units in
-                     SP.unstack_unit_trees(self._stacked, self.n_local))
+        """Per-client unit lists of this rank's clients.
+
+        On the stacked engines a read-only snapshot: nested tuples of
+        views into the ``[N, ...]`` tensors, so item assignment (which
+        could never write back to the stacked state) raises.  On the
+        legacy engine the mutable lists themselves: construct with
+        ``engine="legacy"`` to patch client parameters.  No two clients
+        share a tensor there, so an in-place edit of one client's leaf
+        leaves the others alone.
+        """
+        if self.vectorized:
+            return tuple(tuple(units) for units in
+                         SP.unstack_unit_trees(self._stacked, self.n_local))
+        return self._client_units
 
     # -- single-model loss / grad / eval ------------------------------------
     def _grad_fn(self, units, batch):
@@ -352,6 +412,84 @@ class SFLEdgeSimulator:
             losses.append(loss)
         return stacked, torch.stack(losses)
 
+    def _vectorized_round(self, b, cuts, do_agg: bool, part=None):
+        """One round of the vectorized engine: every client's batch drawn
+        with `ClientSampler.sample` in client order and padded to the
+        round's ``b_max``, stacked and uploaded once, then the stacked
+        round body (`_round`).  Returns the losses [N] on the device."""
+        b_max = int(np.max(b))
+        per = [self.sampler.sample(i, int(b[i]), pad_to=b_max)
+               for i in range(self.n)]
+        batch = {k: torch.as_tensor(np.stack([p[k] for p in per]))
+                 .to(self.device) for k in per[0]}
+        if part is not None:
+            part = torch.as_tensor(part).to(self.device)
+        self._stacked, losses = self._round(
+            self._stacked, batch, self._unit_masks(cuts), do_agg, part)
+        return losses
+
+    def _legacy_round(self, b, cuts, do_agg: bool, part=None):
+        """One round of the legacy engine: the reference's per-client loop.
+
+        Each client draws its batch (`ClientSampler.sample`, client order,
+        padded to ``b_max``) and takes its clipped gradient of the
+        single-model loss (`_grad_fn`: on the card every conv through the
+        client-batched GEMM at N = 1, a token model's attention and norms
+        through their kernels).  Then, over the participating clients
+        (``part`` [N] float, or None for all): the Eq. 4 step on each
+        server-common unit (those `_unit_masks` leaves at 0) — the mean of the params minus γ times the mean
+        of the grads, given to every client; the Eq. 5-6 SGD on each
+        client's client-specific units; and on an aggregation round the
+        Eq. 7 mean of those, given to every client.  A round with no
+        participant holds the params.  The update is this loop's algebra
+        in PyTorch, out of place; it launches no fused update kernel (the
+        engine has no stacked state).  Every client is given a clone of a
+        shared result.  The losses stay on the device: returns them [N].
+        """
+        gamma = self.sfl.lr
+        client_idx = [int(u) for u in np.flatnonzero(self._unit_masks(cuts))]
+        b_max = int(np.max(b))
+        losses, grads_all = [], []
+        for i in range(self.n):
+            batch = self.sampler.sample(i, int(b[i]), pad_to=b_max)
+            (loss, _), g = self._grad_fn(self._client_units[i], batch)
+            losses.append(loss)
+            grads_all.append(g)
+        if part is None:
+            members = list(range(self.n))
+        else:
+            members = [i for i in range(self.n) if part[i] > 0]
+        cnt = len(members)
+        cu = self._client_units
+
+        def sgd(p, g):
+            return p - gamma * g.to(p.dtype)
+
+        def mean(trees):
+            return tree_map(lambda *xs: sum(xs) / cnt, *trees)
+
+        def give_all(u, tree):
+            for i in range(self.n):
+                cu[i][u] = tree_map(torch.clone, tree)
+
+        if cnt:
+            # Eq. 4 from the client mean of the params: equal to any copy
+            # while the units are in sync, and right when a reconfiguration
+            # moves a still-diverged unit to the server side
+            for u in range(len(self.units)):
+                if u not in client_idx:
+                    give_all(u, tree_map(
+                        sgd, mean([cu[i][u] for i in members]),
+                        mean([grads_all[i][u] for i in members])))
+        for i in members:
+            for u in client_idx:
+                cu[i][u] = tree_map(sgd, cu[i][u], grads_all[i][u])
+        if do_agg and cnt:
+            # the survivors' mean; a dropped client re-syncs here
+            for u in client_idx:
+                give_all(u, mean([cu[i][u] for i in members]))
+        return torch.stack(losses)
+
     # -- device pool ----------------------------------------------------------
     def set_devices(self, devices: Sequence[DeviceProfile], available=None) -> None:
         """Inject the current (possibly trace-evolved) device pool (size
@@ -399,11 +537,13 @@ class SFLEdgeSimulator:
     ) -> SimResult:
         """policy_fn(sim, rng) -> (b [N], cuts_layers [N]).
 
-        The segment scheduler: chops the round range at eval /
-        reconfiguration / checkpoint boundaries (the every-I stage needs
-        no boundary), pre-draws each segment's gather plan from the host
-        RNG and runs the segment on the device.  Metrics, clock accounting
-        and policy calls follow the reference's scan engine exactly.
+        On the scan engine, the segment scheduler: chops the round range
+        at eval / reconfiguration / checkpoint boundaries (the every-I
+        stage needs no boundary), pre-draws each segment's gather plan
+        from the host RNG and runs the segment on the device.  The
+        per-round engines walk the rounds one by one (`_run_per_round`).
+        Metrics, clock accounting and policy calls follow the reference's
+        engine of the same name exactly.
 
         ``scenario`` (a `repro_torch.scenarios.Scenario`) makes the
         environment time-varying: round t is priced and its participation
@@ -417,13 +557,23 @@ class SFLEdgeSimulator:
         checkpointed or resumed run is bitwise the uninterrupted one.
         ``traffic`` (a `repro_torch.traffic.TrafficPlane`) switches to the
         semi-async streaming mode (`_run_traffic`); ``None`` leaves the
-        synchronous path unchanged.
+        synchronous path unchanged.  Snapshots, resume and traffic are the
+        scan engine's alone (``ValueError`` on the others).
         """
         reconf = reconfigure_every or self.sfl.agg_interval
         if traffic is not None:
+            if self.engine != "scan":
+                raise ValueError("traffic mode needs engine='scan'")
             return self._run_traffic(
                 policy_fn, rounds, eval_every, reconf, verbose, scenario,
                 traffic, checkpoint_every, snapshot_cb, resume)
+        if self.engine != "scan":
+            if checkpoint_every or snapshot_cb or resume is not None:
+                raise ValueError(
+                    "checkpoint/resume snapshots are segment-boundary "
+                    "objects — engine='scan' only")
+            return self._run_per_round(policy_fn, rounds, eval_every,
+                                       reconf, verbose, scenario)
         ckpt = int(checkpoint_every or 0)
         if resume is not None:
             res = resume["res"]
@@ -474,6 +624,35 @@ class SFLEdgeSimulator:
                 # after reconfigure/eval: the snapshot captures the
                 # decisions and metrics exactly as the resumed loop needs
                 snapshot_cb(t, clock, b, cuts, res)
+        return res
+
+    def _run_per_round(self, policy_fn: Callable, rounds: int,
+                       eval_every: int, reconf: int, verbose: bool,
+                       scenario=None) -> SimResult:
+        """The per-round loop of the vectorized and legacy engines: round
+        t is priced and its participation drawn on round t's trace state,
+        run, and its ``t_split`` (then, on an aggregation round,
+        ``t_agg``) added to the clock; then the boundary's reconfiguration
+        and eval, as in the scan scheduler."""
+        res = SimResult()
+        clock = 0.0
+        self._scenario_tick(scenario, 0)
+        b, cuts = policy_fn(self, self.rng)
+        self._record_policy(res, b, cuts)
+        for t in range(1, rounds + 1):
+            do_agg = t % self.sfl.agg_interval == 0
+            self._scenario_tick(scenario, t)
+            part, t_split, t_agg = self._fault_round(b, cuts)
+            step = self._vectorized_round if self.vectorized \
+                else self._legacy_round
+            losses = step(b, cuts, do_agg, part)
+            clock += t_split
+            if do_agg:
+                clock += t_agg
+            b, cuts = self._maybe_reconfigure(
+                res, policy_fn, t, reconf, rounds, b, cuts)
+            if t % eval_every == 0 or t == rounds:
+                self._record_metrics(res, t, clock, losses, verbose)
         return res
 
     def _run_traffic(
@@ -635,6 +814,10 @@ class SFLEdgeSimulator:
         all-slot mean when every or no slot is live)."""
         if self._shard is not None:
             return self._shard.client_mean(self._stacked)
+        if not self.vectorized:
+            return [tree_map(lambda *xs: sum(xs) / self.n,
+                             *[cu[u] for cu in self._client_units])
+                    for u in range(len(self.units))]
         if live is not None:
             live = np.asarray(live, bool)
             if live.any() and not live.all():

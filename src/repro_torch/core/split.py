@@ -90,9 +90,20 @@ def split_units(units: list, cut_units: int, cfg: ModelConfig):
     return units[:k], units[k:]
 
 
+def merge_units(client_units: list, server_units: list) -> list:
+    return list(client_units) + list(server_units)
+
+
 # ---------------------------------------------------------------------------
 # Stacked unit lists
 # ---------------------------------------------------------------------------
+
+def stack_unit_trees(client_units: list) -> list:
+    """list[N] of list[U] unit trees -> list[U] of [N, ...]-stacked trees."""
+    return [tree_map(lambda *xs: torch.stack(xs),
+                     *[units[u] for units in client_units])
+            for u in range(len(client_units[0]))]
+
 
 def unstack_unit_trees(stacked: list, n: int) -> list:
     """Per-client unit lists (views into the stacked tensors)."""

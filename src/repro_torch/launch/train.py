@@ -16,12 +16,13 @@ PyTorch paths):
   tokens and labels only: whisper, whose loss needs the frames, raises
   the reference's ``KeyError('frame_embeddings')``.
 
-The ``legacy`` / ``vectorized`` engines are not ported (ROADMAP.md §1):
-they raise ``NotImplementedError``.
+``--engine`` picks the edge simulator's round engine, as in the
+reference: ``scan`` (the default), ``vectorized`` or ``legacy``.
 
 Examples:
     PYTHONPATH=src python -m repro_torch.launch.train --mode edge --arch vgg9-cifar-small --rounds 100
     PYTHONPATH=src python -m repro_torch.launch.train --mode edge --device cpu --clients 4 --rounds 12 --scenario straggler-bursts
+    PYTHONPATH=src python -m repro_torch.launch.train --mode edge --device cpu --clients 4 --rounds 12 --engine legacy
     PYTHONPATH=src python -m repro_torch.launch.train --mode spmd --device cpu --steps 6 --seq 32 --layers 2 --d-model 64 --clients 2 --batch 2 --eval-every 2
 """
 from __future__ import annotations
@@ -144,8 +145,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--eval-every", type=int, default=10, dest="eval_every")
     ap.add_argument("--engine", default="scan",
                     choices=["legacy", "vectorized", "scan"],
-                    help="edge-simulator round engine (DESIGN.md §8; the "
-                         "port runs scan only)")
+                    help="edge-simulator round engine (DESIGN.md §8)")
     ap.add_argument("--scenario", default=None,
                     help="time-varying edge scenario preset (edge mode; "
                          "see repro_torch.scenarios.list_presets)")
@@ -178,10 +178,6 @@ def main(argv=None):
         if args.arch == "vgg9-cifar-small":
             args.arch = "smollm-135m"
         return run_spmd(args)
-    if args.engine != "scan":
-        raise NotImplementedError(
-            f"--engine {args.engine} is not ported yet (the port runs the "
-            f"scan engine's semantics); see ROADMAP.md §1")
     return run_edge(args)
 
 

@@ -82,7 +82,7 @@ class TrafficPlane:
     # -- wiring ---------------------------------------------------------
 
     def attach(self, sim, scenario=None, resume=False) -> None:
-        """Bind to a simulator and admit the initial cohort.
+        """Bind to a scan-engine simulator and admit the initial cohort.
 
         ``resume=True`` (a restored run) only validates the wiring and
         re-derives the construction-time fallback pool — the slot state,
@@ -90,6 +90,8 @@ class TrafficPlane:
         this plane (`restore`), and the snapshot round's admit surgery
         already happened before the snapshot was taken.
         """
+        if sim.engine != "scan":
+            raise ValueError("traffic mode needs engine='scan'")
         if sim.fault_mode != "soft":
             raise ValueError(
                 "traffic mode owns its own fault semantics — the simulator "

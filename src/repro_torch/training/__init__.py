@@ -1,4 +1,4 @@
-"""repro_torch.training — crash-safe checkpoints and snapshots
-(`checkpoint`) and the CSV metric logger (`metrics`).  The reference's
-optimizers (`training/optim.py`) belong to token training, not ported
-yet (ROADMAP.md §1)."""
+"""repro_torch.training — the optimizers of token training (`optim`,
+exported as in the reference), crash-safe checkpoints and snapshots
+(`checkpoint`) and the CSV metric logger (`metrics`)."""
+from repro_torch.training.optim import make_optimizer  # noqa: F401

@@ -1,1 +1,2 @@
-from repro_torch.utils.tree import tree_leaves, tree_map  # noqa: F401
+from repro_torch.utils.tree import (map_leaves, param_count,  # noqa: F401
+                                    tree_bytes, tree_leaves, tree_map)

@@ -8,6 +8,8 @@ reference package.
 """
 from __future__ import annotations
 
+import torch
+
 
 def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
@@ -26,3 +28,24 @@ def tree_map(fn, tree, *rest):
         return [tree_map(fn, t, *(r[i] for r in rest))
                 for i, t in enumerate(tree)]
     return fn(tree, *rest)
+
+
+def map_leaves(fn, tree):
+    return tree_map(fn, tree)
+
+
+def param_count(tree) -> int:
+    return sum(x.numel() for x in tree_leaves(tree))
+
+
+def tree_bytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def tree_allfinite(tree) -> torch.Tensor:
+    """A bool tensor: every floating leaf is finite (True when none is)."""
+    flags = [torch.isfinite(x).all() for x in tree_leaves(tree)
+             if x.is_floating_point()]
+    if not flags:
+        return torch.tensor(True)
+    return torch.stack(flags).all()

@@ -137,14 +137,6 @@ def test_spec_json_round_trips_from_reference():
     assert spec.to_json() == text
 
 
-@pytest.mark.parametrize("field,value", [
-    ("engine", "vectorized"), ("engine", "legacy"),
-])
-def test_unported_spec_fields_raise(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TSpec(**{field: value}).validated()
-
-
 def test_runner_table_turns_both_kernels_on_for_cuda():
     spec = TSpec(arch="vgg16-cifar")
     on_card = TRUN.apply_choice(spec, "cuda")

@@ -11,9 +11,10 @@ on the CPU.
   the reference's rows from the reference's initial state; on whisper,
   whose loss needs the frames the launcher does not make, both raise
   ``KeyError('frame_embeddings')``.
-- The ``legacy``/``vectorized`` engines raise `NotImplementedError`;
-  without ``--device`` and without a card the launcher raises rather
-  than fall back to the CPU.
+- ``--engine legacy`` and ``--engine vectorized`` write the reference
+  launcher's CSV (from the reference's initial units); without
+  ``--device`` and without a card the launcher raises rather than fall
+  back to the CPU.
 """
 import csv
 import dataclasses
@@ -189,13 +190,41 @@ def test_spmd_mode_on_whisper_raises_as_the_reference(monkeypatch):
         TRAIN.main(argv + ["--device", "cpu"])
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--engine", "legacy"], "legacy"),
-    (["--engine", "vectorized"], "vectorized"),
-])
-def test_unported_modes_raise(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
-        TRAIN.main(argv + ["--device", "cpu"])
+@pytest.mark.parametrize("engine", ["legacy", "vectorized"])
+def test_edge_mode_engine_writes_the_references_csv(engine, tmp_path,
+                                                    monkeypatch):
+    """``--engine legacy|vectorized --device cpu`` against the reference
+    launcher on the same command line, the port's session started from
+    the reference's initial units: the same rows, steps and clocks,
+    losses and accuracies within 1e-4, and the spec file of the same
+    JSON."""
+    import jax
+    import repro_torch.api as TAPI
+    from repro.api import Session as RSession
+
+    _register()
+    argv = ARGS + ["--engine", engine, "--rounds", "4"]
+    ref_csv, our_csv = str(tmp_path / "ref.csv"), str(tmp_path / "ours.csv")
+    _reference_main(monkeypatch, argv + ["--csv", ref_csv])
+    spec = RSpec.load(ref_csv + ".spec.json")
+    assert spec.engine == engine
+    init = jax.tree_util.tree_map(np.asarray, RSession(spec).sim.units)
+    monkeypatch.setattr(TAPI, "Session", lambda s, device=None: Session(
+        s, device=device, init_units=init))
+    ours, res = TRAIN.main(argv + ["--device", "cpu", "--csv", our_csv])
+    assert ours.engine == engine
+    assert ours.to_json() == spec.to_json()
+    rows = {}
+    for name, path in (("ref", ref_csv), ("ours", our_csv)):
+        with open(path) as f:
+            rows[name] = list(csv.DictReader(f))
+    assert len(rows["ours"]) == len(rows["ref"]) == len(res.rounds) == 2
+    for a, b in zip(rows["ours"], rows["ref"]):
+        assert a.keys() == b.keys()
+        assert a["step"] == b["step"] and a["clock"] == b["clock"]
+        for key in ("train_loss", "test_acc", "test_loss"):
+            np.testing.assert_allclose(float(a[key]), float(b[key]),
+                                       rtol=1e-4, atol=1e-4, err_msg=key)
 
 
 def test_edge_mode_without_device_raises_without_a_card():
