@@ -413,6 +413,11 @@ FLASH_CASES = [  # (b, sq, sk, hq, hkv, hd, causal, window, dtype)
     (1, 200, 200, 3, 1, 64, True, 0, "float32"),
     (1, 128, 128, 4, 2, 64, True, 0, "bfloat16"),
     (2, 32, 512, 4, 4, 64, True, 128, "bfloat16"),
+    # the backward's wgmma tiling: hd 128 native, hd 96 padded, a ragged
+    # non-causal length (64-row and 64-key steps)
+    (2, 256, 256, 4, 2, 128, True, 0, "bfloat16"),
+    (1, 190, 190, 6, 2, 96, True, 0, "bfloat16"),
+    (2, 200, 200, 4, 4, 64, False, 0, "bfloat16"),
 ]
 MLSTM_CASES = [(1, 64, 2, 32, "float32"), (2, 100, 2, 32, "float32"),
                (1, 96, 4, 64, "float32"), (1, 64, 2, 32, "bfloat16")]
@@ -566,6 +571,16 @@ def phase_build():
     ptxas = {name: _ptxas_lines(build.BUILD_LOGS.get(name, ""))
              for name in sources}
     emit({"phase": "build", "seconds": round(seconds, 3), "ptxas": ptxas})
+    # kernel 4's bf16 backward (namespace tcb, on wgmma): no instance
+    # spills (the fp32 kernels beside it are not held to this)
+    entry, spills = "", []
+    for ln in ptxas["flash_attention_bwd"]:
+        if "spill" not in ln:
+            entry = ln if "registers" not in ln else entry
+        elif "tcb" in entry and not ln.startswith(
+                "0 bytes stack frame, 0 bytes spill stores"):
+            spills.append((entry, ln))
+    check(not spills, f"flash_attention_bwd (bf16) spills: {spills}")
 
 
 def _gemm_checks(detail, n: int = 8, batch: int = 64):
@@ -3331,12 +3346,13 @@ def _flash_bwd_checks(detail, runs):
     versions at the reference's cases and at every shape the training
     paths ran (``runs``: run -> (witness, layers)), each bitwise
     repeatable; each recorded shape timed as one backward's calls (a call
-    a layer) beside the bound, the plain version and
-    ``F.scaled_dot_product_attention``'s forward + backward minus its
-    forward."""
+    a layer; eager ``ms`` and graph-replayed ``device_ms``) beside the
+    bound, the plain version and ``F.scaled_dot_product_attention``'s
+    forward + backward minus its forward."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.timing import graph_ms
 
     gen = torch.Generator(device="cuda").manual_seed(31)
     cases = [(c, []) for c in FLASH_CASES] + _path_cases(runs, "flash",
@@ -3391,6 +3407,10 @@ def _flash_bwd_checks(detail, runs):
                                 for g, w in zip(got, want)),
                 ms=time_ms(_span(lambda: FA.flash_attention_bwd_kernel(
                     q, k, v, o, lse, do, **kw), calls)),
+                # the same calls replayed from a CUDA graph: the device's
+                # time alone (``ms`` carries the wrapper's host path too)
+                device_ms=graph_ms(lambda: FA.flash_attention_bwd_kernel(
+                    q, k, v, o, lse, do, **kw), calls),
                 fwd_lse_ms=time_ms(_span(lambda: FA.flash_attention_kernel(
                     q, k, v, lse=True, **kw), calls)),
                 plain_ms=time_ms(_span(lambda: FA.flash_attention_bwd_plain(
@@ -5980,11 +6000,13 @@ def main(argv=None) -> int:
            "max_abs_err": rows["max_abs_err"],
            **{k: v for k, v in next(
                r for r in rows["train_lm"] if r["heaviest"]).items()
-              if k in ("shape", "groups", "calls", "ms", "plain_ms",
-                       "bound_ms", "bound_by", "library_ms", "fwd_lse_ms")},
+              if k in ("shape", "groups", "calls", "ms", "device_ms",
+                       "plain_ms", "bound_ms", "bound_by", "library_ms",
+                       "fwd_lse_ms")},
            "shapes": [{k: v for k, v in r.items() if k in (
                "shape", "groups", "calls", "launches_at_shape", "ms",
-               "plain_ms", "bound_ms", "library_ms")} | {"run": run}
+               "device_ms", "plain_ms", "bound_ms", "library_ms")}
+               | {"run": run}
                for run in rows if run != "max_abs_err" for r in rows[run]
                if run != "train_lm" or not r["heaviest"]]}
           for name, source, replaces, rows in (

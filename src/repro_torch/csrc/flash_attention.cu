@@ -23,7 +23,8 @@
 //    128-byte swizzle that the wgmma descriptors name.  S = Q K^T is
 //    `wgmma` m64n64k16 with both operands K-major in shared memory (K is
 //    stored [.., hd]).  The online softmax runs on the fp32 accumulator
-//    fragments: masks per element from 32-bit bounds of the row, the row
+//    fragments: masks per element from 32-bit bounds of the row (a masked
+//    score is -inf here, so a row that sees no key keeps l = 0), the row
 //    max and sum as trees and then over the 4 threads of a row by
 //    shuffles, p = 2^(s * scale * log2e - m) by one FFMA and one ex2.  P is
 //    rounded to bf16 in registers and becomes the A operand of O += P V
@@ -529,7 +530,10 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
         const int c = t0 + 8 * (i / 4) + (i % 2);
         const bool ok = (i % 4) < 2 ? c < hi_a && c >= lo_a
                                     : c < hi_b && c >= lo_b;
-        if (!ok) s[i] = NEG_INF;
+        // -inf, not NEG_INF: a row whose keys so far are all masked keeps
+        // m = NEG_INF, and 2^(NEG_INF * scale_log2 - m) would be 2^(the
+        // product's rounding error), up to inf; 2^-inf is 0 exactly
+        if (!ok) s[i] = -__int_as_float(0x7f800000);
       }
     }
     // row maxima (and below, sums) as trees over the thread's 16 values

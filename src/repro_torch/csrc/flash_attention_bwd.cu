@@ -10,35 +10,61 @@
 //   D  = rowsum(dO * O)
 //   dV = P^T dO,  dS = P * (dO V^T - D)
 //   dQ = scale * dS K,  dK = scale * dS^T Q
-// Deterministic: no atomics, every sum in a fixed order.  Three kernels a
-// call: D (`bwd_d_kernel`, one warp a row), then dK/dV with one block per
-// (b, kv head, key tile) that loops over the group's q heads and the Q
-// tiles the mask leaves live (causal: rows at or after the tile; window:
-// rows before tile + window), so GQA's sum over the group happens inside
-// the block; then dQ with one block per (b, q head, Q tile) looping over
-// the live key tiles.  Both recompute S and dP tile by tile.
+// Deterministic: no atomics, every sum in a fixed order, and the tiling
+// depends on (sq, sk, hq, hkv, hd, causal, window) alone, never on the
+// batch (a batch of folded cells gives each cell its own run's bits).
+// Three kernels a call: D, then dK/dV with one block per (b, kv head, key
+// tile) that walks the group's q heads x the Q tiles the mask leaves live
+// (causal: rows from the tile's first key; window: rows below its last
+// key + window), so GQA's sum stays inside the block; then dQ with one
+// block per (b, q head, row tile) walking the live key tiles.  Each pass
+// recomputes S and dP (7 products a live pair in all, against 5 at
+// least): dQ as its own pass costs two products, where per-key-tile dQ
+// partials summed by a second pass would cost far more in bytes.
 //
-// bf16 (the training paths; `tcb::`): the products on the tensor cores,
-// `mma.sync` m16n8k16 with bf16 operands and fp32 accumulators, 4 warps a
-// block of 64 keys (dK/dV, 32-row Q steps) or 64 rows (dQ, 32-key steps),
-// each warp 16 of them.  dK/dV computes S^T = K Q^T and dP^T = V dO^T
-// (keys x rows), so that P^T and dS^T leave the accumulators already as
-// the A fragments of dV += P^T dO and dK += dS^T Q; Q and dO sit in shared
-// memory both row-major (S^T's B operand) and transposed (dV's and dK's).
-// P and dS are rounded to bf16 for those products (about 2^-9 relative, as
-// the forward's PV); S, dP, P, dS are fp32.  Rows padded by 8 elements
-// keep the fragment loads free of bank conflicts.
+// bf16 (the training paths; `tcb::`): every product on `wgmma`, bf16
+// operands, fp32 accumulators.  A block is one warpgroup of 64 keys
+// (dK/dV) or 64 rows (dQ); two blocks share an SM, so one block's
+// exponentials overlap the other's products.  K and V (or Q and dO) of
+// the block sit in shared memory; the other side streams in steps of N
+// rows (or keys) through a double-buffered ring that TMA fills (one
+// thread sends a step's tiles to the stage's mbarrier, 128-byte swizzled,
+// zeros past the edges), step t + 1 landing while step t's products run;
+// lse and D of a step's rows come beside it by cp.async.  N is 128 at hd
+// <= 64 where the pass streams more than 128 rows (keys), else 64.
+// Tiles are held as column blocks of [rows][64 bf16] with the swizzle the
+// wgmma descriptors name (hd 32 and 96 padded to 64 and 128: dims past
+// hd hold the next head's or zeros, and only products whose output
+// columns are dropped read them).  dK/dV: S^T = K Q^T and dP^T = V dO^T
+// as m64nNk16 with both operands K-major in shared memory; P^T and dS^T
+// are formed on the accumulator fragments (2^(s * scale log2e - lse
+// log2e) by one FFMA and one ex2, while dP^T is still on the tensor
+// cores; masks from 32-bit bounds, skipped on a step inside every mask),
+// packed to bf16 A fragments once both products have landed, and dV +=
+// P^T dO, dK += dS^T Q run as m64n{64,128}k16 with A from registers and
+// dO, Q read MN-major through the transpose bit: no transposed copy is
+// made.  dQ: S = Q K^T, dP = dO V^T, then dQ += dS K with K MN-major.
+// P and dS are rounded to bf16 for the three products (about 2^-9
+// relative, as the forward's PV); S, dP, P, dS are fp32.  D reads O and
+// dO in 16-byte vectors.  No wgmma sits under a branch: loop bounds are
+// uniform over a block and masking happens on the fragments.
 // fp32 (the parity paths): the same on the CUDA cores in fp32, 32 x 32
 // tiles, one thread a key and a share of the rows for S and dP, 8 keys x
 // 4 dims of dK and dV (or 8 rows x 4 dims of dQ) a thread; TF32 unused.
 // A block has hd padded to 32, 64 or 128 (hd 96 runs as 128 with zero
 // columns).
-// Bound on the H100 at the training shapes: bytes (q, k, v, o, dO read,
-// dq, dk, dv written once) at smollm's and qwen3's shapes, operations (5
-// products of each live (q, k) pair) at longer sequences (PERF.md).
+// Bound on the H100 (chip_smoke.py): bytes (q, k, v, o, dO read, dq, dk,
+// dv written once) at smollm's and qwen3's shapes, operations (5 products
+// of each live (q, k) pair at 989 TFLOP/s) at whisper's 1500-long
+// encoder.  What holds it above the bound (PERF.md): two exponentials a
+// live pair (one a pass) on the SFU, the elementwise work between the
+// products, and the two extra products.
 
+#include <cuda.h>  // CUtensorMap and its enums; no driver library is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled
+#include <limits.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
@@ -50,9 +76,6 @@ using hopper::pack_bf16;
 constexpr int T32 = 32;           // rows (keys) a tile
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 __host__ __device__ constexpr int hdp(int hd) {
   return hd <= 32 ? 32 : (hd <= 64 ? 64 : 128);
@@ -382,351 +405,655 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 }
 
 
+
 // ---------------------------------------------------------------------------
-// bf16: the same three products on the tensor cores (mma.sync m16n8k16,
-// bf16 operands, fp32 accumulators).  P and dS are rounded to bf16 for the
-// dV, dK and dQ products (about 2^-9 relative, as the forward's PV); S, dP,
-// P and dS themselves are fp32.
+// bf16: every product on wgmma (helpers in hopper.cuh).  P and dS are
+// rounded to bf16 for the dV, dK and dQ products (about 2^-9 relative, as
+// the forward's PV); S, dP, P and dS themselves are fp32.
 // ---------------------------------------------------------------------------
 
 namespace tcb {
 
-constexpr int WARPS = 4;
-constexpr int THREADS = 32 * WARPS;
-constexpr int BKV = 16 * WARPS;   // keys a dK/dV block (16 a warp)
-constexpr int BQ = 32;            // query rows a dK/dV step
-constexpr int BQQ = 16 * WARPS;   // query rows a dQ block (16 a warp)
-constexpr int BK = 32;            // keys a dQ step
+using hopper::cp_commit;
+using hopper::cp_wait;
+using hopper::ex2;
+using hopper::fence_regs;
+using hopper::fence_regs_u32;
+using hopper::smem_u32;
+using hopper::sw128_desc;
+using hopper::wgmma_commit;
+using hopper::wgmma_fence;
+using hopper::wgmma_rs_m64n128_mn;
+using hopper::wgmma_rs_m64n64_mn;
+using hopper::wgmma_ss_m64n128;
+using hopper::wgmma_ss_m64n64;
+using hopper::wgmma_wait;
 
-using hopper::a_frag;
-using hopper::b_frag;
-using hopper::mma;
+// mirrored by kernels/flash_attention.py (flash_bwd_plan)
+constexpr int THREADS = 128;      // one warpgroup a block
+constexpr int BLOCKS = 2;         // blocks an SM holds
+constexpr int BKV = 64;           // keys a dK/dV block
+constexpr int BQQ = 64;           // query rows a dQ block
+constexpr int STAGES = 2;         // the TMA ring: step t + 1 lands while
+                                  // step t's products run
+constexpr float LOG2E = 1.4426950408889634f;
 
-// rows [r0, r0 + R) of a [.., S, H, hd] bf16 tensor at head `head` into
-// shared memory as [R][ld] (row-major) and, when `tr`, as [P][ldt]
-// (transposed); zero past `s` and past hd
-template <int HD, int R>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
-                                          __nv_bfloat16* tr,
-                                          const __nv_bfloat16* src, int64_t b,
-                                          int64_t s, int64_t h, int64_t head,
-                                          int64_t r0, int ld, int ldt) {
-  constexpr int P = hdp(HD), CPR = P / 8;
-  for (int e = threadIdx.x; e < R * CPR; e += THREADS) {
-    const int r = e / CPR, c = (e % CPR) * 8;
-    const int64_t row = r0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row < s && c < HD)
-      v = *reinterpret_cast<const uint4*>(src + ((b * s + row) * h + head) * HD
-                                          + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
-    if (tr != nullptr) {
-      const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&v);
+// the head dim as held in shared memory: whole [rows][64 bf16] column
+// blocks (hd 32 as 64, hd 96 as 128; tma_rows says what the padding holds)
+__host__ __device__ constexpr int tc_hdp(int hd) { return hd <= 64 ? 64 : 128; }
+// the rows (dK/dV) or keys (dQ) a step streams, the N of its S and dP,
+// from the pass's streamed length: 128 at hd <= 64 past LONG of them
+// (S, dP and the gradient's accumulators still fit a thread's registers;
+// at 128 or fewer, or causal near the diagonal, a 128 step would be half
+// padding), else 64
+constexpr int LONG = 128;
+__host__ __device__ constexpr int tc_step(int hdp, int64_t len) {
+  return hdp == 64 && len > LONG ? 128 : 64;
+}
+// shared memory of a block in bytes (1024 of them align the tiles): K and
+// V, then the ring's (Q, dO) tiles, its (lse, D) of a step's n rows and
+// its mbarriers
+constexpr int dkdv_smem(int hdp, int n) {
+  return 1024 + 2 * BKV * 2 * hdp + STAGES * (2 * n * 2 * hdp + 2 * n * 4 + 8);
+}
+// Q and dO of the block's rows, then the ring's (K, V) tiles of n keys
+// and its mbarriers
+constexpr int dq_smem(int hdp, int n) {
+  return 1024 + 2 * BQQ * 2 * hdp + STAGES * (2 * n * 2 * hdp + 8);
+}
+
+// D = rowsum(dO * O) of the bf16 rows, read in 16-byte vectors: G lanes a
+// row (8 dims each; G the power of two at or above hd / 8), 32 / G rows a
+// warp, the row's sum by shuffles within its G lanes
+template <int HD>
+__global__ void d_kernel(const __nv_bfloat16* __restrict__ o,
+                         const __nv_bfloat16* __restrict__ dout,
+                         float* __restrict__ dvec, int64_t rows, int64_t sq,
+                         int64_t hq) {
+  constexpr int G = HD <= 32 ? 4 : (HD <= 64 ? 8 : 16);
+  // row = (b * sq + pos) * hq + head, as O is laid out
+  const int64_t row =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / G;
+  const int part = threadIdx.x % G;
+  float acc = 0.f;
+  if (row < rows && part * 8 < HD) {
+    const uint4 a = *reinterpret_cast<const uint4*>(o + row * HD + part * 8);
+    const uint4 g = *reinterpret_cast<const uint4*>(dout + row * HD + part * 8);
+    const uint32_t av[4] = {a.x, a.y, a.z, a.w}, gv[4] = {g.x, g.y, g.z, g.w};
 #pragma unroll
-      for (int i = 0; i < 8; ++i) tr[(c + i) * ldt + r] = x[i];
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = hopper::unpack_bf16(av[i]), y = hopper::unpack_bf16(gv[i]);
+      acc = fmaf(x.x, y.x, fmaf(x.y, y.y, acc));
     }
+  }
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (part == 0 && row < rows) {
+    const int64_t head = row % hq, bp = row / hq, pos = bp % sq, b = bp / sq;
+    dvec[(b * hq + head) * sq + pos] = acc;
   }
 }
 
-template <int HD>
-constexpr int dkdv_smem() {
-  constexpr int P = hdp(HD), LD = P + 8, LDT = BQ + 8;
-  return (2 * BKV * LD + 2 * BQ * LD + 2 * P * LDT) * 2 + 2 * BQ * 4;
-}
-template <int HD>
-constexpr int dq_smem() {
-  constexpr int P = hdp(HD), LD = P + 8, LDT = BK + 8;
-  return (2 * BQQ * LD + 2 * BK * LD + P * LDT) * 2;
+// 4-byte cp.async of `bytes` (0 or 4) valid bytes, the rest zero-filled
+__device__ __forceinline__ void cp4(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes));
 }
 
-// a block per (b, kv head, 64-key tile); warp w owns keys w*16 .. +16.
-// Per (q head of the group, live 32-row Q tile): S^T = K Q^T and
-// dP^T = V dO^T (keys x rows), P^T and dS^T, then dV += P^T dO and
-// dK += dS^T Q with P^T, dS^T as A fragments straight from the
-// accumulators.
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
-dkdv_kernel(const __nv_bfloat16* __restrict__ q,
-            const __nv_bfloat16* __restrict__ k,
-            const __nv_bfloat16* __restrict__ v,
-            const __nv_bfloat16* __restrict__ dout,
+// mbarrier: init with `count` arrivals; arrive with `bytes` of TMA to come;
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+// (a wait that outlasts 2^24 polls traps: a lost copy faults the launch
+// rather than hanging the card)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u32 n;\nmov.u32 n, 0;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "add.u32 n, n, 1;\n"
+      "setp.lt.u32 p, n, 16777216;\n"
+      "@p bra WAIT;\n"
+      "trap;\n"
+      "DONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// TMA: rows [r0, r0 + R) of head `head` of batch `b` from a [B, S, H, hd]
+// tensor's map (a box of R rows x 64 dims, 128-byte swizzled) into the
+// column blocks of a [R][HDP] tile at `dst`, completing on `bar`.  Dims of
+// a column block past hd come from the next head (or zeros past the last
+// one) and rows past S are zeros: only products whose output columns are
+// dropped ever read those dims.
+template <int HDP, int R>
+__device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int hd, int head,
+                                         int r0, int b) {
+#pragma unroll
+  for (int cb = 0; cb < HDP / 64; ++cb)
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst + cb * R * 128),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(head * hd + cb * 64), "r"(r0),
+        "r"(b), "r"(bar)
+        : "memory");
+}
+
+// acc (64 x N) = A B^T over hd, 16 dims a step, one commit group: A's 64
+// rows from descriptor `da`, B's N rows from `db`, both K-major; the
+// first step overwrites acc (scale-d 0)
+template <int HD, int N>
+__device__ __forceinline__ void scores(float* acc, uint64_t da, uint64_t db) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t cb = kk / 4, col = (kk % 4) * 32;
+    const uint64_t a = da + ((cb * 64 * 128 + col) >> 4);
+    const uint64_t b = db + ((cb * N * 128 + col) >> 4);
+    if constexpr (N == 128)
+      wgmma_ss_m64n128(acc, a, b, kk > 0 ? 1 : 0);
+    else
+      wgmma_ss_m64n64(acc, a, b, kk > 0 ? 1 : 0);
+  }
+  wgmma_commit();
+}
+
+// S and dP (or S^T and dP^T) as two commit groups: A rows at `a0`, `a1`,
+// B rows at `b0`, `b1` (shared-memory addresses of K-major tiles).  No
+// register is written before them: the first step overwrites.
+template <int HD, int N>
+__device__ __forceinline__ void issue_scores(float* s, float* dp, uint32_t a0,
+                                             uint32_t a1, uint32_t b0,
+                                             uint32_t b1) {
+  // the bases opaque, so each step makes its four descriptors and adds
+  // the steps' offsets (bytes / 16, inside the address field) to them,
+  // rather than keeping 16 descriptors live across the caller's loop
+  asm volatile("" : "+r"(a0), "+r"(a1), "+r"(b0), "+r"(b1));
+  fence_regs<N / 2>(s);
+  fence_regs<N / 2>(dp);
+  wgmma_fence();
+  scores<HD, N>(s, sw128_desc(a0, 16, 1024), sw128_desc(b0, 16, 1024));
+  scores<HD, N>(dp, sw128_desc(a1, 16, 1024), sw128_desc(b1, 16, 1024));
+}
+
+// acc += A B over the K rows of B (16 a step): A the register fragments
+// `a`, B a swizzled [K][HDP] tile at `bm` read MN-major through the
+// transpose bit (8-row groups 1024 bytes apart, 64-dim column blocks
+// K * 128 apart)
+template <int HDP, int K>
+__device__ __forceinline__ void mma_rs(float* acc, const uint32_t* a,
+                                       uint32_t bm) {
+  const uint64_t db = sw128_desc(bm, K * 128, 1024);
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    if constexpr (HDP == 128)
+      wgmma_rs_m64n128_mn(acc, a + 4 * kk, db + kk * (2048 >> 4));
+    else
+      wgmma_rs_m64n64_mn(acc, a + 4 * kk, db + kk * (2048 >> 4));
+  }
+}
+
+// element i of a 64 x N fragment is row r (+ 8 when i % 4 >= 2), column
+// 8 (i / 4) + 2 quad + i % 2: zero where that column falls outside
+// [lo, hi) of its row (bounds taken relative to column 2 quad)
+template <int N>
+__device__ __forceinline__ void mask(float* x, int lo_a, int hi_a, int lo_b,
+                                     int hi_b) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const int c = 8 * (i / 4) + (i % 2);
+    const bool ok = (i % 4) < 2 ? c >= lo_a && c < hi_a : c >= lo_b && c < hi_b;
+    if (!ok) x[i] = 0.f;
+  }
+}
+
+// a block per (b, kv head, BKV-key tile), whose keys are the fragments'
+// rows.  It walks the group's q heads x the live N-row Q steps, streamed
+// through the ring with their lse and D:
+// S^T = K Q^T and dP^T = V dO^T (wgmma, both K-major), P^T and dS^T on
+// the fragments, then dV += P^T dO and dK += dS^T Q with P^T, dS^T as
+// register A operands and dO, Q read MN-major (no transposed copy).
+template <int HD, int N>
+__global__ void __launch_bounds__(THREADS, BLOCKS)
+dkdv_kernel(const __grid_constant__ CUtensorMap mq,   // N-row boxes
+            const __grid_constant__ CUtensorMap mdo,  // N-row boxes
+            const __grid_constant__ CUtensorMap mk,   // BKV-row boxes
+            const __grid_constant__ CUtensorMap mv,   // BKV-row boxes
             const float* __restrict__ lse, const float* __restrict__ dvec,
             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-            int64_t sq, int64_t sk, int64_t hq, int64_t hkv, int causal,
-            int64_t window, float scale) {
-  constexpr int P = hdp(HD), LD = P + 8, LDT = BQ + 8, NT = P / 8;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vs = ks + BKV * LD;
-  __nv_bfloat16* qs = vs + BKV * LD;      // [BQ][LD]
-  __nv_bfloat16* dos = qs + BQ * LD;      // [BQ][LD]
-  __nv_bfloat16* qt = dos + BQ * LD;      // [P][LDT]
-  __nv_bfloat16* dot = qt + P * LDT;      // [P][LDT]
-  float* ls = reinterpret_cast<float*>(dot + P * LDT);
-  float* ds = ls + BQ;
+            int sq, int sk, int hq, int hkv, int causal, int window,
+            float scale) {
+  constexpr int HDP = tc_hdp(HD), NA = HDP / 2;  // dK, dV floats a thread
+  constexpr int NS = N / 2;                      // S^T floats a thread
+  constexpr uint32_t KV_BYTES = BKV * HDP * 2, T_BYTES = N * HDP * 2;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t ks = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t vs = ks + KV_BYTES;
+  const uint32_t ring = vs + KV_BYTES;                 // STAGES x [Q][dO]
+  const uint32_t stats = ring + STAGES * 2 * T_BYTES;  // STAGES x [lse][D]
+  const uint32_t bars = stats + STAGES * 2 * N * 4;    // STAGES mbarriers
+  const float* stats_f =
+      reinterpret_cast<const float*>(smem_raw + (stats - smem_u32(smem_raw)));
 
-  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, c2 = 2 * (lane % 4);
-  const int64_t b = blockIdx.z, hk = blockIdx.y;
-  const int64_t k0 = static_cast<int64_t>(blockIdx.x) * BKV;
-  const int64_t group = hq / hkv;
-  load_rows<HD, BKV>(ks, nullptr, k, b, sk, hkv, hk, k0, LD, 0);
-  load_rows<HD, BKV>(vs, nullptr, v, b, sk, hkv, hk, k0, LD, 0);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, quad = lane % 4;
+  const int64_t b = blockIdx.z;
+  const int hk = blockIdx.y, group = hq / hkv;
+  const int k0 = blockIdx.x * BKV;
+  const int k_last = (k0 + BKV < sk ? k0 + BKV : sk) - 1;
+  // the live query rows (bwd_q_range): causal rows from k0, windowed rows
+  // below the last key + window; uniform over the block
+  const int q_begin = causal ? k0 : 0;
+  int q_end = sq;
+  if (window && k_last + window < q_end) q_end = k_last + window;
+  const int n_qt = q_end > q_begin ? (q_end - q_begin + N - 1) / N : 0;
+  const int n_steps = group * n_qt;
 
-  int64_t q_begin = causal ? k0 / BQ * BQ : 0;
-  int64_t q_end = sq;
-  if (window && k0 + BKV - 1 + window < q_end) q_end = k0 + BKV - 1 + window;
-
-  float acc_v[NT][4], acc_k[NT][4];
+  const float* lb = lse + b * hq * sq;
+  const float* db = dvec + b * hq * sq;
+  if (tid == 0) {
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc_v[n][i] = acc_k[n][i] = 0.f;
-  const int64_t key_a = k0 + w * 16 + g, key_b = key_a + 8;
-
-  for (int64_t gi = 0; gi < group; ++gi) {
-    const int64_t head = hk * group + gi;
-    for (int64_t q0 = q_begin; q0 < q_end; q0 += BQ) {
-      __syncthreads();  // the previous step's tiles are used
-      load_rows<HD, BQ>(qs, qt, q, b, sq, hq, head, q0, LD, LDT);
-      load_rows<HD, BQ>(dos, dot, dout, b, sq, hq, head, q0, LD, LDT);
-      if (threadIdx.x < BQ) {
-        const int64_t qp = q0 + threadIdx.x;
-        ls[threadIdx.x] = qp < sq ? lse[(b * hq + head) * sq + qp] : 0.f;
-        ds[threadIdx.x] = qp < sq ? dvec[(b * hq + head) * sq + qp] : 0.f;
-      }
-      __syncthreads();
-      float st[BQ / 8][4], dpt[BQ / 8][4];
-#pragma unroll
-      for (int n = 0; n < BQ / 8; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) st[n][i] = dpt[n][i] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < P / 16; ++kk) {
-        uint32_t ak[4], av[4];
-        a_frag(ak, ks, LD, w * 16, kk * 16);
-        a_frag(av, vs, LD, w * 16, kk * 16);
-#pragma unroll
-        for (int n = 0; n < BQ / 8; ++n) {
-          uint32_t b0, b1;
-          b_frag(b0, b1, qs, LD, n * 8, kk * 16);
-          mma(st[n], ak, b0, b1);
-          b_frag(b0, b1, dos, LD, n * 8, kk * 16);
-          mma(dpt[n], av, b0, b1);
-        }
-      }
-      // P^T and dS^T (rows key_a, key_b; columns this thread's rows of Q),
-      // packed as A fragments over the Q axis
-      uint32_t ap[BQ / 16][4], as[BQ / 16][4];
-#pragma unroll
-      for (int n = 0; n < BQ / 8; ++n) {
-        float pv[4], sv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int ql = n * 8 + c2 + (i & 1);
-          const int64_t kp = i < 2 ? key_a : key_b;
-          float p = 0.f;
-          if (visible(q0 + ql, kp, sq, sk, causal, window))
-            p = expf(st[n][i] * scale - ls[ql]);
-          pv[i] = p;
-          sv[i] = p * (dpt[n][i] - ds[ql]);
-        }
-        const int j = n / 2, h = n % 2;
-        ap[j][2 * h] = pack_bf16(pv[0], pv[1]);
-        ap[j][2 * h + 1] = pack_bf16(pv[2], pv[3]);
-        as[j][2 * h] = pack_bf16(sv[0], sv[1]);
-        as[j][2 * h + 1] = pack_bf16(sv[2], sv[3]);
-      }
-#pragma unroll
-      for (int j = 0; j < BQ / 16; ++j)
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          uint32_t b0, b1;
-          b_frag(b0, b1, dot, LDT, n * 8, j * 16);
-          mma(acc_v[n], ap[j], b0, b1);
-          b_frag(b0, b1, qt, LDT, n * 8, j * 16);
-          mma(acc_k[n], as[j], b0, b1);
-        }
-    }
+    for (int i = 0; i < STAGES; ++i) mbar_init(bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+  // step t: q head hk * group + t / n_qt, rows q_begin + (t % n_qt) * N;
+  // thread 0 sends its Q and dO tiles (with K and V at step 0) by TMA to
+  // the stage's barrier, every thread copies a share of its lse and D
+  auto load_step = [&](int t) {
+    const uint32_t st = static_cast<uint32_t>(t % STAGES);
+    const int head = hk * group + t / n_qt;
+    const int q0 = q_begin + (t % n_qt) * N;
+    const uint32_t qt = ring + st * 2 * T_BYTES, bar = bars + 8 * st;
+    if (tid == 0) {
+      mbar_expect(bar, 2 * T_BYTES + (t == 0 ? 2 * KV_BYTES : 0));
+      if (t == 0) {
+        tma_rows<HDP, BKV>(ks, &mk, bar, HD, hk, k0, static_cast<int>(b));
+        tma_rows<HDP, BKV>(vs, &mv, bar, HD, hk, k0, static_cast<int>(b));
+      }
+      tma_rows<HDP, N>(qt, &mq, bar, HD, head, q0, static_cast<int>(b));
+      tma_rows<HDP, N>(qt + T_BYTES, &mdo, bar, HD, head, q0,
+                       static_cast<int>(b));
+    }
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int d = n * 8 + c2;
+    for (int it = 0; it < 2 * N / THREADS; ++it) {  // lse of the rows, D
+      const int e = tid + it * THREADS, qp = q0 + e % N;
+      const float* src = (e < N ? lb : db) + static_cast<int64_t>(head) * sq;
+      cp4(stats + (st * 2 * N + e) * 4, qp < sq ? src + qp : src,
+          qp < sq ? 4 : 0);
+    }
+  };
+  // iteration t brings step t + 1 into the stage step t - 1 left
+  if (n_steps > 0) load_step(0);
+  cp_commit();
+
+  // this thread's keys in the fragments: ka and ka + 8
+  const int ka = k0 + 16 * warp + lane / 4;
+  const float sl2 = scale * LOG2E;
+  float dka[NA], dva[NA], s[NS], dp[NS];
+  uint32_t pa[NS / 2], sa[NS / 2];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) dka[i] = dva[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NS; ++i) s[i] = dp[i] = 0.f;
+
+  for (int t = 0; t < n_steps; ++t) {
+    const uint32_t st = static_cast<uint32_t>(t % STAGES);
+    mbar_wait(bars + 8 * st, (t / STAGES) & 1);  // step t's tiles landed
+    cp_wait<0>();     // ... and this thread's lse, D
+    __syncthreads();  // everyone's; step t - 1 is wholly consumed
+    if (t + 1 < n_steps) load_step(t + 1);
+    cp_commit();
+    const uint32_t qt = ring + st * 2 * T_BYTES, dt = qt + T_BYTES;
+    const float* ls = stats_f + st * 2 * N;
+    const float* dd = ls + N;
+    const int q0 = q_begin + (t % n_qt) * N;
+
+    // S^T = K Q^T, then dP^T = V dO^T
+    issue_scores<HD, N>(s, dp, ks, vs, qt, dt);
+    wgmma_wait<1>();  // S^T has landed; dP^T may still run
+    fence_regs<NS>(s);
+    // P^T = exp(scale S^T - lse) = 2^(S^T scale log2e - lse log2e)
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const float2 l = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * quad);
+      const float n0 = -l.x * LOG2E, n1 = -l.y * LOG2E;
+      s[4 * j] = ex2(fmaf(s[4 * j], sl2, n0));
+      s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], sl2, n1));
+      s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], sl2, n0));
+      s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], sl2, n1));
+    }
+    // rows of this step that key ka (ka + 8) sees, as columns from
+    // q0 + 2 quad: below sq; causal from the key on; windowed below the
+    // key + window.  A step wholly inside every mask skips it.
+    const bool full = q0 + N <= sq && (!causal || k0 + BKV - 1 <= q0) &&
+                      (!window || k0 > q0 + N - 1 - window);
+    if (!full) {
+      const int off = q0 + 2 * quad;
+      const int hi_a = window && ka + window < sq ? ka + window : sq;
+      const int hi_b = window && ka + 8 + window < sq ? ka + 8 + window : sq;
+      mask<N>(s, causal ? ka - off : INT_MIN / 2, hi_a - off,
+              causal ? ka + 8 - off : INT_MIN / 2, hi_b - off);
+    }
+    wgmma_wait<0>();  // dP^T has landed
+    fence_regs<NS>(dp);
+    // dS^T = P^T (dP^T - D); P^T and dS^T packed 4 columns at a time, so
+    // their fp32 values die as the fragments fill
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const float2 d = *reinterpret_cast<const float2*>(dd + 8 * j + 2 * quad);
+      const float* p = s + 4 * j;
+      const float* g = dp + 4 * j;
+      sa[2 * j] = pack_bf16(p[0] * (g[0] - d.x), p[1] * (g[1] - d.y));
+      sa[2 * j + 1] = pack_bf16(p[2] * (g[2] - d.x), p[3] * (g[3] - d.y));
+      pa[2 * j] = pack_bf16(p[0], p[1]);
+      pa[2 * j + 1] = pack_bf16(p[2], p[3]);
+    }
+    // dV += P^T dO and dK += dS^T Q over the step's N rows
+    fence_regs_u32<NS / 2>(pa);
+    fence_regs_u32<NS / 2>(sa);
+    fence_regs<NA>(dva);
+    fence_regs<NA>(dka);
+    wgmma_fence();
+    mma_rs<HDP, N>(dva, pa, dt);
+    mma_rs<HDP, N>(dka, sa, qt);
+    wgmma_commit();
+    wgmma_wait<0>();  // the next iteration refills this stage
+    fence_regs<NA>(dva);
+    fence_regs<NA>(dka);
+    fence_regs_u32<NS / 2>(pa);
+    fence_regs_u32<NS / 2>(sa);
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int j = 0; j < HDP / 8; ++j) {
+    const int d = 8 * j + 2 * quad;
     if (d >= HD) continue;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int64_t kp = h ? key_b : key_a;
+      const int kp = ka + 8 * h;
       if (kp >= sk) continue;
       const int64_t off = ((b * sk + kp) * hkv + hk) * HD + d;
-      *reinterpret_cast<uint32_t*>(dk + off) =
-          pack_bf16(acc_k[n][2 * h] * scale, acc_k[n][2 * h + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dk + off) = pack_bf16(
+          dka[4 * j + 2 * h] * scale, dka[4 * j + 2 * h + 1] * scale);
       *reinterpret_cast<uint32_t*>(dv + off) =
-          pack_bf16(acc_v[n][2 * h], acc_v[n][2 * h + 1]);
+          pack_bf16(dva[4 * j + 2 * h], dva[4 * j + 2 * h + 1]);
     }
   }
 }
 
-// a block per (b, q head, 64-row Q tile); warp w owns rows w*16 .. +16.
-// Per live 32-key tile: S = Q K^T and dP = dO V^T, P and dS, then
-// dQ += dS K with dS as A fragments.
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
-dq_kernel(const __nv_bfloat16* __restrict__ q,
-          const __nv_bfloat16* __restrict__ k,
-          const __nv_bfloat16* __restrict__ v,
-          const __nv_bfloat16* __restrict__ dout,
+// a block per (b, q head, BQQ-row tile), heaviest (latest rows) first,
+// whose rows are the fragments' rows.  It walks the live N-key
+// steps, K and V streamed through the ring: S = Q K^T and dP = dO V^T
+// (wgmma, both K-major), P and dS on the fragments, then dQ += dS K with
+// dS as the register A operand and K read MN-major (no transposed copy).
+template <int HD, int N>
+__global__ void __launch_bounds__(THREADS, BLOCKS)
+dq_kernel(const __grid_constant__ CUtensorMap mq,   // BQQ-row boxes
+          const __grid_constant__ CUtensorMap mdo,  // BQQ-row boxes
+          const __grid_constant__ CUtensorMap mk,   // N-row boxes
+          const __grid_constant__ CUtensorMap mv,   // N-row boxes
           const float* __restrict__ lse, const float* __restrict__ dvec,
-          __nv_bfloat16* __restrict__ dq, int64_t sq, int64_t sk, int64_t hq,
-          int64_t hkv, int causal, int64_t window, float scale) {
-  constexpr int P = hdp(HD), LD = P + 8, LDT = BK + 8, NT = P / 8;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dos = qs + BQQ * LD;
-  __nv_bfloat16* ks = dos + BQQ * LD;    // [BK][LD]
-  __nv_bfloat16* vs = ks + BK * LD;      // [BK][LD]
-  __nv_bfloat16* kt = vs + BK * LD;      // [P][LDT]
+          __nv_bfloat16* __restrict__ dq, int sq, int sk, int hq, int hkv,
+          int causal, int window, float scale, int row_tiles) {
+  constexpr int HDP = tc_hdp(HD), NA = HDP / 2;  // dQ floats a thread
+  constexpr int NS = N / 2;                      // S floats a thread
+  constexpr uint32_t R_BYTES = BQQ * HDP * 2, T_BYTES = N * HDP * 2;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t qs = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t dos = qs + R_BYTES;
+  const uint32_t ring = dos + R_BYTES;  // STAGES x [K][V]
+  const uint32_t bars = ring + STAGES * 2 * T_BYTES;  // STAGES mbarriers
 
-  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, c2 = 2 * (lane % 4);
-  const int64_t b = blockIdx.z, head = blockIdx.y;
-  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * BQQ;
-  const int64_t hk = head / (hq / hkv);
-  load_rows<HD, BQQ>(qs, nullptr, q, b, sq, hq, head, q0, LD, 0);
-  load_rows<HD, BQQ>(dos, nullptr, dout, b, sq, hq, head, q0, LD, 0);
-  const int64_t row_a = q0 + w * 16 + g, row_b = row_a + 8;
-  float l_a = 0.f, l_b = 0.f, d_a = 0.f, d_b = 0.f;
-  if (row_a < sq) {
-    l_a = lse[(b * hq + head) * sq + row_a];
-    d_a = dvec[(b * hq + head) * sq + row_a];
-  }
-  if (row_b < sq) {
-    l_b = lse[(b * hq + head) * sq + row_b];
-    d_b = dvec[(b * hq + head) * sq + row_b];
-  }
-  const int64_t q_hi = (q0 + BQQ < sq ? q0 + BQQ : sq) - 1;
-  int64_t k_end = sk;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, quad = lane % 4;
+  const int64_t b = blockIdx.z;
+  const int head = blockIdx.y, hk = head / (hq / hkv);
+  const int q0 = (row_tiles - 1 - static_cast<int>(blockIdx.x)) * BQQ;
+  // the live keys (bwd_k_range): causal keys up to the last row, windowed
+  // keys from the first row - window + 1, rounded down to a step; uniform
+  // over the block
+  const int q_hi = (q0 + BQQ < sq ? q0 + BQQ : sq) - 1;
+  int k_end = sk;
   if (causal && q_hi + 1 < k_end) k_end = q_hi + 1;
-  int64_t k_begin = 0;
-  if (window && q0 - window + 1 > 0) k_begin = (q0 - window + 1) / BK * BK;
+  const int k_lo = window && q0 - window + 1 > 0 ? q0 - window + 1 : 0;
+  const int k_begin = k_lo / N * N;
+  const int n_steps = k_end > k_lo ? (k_end - k_begin + N - 1) / N : 0;
 
-  float acc[NT][4];
+  if (tid == 0) {
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
-
-  for (int64_t k0 = k_begin; k0 < k_end; k0 += BK) {
-    __syncthreads();  // Q and dO are in; the previous K, V tiles are used
-    load_rows<HD, BK>(ks, kt, k, b, sk, hkv, hk, k0, LD, LDT);
-    load_rows<HD, BK>(vs, nullptr, v, b, sk, hkv, hk, k0, LD, 0);
-    __syncthreads();
-    float s[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < P / 16; ++kk) {
-      uint32_t aq[4], ao[4];
-      a_frag(aq, qs, LD, w * 16, kk * 16);
-      a_frag(ao, dos, LD, w * 16, kk * 16);
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n) {
-        uint32_t b0, b1;
-        b_frag(b0, b1, ks, LD, n * 8, kk * 16);
-        mma(s[n], aq, b0, b1);
-        b_frag(b0, b1, vs, LD, n * 8, kk * 16);
-        mma(dp[n], ao, b0, b1);
-      }
-    }
-    uint32_t as[BK / 16][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      float sv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int64_t kp = k0 + n * 8 + c2 + (i & 1);
-        const int64_t qp = i < 2 ? row_a : row_b;
-        float x = 0.f;
-        if (visible(qp, kp, sq, sk, causal, window)) {
-          const float p = expf(s[n][i] * scale - (i < 2 ? l_a : l_b));
-          x = p * (dp[n][i] - (i < 2 ? d_a : d_b));
-        }
-        sv[i] = x;
-      }
-      const int j = n / 2, h = n % 2;
-      as[j][2 * h] = pack_bf16(sv[0], sv[1]);
-      as[j][2 * h + 1] = pack_bf16(sv[2], sv[3]);
-    }
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j)
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        uint32_t b0, b1;
-        b_frag(b0, b1, kt, LDT, n * 8, j * 16);
-        mma(acc[n], as[j], b0, b1);
-      }
+    for (int i = 0; i < STAGES; ++i) mbar_init(bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+  // thread 0 sends step t's K and V tiles (with Q and dO at step 0) by TMA
+  // to the stage's barrier
+  auto load_step = [&](int t) {
+    if (tid != 0) return;
+    const uint32_t st = static_cast<uint32_t>(t % STAGES);
+    const uint32_t kt = ring + st * 2 * T_BYTES, bar = bars + 8 * st;
+    mbar_expect(bar, 2 * T_BYTES + (t == 0 ? 2 * R_BYTES : 0));
+    if (t == 0) {
+      tma_rows<HDP, BQQ>(qs, &mq, bar, HD, head, q0, static_cast<int>(b));
+      tma_rows<HDP, BQQ>(dos, &mdo, bar, HD, head, q0, static_cast<int>(b));
+    }
+    tma_rows<HDP, N>(kt, &mk, bar, HD, hk, k_begin + t * N,
+                     static_cast<int>(b));
+    tma_rows<HDP, N>(kt + T_BYTES, &mv, bar, HD, hk, k_begin + t * N,
+                     static_cast<int>(b));
+  };
+  if (n_steps > 0) load_step(0);
+
+  // this thread's rows in the fragments: ra and ra + 8, with -lse log2e
+  // and D
+  const int ra = q0 + 16 * warp + lane / 4, rb = ra + 8;
+  const float* lrow = lse + (b * hq + head) * sq;
+  const float* drow = dvec + (b * hq + head) * sq;
+  const float n_a = ra < sq ? -lrow[ra] * LOG2E : 0.f;
+  const float n_b = rb < sq ? -lrow[rb] * LOG2E : 0.f;
+  const float d_a = ra < sq ? drow[ra] : 0.f;
+  const float d_b = rb < sq ? drow[rb] : 0.f;
+  const float sl2 = scale * LOG2E;
+  float acc[NA], s[NS], dp[NS];
+  uint32_t sa[NS / 2];
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int d = n * 8 + c2;
+  for (int i = 0; i < NA; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NS; ++i) s[i] = dp[i] = 0.f;
+
+  for (int t = 0; t < n_steps; ++t) {
+    const uint32_t st = static_cast<uint32_t>(t % STAGES);
+    mbar_wait(bars + 8 * st, (t / STAGES) & 1);  // step t's tiles landed
+    __syncthreads();  // step t - 1 is wholly consumed
+    if (t + 1 < n_steps) load_step(t + 1);
+    const uint32_t kt = ring + st * 2 * T_BYTES;
+    const uint32_t vt = kt + T_BYTES;
+    const int k0 = k_begin + t * N;
+
+    // S = Q K^T, then dP = dO V^T
+    issue_scores<HD, N>(s, dp, qs, dos, kt, vt);
+    wgmma_wait<1>();
+    fence_regs<NS>(s);
+#pragma unroll
+    for (int i = 0; i < NS; ++i)
+      s[i] = ex2(fmaf(s[i], sl2, (i % 4) < 2 ? n_a : n_b));
+    // keys of this step that row ra (rb) sees, as columns from k0 + 2 quad:
+    // below sk; causal up to the row; windowed above the row - window
+    const bool full = k0 + N <= sk && (!causal || k0 + N - 1 <= q0) &&
+                      (!window || k0 > q0 + BQQ - 1 - window);
+    if (!full) {
+      const int off = k0 + 2 * quad;
+      const int hi_a = causal && ra + 1 < sk ? ra + 1 : sk;
+      const int hi_b = causal && rb + 1 < sk ? rb + 1 : sk;
+      mask<N>(s, window ? ra - window + 1 - off : INT_MIN / 2, hi_a - off,
+              window ? rb - window + 1 - off : INT_MIN / 2, hi_b - off);
+    }
+    wgmma_wait<0>();
+    fence_regs<NS>(dp);
+    // dS = P (dP - D), packed 4 columns at a time
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const float* p = s + 4 * j;
+      const float* g = dp + 4 * j;
+      sa[2 * j] = pack_bf16(p[0] * (g[0] - d_a), p[1] * (g[1] - d_a));
+      sa[2 * j + 1] = pack_bf16(p[2] * (g[2] - d_b), p[3] * (g[3] - d_b));
+    }
+    fence_regs_u32<NS / 2>(sa);
+    fence_regs<NA>(acc);
+    wgmma_fence();
+    mma_rs<HDP, N>(acc, sa, kt);
+    wgmma_commit();
+    wgmma_wait<0>();  // the next iteration refills this stage
+    fence_regs<NA>(acc);
+    fence_regs_u32<NS / 2>(sa);
+  }
+
+#pragma unroll
+  for (int j = 0; j < HDP / 8; ++j) {
+    const int d = 8 * j + 2 * quad;
     if (d >= HD) continue;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int64_t qp = h ? row_b : row_a;
+      const int qp = ra + 8 * h;
       if (qp >= sq) continue;
       *reinterpret_cast<uint32_t*>(dq + ((b * sq + qp) * hq + head) * HD + d) =
-          pack_bf16(acc[n][2 * h] * scale, acc[n][2 * h + 1] * scale);
+          pack_bf16(acc[4 * j + 2 * h] * scale, acc[4 * j + 2 * h + 1] * scale);
     }
   }
 }
 
-template <int HD>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const float* lse, float* dvec, void* dq,
-           void* dk, void* dv, int64_t b, int64_t sq, int64_t sk, int64_t hq,
-           int64_t hkv, int causal, int64_t window, float scale,
-           cudaStream_t st) {
+using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
+
+// cuTensorMapEncodeTiled of the driver the runtime has loaded (the library
+// links no driver library of its own)
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// the TMA map of a [B, S, H, hd] bf16 tensor seen as [B][S][H * hd]: boxes
+// of `rows` rows x 64 elements, 128-byte swizzled, zeros past the edges
+bool row_map(CUtensorMap* m, const void* base, int64_t b, int64_t s,
+             int64_t width, int rows) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(width),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(width * 2),
+                                 static_cast<cuuint64_t>(s * width * 2)};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD, int NQ, int NK>
+int launch_steps(const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, const float* lse, float* dvec, void* dq,
+                 void* dk, void* dv, int64_t b, int64_t sq, int64_t sk,
+                 int64_t hq, int64_t hkv, int causal, int64_t window,
+                 float scale, cudaStream_t st) {
   using bf = __nv_bfloat16;
-  constexpr int S1 = dkdv_smem<HD>(), S2 = dq_smem<HD>();
+  constexpr int S1 = dkdv_smem(tc_hdp(HD), NQ), S2 = dq_smem(tc_hdp(HD), NK);
   static bool smem_set = false;  // the attributes hold for the process
   if (!smem_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        dkdv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, S1);
+        dkdv_kernel<HD, NQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, S1);
     if (e != cudaSuccess) return static_cast<int>(e);
-    e = cudaFuncSetAttribute(dq_kernel<HD>,
+    e = cudaFuncSetAttribute(dq_kernel<HD, NK>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, S2);
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set = true;
   }
   const int64_t rows = b * sq * hq;
   const int64_t kt = (sk + BKV - 1) / BKV, qt = (sq + BQQ - 1) / BQQ;
-  if ((rows + 7) / 8 > 2147483647LL || kt > 2147483647LL ||
-      qt > 2147483647LL || hq > 65535 || b > 65535)
+  // positions are 32-bit inside the kernels, as are TMA's coordinates
+  if ((rows + 3) / 4 > INT_MAX || sq > INT_MAX / 4 || sk > INT_MAX / 4 ||
+      hq > 65535 || b > 65535)
     return static_cast<int>(cudaErrorInvalidConfiguration);
-  const bf* qp = static_cast<const bf*>(q);
-  const bf* kp = static_cast<const bf*>(k);
-  const bf* vp = static_cast<const bf*>(v);
-  const bf* dop = static_cast<const bf*>(dout);
-  bwd_d_kernel<bf, HD><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, st>>>(
-      static_cast<const bf*>(o), dop, dvec, rows, sq, hq);
+  // a window past every position masks nothing more than INT_MAX / 4 does
+  const int win = window > INT_MAX / 4 ? INT_MAX / 4 : static_cast<int>(window);
+  // the TMA maps: Q and dO in the dK/dV pass's NQ-row steps and the dQ
+  // pass's BQQ-row blocks, K and V in BKV-row blocks and NK-key steps
+  CUtensorMap q_steps, do_steps, k_block, v_block, q_block, do_block,
+      k_steps, v_steps;
+  if (!row_map(&q_steps, q, b, sq, hq * HD, NQ) ||
+      !row_map(&do_steps, dout, b, sq, hq * HD, NQ) ||
+      !row_map(&k_block, k, b, sk, hkv * HD, BKV) ||
+      !row_map(&v_block, v, b, sk, hkv * HD, BKV) ||
+      !row_map(&q_block, q, b, sq, hq * HD, BQQ) ||
+      !row_map(&do_block, dout, b, sq, hq * HD, BQQ) ||
+      !row_map(&k_steps, k, b, sk, hkv * HD, NK) ||
+      !row_map(&v_steps, v, b, sk, hkv * HD, NK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int D_ROWS = 256 / (HD <= 32 ? 4 : (HD <= 64 ? 8 : 16));
+  d_kernel<HD><<<static_cast<unsigned>((rows + D_ROWS - 1) / D_ROWS), 256, 0,
+                 st>>>(static_cast<const bf*>(o), static_cast<const bf*>(dout),
+                       dvec, rows, sq, hq);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  dkdv_kernel<HD><<<dim3(static_cast<unsigned>(kt),
-                         static_cast<unsigned>(hkv),
-                         static_cast<unsigned>(b)),
-                    THREADS, S1, st>>>(qp, kp, vp, dop, lse, dvec,
-                                       static_cast<bf*>(dk),
-                                       static_cast<bf*>(dv), sq, sk, hq, hkv,
-                                       causal, window, scale);
+  // the grids' batch axis is the last: the tiling never reads b
+  const dim3 g1(static_cast<unsigned>(kt), static_cast<unsigned>(hkv),
+                static_cast<unsigned>(b));
+  dkdv_kernel<HD, NQ><<<g1, THREADS, S1, st>>>(
+      q_steps, do_steps, k_block, v_block, lse, dvec, static_cast<bf*>(dk),
+      static_cast<bf*>(dv), static_cast<int>(sq), static_cast<int>(sk),
+      static_cast<int>(hq), static_cast<int>(hkv), causal, win, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  dq_kernel<HD><<<dim3(static_cast<unsigned>(qt), static_cast<unsigned>(hq),
-                       static_cast<unsigned>(b)),
-                  THREADS, S2, st>>>(qp, kp, vp, dop, lse, dvec,
-                                     static_cast<bf*>(dq), sq, sk, hq, hkv,
-                                     causal, window, scale);
+  const dim3 g2(static_cast<unsigned>(qt), static_cast<unsigned>(hq),
+                static_cast<unsigned>(b));
+  dq_kernel<HD, NK><<<g2, THREADS, S2, st>>>(
+      q_block, do_block, k_steps, v_steps, lse, dvec, static_cast<bf*>(dq),
+      static_cast<int>(sq), static_cast<int>(sk), static_cast<int>(hq),
+      static_cast<int>(hkv), causal, win, scale, static_cast<int>(qt));
   return static_cast<int>(cudaGetLastError());
+}
+
+// the step sizes of both passes from the streamed lengths (tc_step)
+template <int HD>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, float* dvec, void* dq,
+           void* dk, void* dv, int64_t b, int64_t sq, int64_t sk, int64_t hq,
+           int64_t hkv, int causal, int64_t window, float scale,
+           cudaStream_t st) {
+  constexpr int HDP = tc_hdp(HD);
+  const int nq = tc_step(HDP, sq), nk = tc_step(HDP, sk);
+#define REPRO_FA_BWD_STEPS(NQ, NK)                                           \
+  if (nq == NQ && nk == NK)                                                  \
+    return launch_steps<HD, NQ, NK>(q, k, v, o, dout, lse, dvec, dq, dk, dv, \
+                                    b, sq, sk, hq, hkv, causal, window,      \
+                                    scale, st);
+  if constexpr (HDP == 64) {
+    REPRO_FA_BWD_STEPS(128, 128)
+    REPRO_FA_BWD_STEPS(128, 64)
+    REPRO_FA_BWD_STEPS(64, 128)
+  }
+  REPRO_FA_BWD_STEPS(64, 64)
+#undef REPRO_FA_BWD_STEPS
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace tcb

@@ -26,6 +26,18 @@ kernel's device time from a graph against the wrapper's span of 28 calls
 and power limit.  Needs a card and ``nvcc``; variants build into ``DIR``
 (default ``build/flash_ablation``).  None of the variants is correct
 attention: they exist to be timed.
+
+    PYTHONPATH=src python3 -m repro_torch.flash_ablation --bwd [--out DIR]
+
+does the same for the bf16 backward (``csrc/flash_attention_bwd.cu``):
+``backward`` as it is, ``no_d``, ``no_dkdv``, ``no_dq``, each with one of
+its three launches (D, dK/dV, dQ) taken out, and ``steps_64`` (64-row
+and 64-key steps at every head dim), timed from a CUDA graph
+at qwen3-1.7b's `spmd` shape (8 × 512, 16/8 heads of 128, causal, 28
+calls) and whisper's encoder shape (4 × 1500, 16/16 heads of 64,
+non-causal, 24 calls); each pass's ms is ``backward`` less the variant
+without it.  Beside them SDPA's backward (its forward + backward less its
+forward, eager spans of the same calls).
 """
 from __future__ import annotations
 
@@ -76,8 +88,27 @@ CALLS = 28     # one qwen3 prefill's flash calls
 REPLAYS = 10   # graph replays a time averages
 
 
-def _variant_source(subs) -> str:
-    src = (build.CSRC / "flash_attention.cu").read_text()
+# the backward's variants: no_* each drop one of the three launches (D,
+# dK/dV, dQ); steps_64 takes 64-row and 64-key steps at every head dim
+VARIANTS_BWD = {
+    "backward": [],
+    "no_d": [("  d_kernel<HD><<<", "  if (false) d_kernel<HD><<<")],
+    "no_dkdv": [("  dkdv_kernel<HD, NQ><<<g1",
+                 "  if (false) dkdv_kernel<HD, NQ><<<g1")],
+    "no_dq": [("  dq_kernel<HD, NK><<<g2", "  if (false) dq_kernel<HD, NK><<<g2")],
+    "steps_64": [("return hdp == 64 && len > LONG ? 128 : 64;", "return 64;")],
+}
+# (name, b, s, hq, hkv, hd, causal, calls): one backward's calls
+BWD_SHAPES = [("qwen3_spmd", 8, 512, 16, 8, 128, True, 28),
+              ("whisper_encoder", 4, 1500, 16, 16, 64, False, 24)]
+_TC_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 9
+            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+_BWD_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int64] * 8
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def _variant_source(subs, source: str = "flash_attention.cu") -> str:
+    src = (build.CSRC / source).read_text()
     for old, new in subs:
         if old not in src:
             raise RuntimeError(f"flash_ablation: the source no longer holds "
@@ -86,13 +117,16 @@ def _variant_source(subs) -> str:
     return src
 
 
-def _build_all(out_dir: Path) -> dict:
+def _build_all(out_dir: Path, variants=None,
+               source: str = "flash_attention.cu",
+               symbol: str = "repro_flash_attention_tc",
+               argtypes=_TC_ARGS) -> dict:
     """Every variant's library, all nvcc processes started together."""
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, subs in VARIANTS.items():
+    for name, subs in (VARIANTS if variants is None else variants).items():
         cu = out_dir / f"{name}.cu"
-        cu.write_text(_variant_source(subs))
+        cu.write_text(_variant_source(subs, source))
         lib = out_dir / f"{name}.so"
         procs[name] = (lib, subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib), str(cu)],
@@ -102,9 +136,8 @@ def _build_all(out_dir: Path) -> dict:
         out, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{err}{out}")
-        fn = ctypes.CDLL(str(lib)).repro_flash_attention_tc
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 9
-                       + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+        fn = getattr(ctypes.CDLL(str(lib)), symbol)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
@@ -126,15 +159,75 @@ def span_ms(fn, calls: int = CALLS, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _sdpa_bwd_ms(q, k, v, do, causal: bool, calls: int) -> float:
+    """SDPA's backward: its forward + backward less its forward (eager
+    spans of ``calls`` calls), as `chip_smoke.py` reckons it."""
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                           enable_gqa=True)
+
+    def fwd_bwd():
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                       enable_gqa=True).backward(dot)
+
+    return span_ms(fwd_bwd, calls) - span_ms(fwd, calls)
+
+
+def main_bwd(out_dir: Path, smi: str) -> dict:
+    """The backward's variants at `BWD_SHAPES` (device ms from a graph)."""
+    fns = _build_all(out_dir, VARIANTS_BWD, "flash_attention_bwd.cu",
+                     "repro_flash_attention_bwd", _BWD_ARGS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    report = {"gpu": smi, "shapes": {}}
+    for name, b, s, hq, hkv, hd, causal, calls in BWD_SHAPES:
+        q = torch.randn((b, s, hq, hd), device="cuda", generator=gen).bfloat16()
+        k, v = (torch.randn((b, s, hkv, hd), device="cuda", generator=gen)
+                .bfloat16() for _ in range(2))
+        do = torch.randn(q.shape, device="cuda", generator=gen).bfloat16()
+        o, lse = FA.flash_attention_kernel(q, k, v, causal=causal, lse=True)
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        ws = torch.empty((b, hq, s), dtype=torch.float32, device="cuda")
+        ms = {}
+        for variant, fn in fns.items():
+            def call(fn=fn, variant=variant):
+                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                         ws.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                         dv.data_ptr(), b, s, s, hq, hkv, hd, int(causal), 0,
+                         1.0 / math.sqrt(hd), 1,
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"variant {variant}: CUDA error {err}")
+            ms[variant] = graph_ms(call, calls, REPLAYS)
+        whole = ms["backward"]
+        report["shapes"][name] = dict(
+            shape=[b, s, s, hq, hkv, hd, causal], calls=calls,
+            graph_ms=ms, pass_ms={p: whole - ms[f"no_{p}"]
+                                  for p in ("d", "dkdv", "dq")},
+            sdpa_bwd_span_ms=_sdpa_bwd_ms(q, k, v, do, causal, calls))
+        del q, k, v, do, o, lse, dq, dk, dv, ws
+    print(json.dumps(report), flush=True)
+    return report
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="build/flash_ablation")
+    ap.add_argument("--bwd", action="store_true",
+                    help="the backward's passes instead of the forward")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("flash_ablation needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
+    if args.bwd:
+        return main_bwd(Path(args.out) / "bwd", smi)
     fns = _build_all(Path(args.out))
     gen = torch.Generator(device="cuda").manual_seed(0)
     b, s, hq, hkv, hd = 8, 512, 16, 8, 128

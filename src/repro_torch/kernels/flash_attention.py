@@ -58,13 +58,26 @@ tensor-core and the fp32 kernel); serving does not, and its launches are
 unchanged.  The backward (`flash_attention_bwd_kernel`,
 ``csrc/flash_attention_bwd.cu``) recomputes ``P = exp(scale·QKᵀ − lse)``
 tile by tile and returns dQ, dK, dV: ``D = rowsum(dO∘O)``, a dK/dV kernel
-with one block per (batch, kv head, key tile) that loops over the group's
-q heads and the live Q tiles (GQA's sum inside the block), and a dQ kernel
-with one block per (batch, q head, row tile); bf16 on the tensor cores
-(``mma.sync``, fp32 accumulators, P and dS rounded to bf16 for the three
-products), fp32 on the CUDA cores in fp32; no atomics (bitwise
-repeatable).  One call
-(three launches) counts one launch.  The backward takes no ``sk_valid``.  `FlashAttentionFn` is the autograd `Function`
+with one block per (batch, kv head, 64-key tile) that walks the group's q
+heads × the live Q steps (GQA's sum inside the block), and a dQ kernel
+with one block per (batch, q head, 64-row tile) walking the live key
+steps; each recomputes S and dP (7 products a live pair, 5 at least).  bf16 runs every product on ``wgmma`` (fp32 accumulators): ``Sᵀ
+= K Qᵀ`` and ``dPᵀ = V dOᵀ`` from shared memory, then ``dV += Pᵀ dO``,
+``dK += dSᵀ Q`` (and ``dQ += dS K``) with ``Pᵀ``, ``dSᵀ`` as register
+operands and dO, Q, K read MN-major through the transpose bit, so no
+transposed copy is made; the streamed side lands by TMA through a
+double-buffered ring while the products run (steps of 128 rows or keys
+at hd <= 64 past 128 of them, else 64), and two one-warpgroup blocks
+share an SM so that one's exponentials overlap the other's products.
+P and dS are rounded to bf16 for the three products.
+Bound: bytes at smollm's and qwen3's training shapes, operations (5
+products a live pair) at whisper's 1500-long encoder; two exponentials
+a pair on the SFU and the elementwise work between the products keep
+it above.  `flash_bwd_plan` gives the tiling (it never reads the batch:
+a batch of folded cells gives each cell its own bits).  fp32 runs on the
+CUDA cores in fp32.  No atomics (bitwise repeatable).  One call (three
+launches) counts one launch.  The backward takes no ``sk_valid``.
+`FlashAttentionFn` is the autograd `Function`
 (forward: the kernel with ``lse``; backward: this kernel), which
 `kernels.ops.flash_attention` takes when an input requires grad.
 
@@ -366,6 +379,82 @@ def flash_decode_kernel(q, k_cache, v_cache, k_pos, cur_pos, *,
     flash_attention_kernel.launches += 1
     flash_attention_kernel.launches_split_kv += 1
     return out
+
+
+# The bf16 backward's tiling (``csrc/flash_attention_bwd.cu``, namespace
+# ``tcb``; the names of its constants beside each): one warpgroup a block,
+# 64 keys (dK/dV) or 64 rows (dQ), two blocks an SM.
+BWD_THREADS = 128           # THREADS
+BWD_BLOCKS_PER_SM = 2       # BLOCKS
+BWD_KEYS = 64               # BKV: keys a dK/dV block
+BWD_ROWS = 64               # BQQ: query rows a dQ block
+BWD_STAGES = 2              # STAGES: the TMA ring (double buffer)
+BWD_LONG = 128              # LONG: a pass streaming more takes 128 steps
+
+
+def bwd_step(hd: int, length: int) -> int:
+    """Query rows (dK/dV) or keys (dQ) a step streams (``tcb::tc_step``),
+    from the pass's streamed length (``sq`` for dK/dV, ``sk`` for dQ): 128
+    at hd <= 64 past `BWD_LONG`, else 64."""
+    return 128 if hd <= 64 and length > BWD_LONG else 64
+
+
+def bwd_q_range(k0: int, sq: int, sk: int, causal: bool, window: int):
+    """Query rows ``[begin, end)`` that the dK/dV block of keys ``[k0, k0 +
+    BWD_KEYS)`` walks, in `bwd_step` steps from ``begin`` (the kernel's
+    ``q_begin``, ``q_end``): causal rows from ``k0``, windowed rows below
+    the block's last key + window."""
+    begin = k0 if causal else 0
+    end = sq
+    if window:
+        end = min(end, min(k0 + BWD_KEYS, sk) - 1 + window)
+    return begin, max(begin, end)
+
+
+def bwd_k_range(q0: int, sq: int, sk: int, causal: bool, window: int,
+                step: int):
+    """Keys ``[begin, end)`` that the dQ block of rows ``[q0, q0 +
+    BWD_ROWS)`` walks, in ``step`` steps from ``begin`` (the kernel's
+    ``k_begin``, ``k_end``): causal keys up to the block's last row,
+    windowed keys from its first row − window + 1, that key's step
+    rounded down."""
+    end = sk
+    if causal:
+        end = min(end, min(q0 + BWD_ROWS, sq))
+    lo = max(0, q0 - window + 1) if window else 0
+    if lo >= end:
+        return 0, 0
+    return lo // step * step, end
+
+
+def flash_bwd_plan(sq: int, sk: int, hq: int, hkv: int, hd: int,
+                   causal: bool, window: int) -> dict:
+    """The bf16 backward's launch plan, which depends on these arguments
+    alone (never on the batch, so a batch folded from cells runs each cell
+    as it would run alone): head dim as held in shared memory, each pass's
+    step, threads, shared-memory bytes and grid (without its batch axis)
+    of the dK/dV and dQ kernels, and the steps of the block that walks the
+    most.  It mirrors the constants of namespace ``tcb``, which
+    ``tests/test_torch_flash_bwd_plan.py`` reads back from the source."""
+    hdp = 64 if hd <= 64 else 128
+    nq, nk = bwd_step(hd, sq), bwd_step(hd, sk)
+    tile = 2 * hdp                                    # bytes a row
+    # the tiles, each stage's lse and D (dK/dV) and its 8-byte mbarrier
+    dkdv_smem = (1024 + 2 * BWD_KEYS * tile
+                 + BWD_STAGES * (2 * nq * tile + 2 * nq * 4 + 8))
+    dq_smem = 1024 + 2 * BWD_ROWS * tile + BWD_STAGES * (2 * nk * tile + 8)
+    key_blocks, row_blocks = -(-sk // BWD_KEYS), -(-sq // BWD_ROWS)
+    dkdv_steps = max((-(-(e - s) // nq) for s, e in (
+        bwd_q_range(i * BWD_KEYS, sq, sk, causal, window)
+        for i in range(key_blocks))), default=0) * (hq // hkv)
+    dq_steps = max((-(-(e - s) // nk) for s, e in (
+        bwd_k_range(i * BWD_ROWS, sq, sk, causal, window, nk)
+        for i in range(row_blocks))), default=0)
+    return dict(hdp=hdp, dkdv_step=nq, dq_step=nk, threads=BWD_THREADS,
+                stages=BWD_STAGES, blocks_per_sm=BWD_BLOCKS_PER_SM,
+                dkdv_smem=dkdv_smem, dq_smem=dq_smem,
+                dkdv_grid=(key_blocks, hkv), dq_grid=(row_blocks, hq),
+                dkdv_steps=dkdv_steps, dq_steps=dq_steps)
 
 
 @functools.lru_cache(maxsize=1)

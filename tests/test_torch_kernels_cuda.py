@@ -1008,6 +1008,23 @@ FLASH_BWD_CASES = FLASH_CASES + [
     # smollm-135m and qwen3-1.7b training shapes
     (128, 128, 128, 9, 3, 64, True, 0, "bfloat16"),
     (8, 512, 512, 16, 8, 128, True, 0, "bfloat16"),
+    # the wgmma tiling's edges (128-key dK/dV blocks, 128-row dQ blocks,
+    # 64-row and 64-key steps): hd 32 and 96 padded, hd 128 native
+    (2, 130, 130, 4, 2, 32, True, 0, "bfloat16"),
+    (1, 190, 190, 6, 2, 96, True, 0, "bfloat16"),
+    (2, 256, 256, 4, 4, 128, False, 0, "bfloat16"),
+    # ragged and non-causal, whisper's encoder length, its cross-attention
+    (2, 200, 200, 4, 4, 64, False, 0, "bfloat16"),
+    (1, 1500, 1500, 2, 2, 64, False, 0, "bfloat16"),
+    (2, 128, 1500, 4, 4, 64, False, 0, "bfloat16"),
+    # a window with a GQA group of 2, causal and not
+    (2, 300, 300, 4, 2, 64, True, 100, "bfloat16"),
+    (1, 300, 300, 4, 2, 128, False, 70, "bfloat16"),
+    # GQA groups of 6 (dbrx 48/8) and 7 (internvl2 14/2)
+    (1, 256, 256, 12, 2, 128, True, 0, "bfloat16"),
+    (2, 192, 192, 14, 2, 64, True, 0, "bfloat16"),
+    # sq > sk under a causal window: rows that see no key get zero dQ
+    (1, 300, 100, 4, 2, 64, True, 48, "bfloat16"),
 ]
 
 
@@ -1057,6 +1074,33 @@ def test_flash_attention_bwd_kernel_matches_plain(b, sq, sk, hq, hkv, hd,
                                            causal=causal, window=window)
     for g, a in zip(got, again):     # no atomics: bitwise repeatable
         assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,hq,hkv,hd,causal,window", [
+    (128, 128, 9, 3, 64, True, 0),       # smollm-135m, folded by grid_lm
+    (200, 200, 4, 2, 128, True, 0),
+    (130, 300, 4, 4, 64, False, 0),
+    (300, 300, 6, 2, 96, True, 64)])
+def test_flash_attention_bwd_batch_is_its_slices_bitwise(sq, sk, hq, hkv, hd,
+                                                        causal, window):
+    """The backward at B = 4 equals the four B = 1 calls on the batch's
+    slices bitwise (its tiling never reads the batch: grid_lm folds cells
+    into attention's batch and holds each folded cell to its own run)."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    dt = torch.bfloat16
+    q = _randn(gen, (4, sq, hq, hd), dt)
+    k, v = (_randn(gen, (4, sk, hkv, hd), dt) for _ in range(2))
+    do = _randn(gen, (4, sq, hq, hd), dt)
+    kw = dict(causal=causal, window=window)
+    o, lse = TFA.flash_attention_kernel(q, k, v, lse=True, **kw)
+    whole = TFA.flash_attention_bwd_kernel(q, k, v, o, lse, do, **kw)
+    for i in range(4):
+        part = TFA.flash_attention_bwd_kernel(
+            *(t[i:i + 1].contiguous() for t in (q, k, v, o, lse, do)), **kw)
+        for w, p in zip(whole, part):
+            assert torch.equal(w[i:i + 1], p)
 
 
 @pytest.mark.cuda
