@@ -571,16 +571,20 @@ def phase_build():
     ptxas = {name: _ptxas_lines(build.BUILD_LOGS.get(name, ""))
              for name in sources}
     emit({"phase": "build", "seconds": round(seconds, 3), "ptxas": ptxas})
-    # kernel 4's bf16 backward (namespace tcb, on wgmma): no instance
-    # spills (the fp32 kernels beside it are not held to this)
-    entry, spills = "", []
-    for ln in ptxas["flash_attention_bwd"]:
-        if "spill" not in ln:
-            entry = ln if "registers" not in ln else entry
-        elif "tcb" in entry and not ln.startswith(
-                "0 bytes stack frame, 0 bytes spill stores"):
-            spills.append((entry, ln))
-    check(not spills, f"flash_attention_bwd (bf16) spills: {spills}")
+    # kernel 4's and kernel 6's bf16 backwards (on wgmma): no instance
+    # spills (the fp32 kernels beside them are not held to this)
+    bf16 = {"flash_attention_bwd": ("tcb",),
+            "mlstm_scan_bwd": ("scores_wg", "products_wg", "prep_kernel",
+                               "gates_kernel")}
+    for name, marks in bf16.items():
+        entry, spills = "", []
+        for ln in ptxas[name]:
+            if "spill" not in ln:
+                entry = ln if "registers" not in ln else entry
+            elif any(m in entry for m in marks) and not ln.startswith(
+                    "0 bytes stack frame, 0 bytes spill stores"):
+                spills.append((entry, ln))
+        check(not spills, f"{name} (bf16) spills: {spills}")
 
 
 def _gemm_checks(detail, n: int = 8, batch: int = 64):
@@ -3429,13 +3433,16 @@ def _rmsnorm_bwd_checks(detail, runs):
     """Kernel 5's grouped-scale forward and its backward against their
     plain versions at the reference's cases and at every (shape, scale
     groups) the training paths ran, the backward bitwise repeatable; each
-    recorded shape timed as one call beside the bound, the plain version and
-    ``F.rms_norm``'s forward + backward minus its forward (one [d]
-    weight: the library takes no grouped scale, so at a grouped shape it
-    is the ungrouped norm's time)."""
+    recorded shape timed as one call (eager ``ms``, graph-replayed
+    ``device_ms``, the wrapper's ``host_ms`` without a sync) beside the
+    bound, the plain version and ``F.rms_norm``'s forward + backward
+    minus its forward (one [d] weight: the library takes no grouped
+    scale, so at a grouped shape it is the ungrouped norm's time), with
+    the kernel launches of a call as the kernel's library counts them."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.timing import graph_ms
 
     gen = torch.Generator(device="cuda").manual_seed(32)
     cases = [((shape, 1, dt, 1e-5), []) for shape, dt in RMSNORM_CASES] \
@@ -3473,12 +3480,27 @@ def _rmsnorm_bwd_checks(detail, runs):
         def lib_fwd_bwd():
             F.rms_norm(xl, (d,), wl, eps).backward(dy)
 
+        def kernel():
+            RN.rmsnorm_bwd_kernel(x, sc, dy, eps)
+
         for run, _, count, heaviest in roles:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                kernel()
+            host_ms = (time.perf_counter() - t0) / 5 * 1e3
+            torch.cuda.synchronize()
+            launches = RN.bwd_kernel_launches()
+            kernel()
+            launches = RN.bwd_kernel_launches() - launches
+            check(launches == RN.BWD_LAUNCHES,
+                  f"rmsnorm bwd {shape}: {launches} launches a call")
             rows.setdefault(run, []).append(dict(
                 shape=list(shape), groups=groups, launches_at_shape=count,
-                heaviest=heaviest,
+                heaviest=heaviest, launches_a_call=launches,
                 max_abs_err=float((dx.float() - pdx.float()).abs().max()),
-                ms=time_ms(lambda: RN.rmsnorm_bwd_kernel(x, sc, dy, eps)),
+                ms=time_ms(kernel), device_ms=graph_ms(kernel),
+                host_ms=host_ms,
                 plain_ms=time_ms(lambda: RN.rmsnorm_bwd_plain(x, sc, dy,
                                                               eps)),
                 library_ms=time_ms(lib_fwd_bwd) - time_ms(lib_fwd),
@@ -3506,9 +3528,12 @@ def _mlstm_bwd_checks(detail, runs):
     serving's bitwise; each recorded shape timed as one step's calls
     beside its bound (5 products of hd per causal pair; q, k, v, h, dh
     read and dq, dk, dv written once, the gates, a, m, di, df in fp32) and
-    the plain version.  No one PyTorch call computes this function."""
+    the plain version (eager ``ms`` and graph-replayed ``device_ms``), with
+    the kernel launches of a call as the kernel's library counts them.  No
+    one PyTorch call computes this function."""
     import torch
     from repro_torch.kernels import mlstm_scan as MS
+    from repro_torch.timing import graph_ms
 
     gen = torch.Generator(device="cuda").manual_seed(33)
     cases = [((*c, "normal"), []) for c in MLSTM_CASES] \
@@ -3552,11 +3577,19 @@ def _mlstm_bwd_checks(detail, runs):
         nbytes = 8.0 * b * s * h * hd * q.element_size() + 24.0 * b * s * h
         peak = PEAK_BF16_FLOPS if dt == "bfloat16" else PEAK_FP32_FLOPS
         for run, calls, count, heaviest in roles:
+            launches = MS.bwd_kernel_launches()
+            MS.mlstm_scan_bwd_kernel(*ins)
+            launches = MS.bwd_kernel_launches() - launches
+            check(launches == MS.BWD_LAUNCHES[path],
+                  f"mlstm bwd {case}: {launches} launches a call")
             rows.setdefault(run, []).append(dict(
                 shape=list(case[:5]), calls=calls, launches_at_shape=count,
                 heaviest=heaviest, path=path, max_abs_err=err,
+                launches_a_call=launches,
                 ms=time_ms(_span(lambda: MS.mlstm_scan_bwd_kernel(*ins),
                                  calls)),
+                device_ms=graph_ms(lambda: MS.mlstm_scan_bwd_kernel(*ins),
+                                   calls),
                 fwd_stats_ms=time_ms(_span(lambda: MS.mlstm_scan_kernel(
                     q, k, v, ig, fg, stats=True), calls)),
                 plain_ms=time_ms(_span(lambda: MS.mlstm_scan_bwd_plain(
@@ -5975,12 +6008,12 @@ def main(argv=None) -> int:
          "max_abs_err": mlstm_bwd["max_abs_err"],
          **{k: v for k, v in next(
              r for r in mlstm_bwd["train_xlstm"] if r["heaviest"]).items()
-            if k in ("shape", "calls", "ms", "fwd_stats_ms", "plain_ms",
-                     "bound_ms", "bound_by", "library_ms",
-                     "workspace_bytes")},
+            if k in ("shape", "calls", "ms", "device_ms", "fwd_stats_ms",
+                     "plain_ms", "bound_ms", "bound_by", "library_ms",
+                     "workspace_bytes", "launches_a_call")},
          "shapes": [{k: v for k, v in r.items() if k in (
-             "shape", "calls", "launches_at_shape", "ms", "plain_ms",
-             "bound_ms", "bound_by")} | {"run": run}
+             "shape", "calls", "launches_at_shape", "ms", "device_ms",
+             "plain_ms", "bound_ms", "bound_by")} | {"run": run}
              for run in ("train_xlstm", "xlstm_session")
              for r in mlstm_bwd.get(run, [])
              if run != "train_xlstm" or not r["heaviest"]]},
@@ -6001,11 +6034,12 @@ def main(argv=None) -> int:
            **{k: v for k, v in next(
                r for r in rows["train_lm"] if r["heaviest"]).items()
               if k in ("shape", "groups", "calls", "ms", "device_ms",
-                       "plain_ms", "bound_ms", "bound_by", "library_ms",
-                       "fwd_lse_ms")},
+                       "host_ms", "plain_ms", "bound_ms", "bound_by",
+                       "library_ms", "fwd_lse_ms", "launches_a_call")},
            "shapes": [{k: v for k, v in r.items() if k in (
                "shape", "groups", "calls", "launches_at_shape", "ms",
-               "device_ms", "plain_ms", "bound_ms", "library_ms")}
+               "device_ms", "host_ms", "plain_ms", "bound_ms",
+               "library_ms")}
                | {"run": run}
                for run in rows if run != "max_abs_err" for r in rows[run]
                if run != "train_lm" or not r["heaviest"]]}

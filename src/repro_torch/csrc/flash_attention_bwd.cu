@@ -30,8 +30,9 @@
 // rows (or keys) through a double-buffered ring that TMA fills (one
 // thread sends a step's tiles to the stage's mbarrier, 128-byte swizzled,
 // zeros past the edges), step t + 1 landing while step t's products run;
-// lse and D of a step's rows come beside it by cp.async.  N is 128 at hd
-// <= 64 where the pass streams more than 128 rows (keys), else 64.
+// lse and D of a step's rows come beside it by cp.async (the TMA helpers
+// are hopper.cuh's, shared with kernels 5's and 6's backwards).  N is 128
+// at hd <= 64 where the pass streams more than 128 rows (keys), else 64.
 // Tiles are held as column blocks of [rows][64 bf16] with the swizzle the
 // wgmma descriptors name (hd 32 and 96 padded to 64 and 128: dims past
 // hd hold the next head's or zeros, and only products whose output
@@ -60,10 +61,8 @@
 // live pair (one a pass) on the SFU, the elementwise work between the
 // products, and the two extra products.
 
-#include <cuda.h>  // CUtensorMap and its enums; no driver library is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled
 #include <limits.h>
 #include <stdint.h>
 
@@ -419,8 +418,13 @@ using hopper::cp_wait;
 using hopper::ex2;
 using hopper::fence_regs;
 using hopper::fence_regs_u32;
+using hopper::mbar_expect;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::row_map;
 using hopper::smem_u32;
 using hopper::sw128_desc;
+using hopper::tma_rows;
 using hopper::wgmma_commit;
 using hopper::wgmma_fence;
 using hopper::wgmma_rs_m64n128_mn;
@@ -499,55 +503,6 @@ __global__ void d_kernel(const __nv_bfloat16* __restrict__ o,
 __device__ __forceinline__ void cp4(uint32_t dst, const void* src, int bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(src), "r"(bytes));
-}
-
-// mbarrier: init with `count` arrivals; arrive with `bytes` of TMA to come;
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-// (a wait that outlasts 2^24 polls traps: a lost copy faults the launch
-// rather than hanging the card)
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .u32 n;\nmov.u32 n, 0;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\n"
-      "add.u32 n, n, 1;\n"
-      "setp.lt.u32 p, n, 16777216;\n"
-      "@p bra WAIT;\n"
-      "trap;\n"
-      "DONE:\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// TMA: rows [r0, r0 + R) of head `head` of batch `b` from a [B, S, H, hd]
-// tensor's map (a box of R rows x 64 dims, 128-byte swizzled) into the
-// column blocks of a [R][HDP] tile at `dst`, completing on `bar`.  Dims of
-// a column block past hd come from the next head (or zeros past the last
-// one) and rows past S are zeros: only products whose output columns are
-// dropped ever read those dims.
-template <int HDP, int R>
-__device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int hd, int head,
-                                         int r0, int b) {
-#pragma unroll
-  for (int cb = 0; cb < HDP / 64; ++cb)
-    asm volatile(
-        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-        "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst + cb * R * 128),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(head * hd + cb * 64), "r"(r0),
-        "r"(b), "r"(bar)
-        : "memory");
 }
 
 // acc (64 x N) = A B^T over hd, 16 dims a step, one commit group: A's 64
@@ -931,42 +886,6 @@ dq_kernel(const __grid_constant__ CUtensorMap mq,   // BQQ-row boxes
           pack_bf16(acc[4 * j + 2 * h] * scale, acc[4 * j + 2 * h + 1] * scale);
     }
   }
-}
-
-using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
-
-// cuTensorMapEncodeTiled of the driver the runtime has loaded (the library
-// links no driver library of its own)
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// the TMA map of a [B, S, H, hd] bf16 tensor seen as [B][S][H * hd]: boxes
-// of `rows` rows x 64 elements, 128-byte swizzled, zeros past the edges
-bool row_map(CUtensorMap* m, const void* base, int64_t b, int64_t s,
-             int64_t width, int rows) {
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(width),
-                              static_cast<cuuint64_t>(s),
-                              static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(width * 2),
-                                 static_cast<cuuint64_t>(s * width * 2)};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int HD, int NQ, int NK>

@@ -1,16 +1,19 @@
-// Hopper (sm_90a) device helpers shared by the port's tensor-core kernels:
-// cp.async copies into shared memory, the 128-byte-swizzled tile layout and
-// its wgmma matrix descriptors, and the bf16 wgmma forms (m64n64k16 and
-// m64n128k16 with both operands in shared memory, or with A from registers
-// and B MN-major through the transpose bit), and the mma.sync m16n8k16
-// bf16 product with its fragment loads from row-padded shared tiles (the
-// mLSTM scan's backward).  Lessons that hold
+// Hopper (sm_90a) helpers shared by the port's kernels: cp.async copies
+// into shared memory, the 128-byte-swizzled tile layout and its wgmma
+// matrix descriptors, the bf16 wgmma forms (m64n64k16 and m64n128k16 with
+// both operands in shared memory, or with A from registers and B MN-major
+// through the transpose bit; m64n{64,128,256}k16 with both in shared
+// memory and B MN-major), and TMA: mbarriers, tensor and bulk copies and
+// the host's tensor-map encoding.  Lessons that hold
 // for every kernel that uses them: no wgmma under a branch (ptxas C7520
 // serializes every wgmma of the kernel), and no register operand defined
 // inside a wgmma stage (C7513): pack A fragments after the wait.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums; no driver library is linked
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled
 #include <stdint.h>
 
 namespace hopper {
@@ -197,40 +200,244 @@ __device__ __forceinline__ void wgmma_rs_m64n128_mn(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// mma.sync D (+)= A B: A 16 x 16 (row), B 16 x 8 (col), bf16; fp32 D
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
+// ---------------------------------------------------------------------------
+// TMA and mbarriers (the backwards of kernels 4, 5 and 6)
+// ---------------------------------------------------------------------------
+
+// mbarrier: init with `count` arrivals; arrive with `bytes` of TMA to come;
+// plain arrive; wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// (a wait that outlasts 2^24 polls traps: a lost copy faults the launch
+// rather than hanging the card)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\n.reg .u32 n;\nmov.u32 n, 0;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "add.u32 n, n, 1;\n"
+      "setp.lt.u32 p, n, 16777216;\n"
+      "@p bra WAIT;\n"
+      "trap;\n"
+      "DONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// TMA: the box at coordinates (c0, c1, c2[, c3]) of a 3-d (4-d) tensor map
+// into shared memory at `dst`, completing on `bar`
+__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map,
+                                       uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void tma_4d(uint32_t dst, const CUtensorMap* map,
+                                       uint32_t bar, int c0, int c1, int c2,
+                                       int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
 }
 
-// the A fragment of rows [r0, r0 + 16), columns [k0, k0 + 16) of a
-// row-major tile with `ld` elements a row
-__device__ __forceinline__ void a_frag(uint32_t (&a)[4],
-                                       const __nv_bfloat16* t, int ld, int r0,
-                                       int k0) {
-  const int g = threadIdx.x % 32 / 4, c = 2 * (threadIdx.x % 4);
-  a[0] = ld32(t + (r0 + g) * ld + k0 + c);
-  a[1] = ld32(t + (r0 + g + 8) * ld + k0 + c);
-  a[2] = ld32(t + (r0 + g) * ld + k0 + 8 + c);
-  a[3] = ld32(t + (r0 + g + 8) * ld + k0 + 8 + c);
+// a bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned) from
+// device memory into shared memory at `dst`, completing on `bar`
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
-// the B fragment of columns [n0, n0 + 8), rows [k0, k0 + 16), from a tile
-// stored n-major ([n][k], `ld` elements an n)
-__device__ __forceinline__ void b_frag(uint32_t& b0, uint32_t& b1,
-                                       const __nv_bfloat16* t, int ld, int n0,
-                                       int k0) {
-  const int g = threadIdx.x % 32 / 4, c = 2 * (threadIdx.x % 4);
-  b0 = ld32(t + (n0 + g) * ld + k0 + c);
-  b1 = ld32(t + (n0 + g) * ld + k0 + 8 + c);
+// TMA: rows [r0, r0 + R) of head `head` of batch `b` from a [B, S, H, hd]
+// tensor's map (`row_map`: a box of R rows x 64 dims, 128-byte swizzled)
+// into the column blocks of a [R][HDP] tile at `dst`, completing on `bar`.
+// Dims of a column block past hd come from the next head (or zeros past
+// the last one) and rows past S are zeros: only products whose output
+// columns are dropped ever read those dims.
+template <int HDP, int R>
+__device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int hd, int head,
+                                         int r0, int b) {
+#pragma unroll
+  for (int cb = 0; cb < HDP / 64; ++cb)
+    tma_3d(dst + cb * R * 128, map, bar, head * hd + cb * 64, r0, b);
+}
+
+using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
+
+// cuTensorMapEncodeTiled of the driver the runtime has loaded (the library
+// links no driver library of its own)
+inline EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// a bf16 tensor map of `rank` dims (innermost first; strides in bytes of
+// dims 1 ..), boxes of `box` elements, 128-byte swizzled, zeros past the
+// edges
+inline bool bf16_map(CUtensorMap* m, const void* base, int rank,
+                     const cuuint64_t* dims, const cuuint64_t* strides,
+                     const cuuint32_t* box) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+             const_cast<void*>(base), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the TMA map of a [B, S, H, hd] bf16 tensor seen as [B][S][H * hd]: boxes
+// of `rows` rows x 64 elements, 128-byte swizzled, zeros past the edges
+inline bool row_map(CUtensorMap* m, const void* base, int64_t b, int64_t s,
+                    int64_t width, int rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(width),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(width * 2),
+                                 static_cast<cuuint64_t>(s * width * 2)};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
+  return bf16_map(m, base, 3, dims, strides, box);
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64], both from shared memory (128B
+// swizzle): A K-major (TA = 0) or MN-major (TA = 1, its transpose bit), B
+// MN-major (the transpose bit set)
+template <int TA>
+__device__ __forceinline__ void wgmma_ss_m64n64_bmn(float* d, uint64_t da,
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %35, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %34, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "n"(TA), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] B[16 x 128], both from shared memory (128B
+// swizzle): A K-major (TA = 0) or MN-major (TA = 1, its transpose bit), B
+// MN-major (the transpose bit set)
+template <int TA>
+__device__ __forceinline__ void wgmma_ss_m64n128_bmn(float* d, uint64_t da,
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %67, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %66, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "n"(TA), "r"(1));
+}
+
+// D[64 x 256] += A[64 x 16] B[16 x 256], both from shared memory (128B
+// swizzle): A K-major (TA = 0) or MN-major (TA = 1, its transpose bit), B
+// MN-major (the transpose bit set)
+template <int TA>
+__device__ __forceinline__ void wgmma_ss_m64n256_bmn(float* d, uint64_t da,
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %131, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, %130, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "n"(TA), "r"(1));
 }
 
 }  // namespace hopper

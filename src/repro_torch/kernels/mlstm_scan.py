@@ -36,8 +36,11 @@ same bitwise.
 TPU kernel has none, the reference differentiates its jnp recurrence):
 the parallel form's gradient with the stabilizer held constant (h does
 not depend on it), from the forward's h, ``a_t`` and ``m_t``, bf16 on
-``mma.sync`` (``launches_tc``) and fp32 on the CUDA cores
-(``launches_fp32``), beside its plain version `mlstm_scan_bwd_plain`.
+`wgmma` fed by TMA (``launches_tc``, four launches a call: the scores form
+P' and dS once into a workspace, split into bf16 high and low parts, and
+the three products read each live workspace tile once per 64-row output
+tile across all of hd; `mlstm_bwd_plan`) and fp32 on the CUDA cores
+(``launches_fp32``, six), beside its plain version `mlstm_scan_bwd_plain`.
 `MLSTMScanFn` joins the two kernels under autograd.
 
 `mlstm_scan_plain` is the plain PyTorch version (CPU tensors, tests and
@@ -54,6 +57,7 @@ import ctypes
 import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -291,13 +295,83 @@ def _bwd_symbol():
     return fn
 
 
+@functools.lru_cache(maxsize=1)
+def _bwd_launches_symbol():
+    fn = build.load("mlstm_scan_bwd").repro_mlstm_scan_bwd_launches
+    fn.argtypes = []
+    fn.restype = ctypes.c_int64
+    return fn
+
+
+def bwd_kernel_launches() -> int:
+    """The kernel launches ``repro_mlstm_scan_bwd`` has made in this
+    process, as its library counts them (each counted once its error
+    check passed): the difference across one call is the launches a
+    call."""
+    return _bwd_launches_symbol()()
+
+
 def bwd_workspace_bytes(b: int, s: int, h: int) -> int:
     """Bytes of the backward's workspace, per (b, h) over S rounded up to
     64 (sp): fp64 g and M, fp32 1/den, da and the diagonal tiles' sums,
-    the tiles' column and row sums of Q (``[sp/64, sp]`` each), and fp32
-    P' and dS (``[sp, sp]`` each)."""
+    the tiles' column and row sums of Q (``[sp/64, sp]`` each), then P'
+    and dS, 4 bytes an element each: ``[sp, sp]`` fp32 on the fp32 path,
+    on the bf16 path its bf16 high part ``[sp, sp]`` followed by its bf16
+    low part (what the products' TMA reads)."""
     sp = -(-s // TILE) * TILE
     return b * h * (sp * 28 + 2 * (sp // TILE) * sp * 4 + 2 * sp * sp * 4)
+
+
+# the bf16 backward's constants (``csrc/mlstm_scan_bwd.cu``), which
+# tests/test_torch_mlstm_bwd_plan.py reads back from the source
+BWD_WG = 128             # threads a warpgroup
+BWD_SC_STAGES = 3        # the scores' ring of 64-dim chunks
+BWD_PR_STAGES = 2        # the products' ring of 64-position steps
+BWD_GATE_THREADS = 64    # a gates block: one tile's positions
+BWD_GATE_STAGE = 8192    # floats of a gates block's stage
+BWD_LAUNCHES = {"tc": 4, "fp32": 6}   # launches a call on each path
+
+
+def mlstm_bwd_plan(b: int, s: int, h: int, hd: int) -> dict:
+    """The bf16 backward's launch plan: hd as held in shared memory
+    (``hdp``), the products' consumer warpgroups and their N, each
+    kernel's threads, shared-memory bytes and grid, and the launches of a
+    call."""
+    tiles = -(-s // TILE)
+    hdp = max(64, hd)
+    consumers = 2 if hdp > 256 else 1
+    return dict(
+        hdp=hdp, consumers=consumers, n=hdp // consumers, tiles=tiles,
+        launches=BWD_LAUNCHES["tc"],
+        prep_grid=(b * h + -(-(b * s * h) // 8),),
+        scores_threads=BWD_WG + 32,
+        scores_smem=1024 + BWD_SC_STAGES * (4 * TILE * 128 + 16),
+        scores_grid=(tiles * (tiles + 1) // 2, b * h),
+        products_threads=consumers * BWD_WG + 32,
+        products_smem=1024 + BWD_PR_STAGES * (2 * TILE * 128
+                                              + TILE * hdp * 2 + 16),
+        products_grid=(3 * b * h, tiles),
+        gates_threads=BWD_GATE_THREADS, gates_grid=(tiles, b * h))
+
+
+def bwd_score_tile(idx: int):
+    """The (query tile, key tile) of scores block ``idx``: the kernel's
+    ``tri`` (an fp32 square root, then exact integer corrections)."""
+    tt = int((float(np.sqrt(np.float32(8 * idx + 1), dtype=np.float32))
+              - 1.0) * 0.5)
+    while (tt + 1) * (tt + 2) // 2 <= idx:
+        tt += 1
+    while tt * (tt + 1) // 2 > idx:
+        tt -= 1
+    return tt, idx - tt * (tt + 1) // 2
+
+
+def bwd_product_steps(prod: int, rank: int, tiles: int):
+    """(output tile, the 64-position steps it walks) of products block
+    (``prod``: 0 dV, 1 dK, 2 dQ; ``rank``: 0 the heaviest)."""
+    rt = rank if prod < 2 else tiles - 1 - rank
+    steps = range(rt, tiles) if prod < 2 else range(0, rt + 1)
+    return rt, list(steps)
 
 
 def mlstm_scan_bwd_kernel(q, k, v, i_gate, f_gate, h, a, m, dh):
@@ -307,7 +381,7 @@ def mlstm_scan_bwd_kernel(q, k, v, i_gate, f_gate, h, a, m, dh):
     shape and type, contiguous).  bf16 takes the tensor cores
     (``launches_tc``), fp32 the CUDA cores (``launches_fp32``).  Returns
     (dq, dk, dv, di, df); raises on anything else and on a refused launch.
-    One call (seven launches) is one counted launch."""
+    One call (`BWD_LAUNCHES` kernel launches) is one counted launch."""
     ts = (q, k, v, i_gate, f_gate, h, a, m, dh)
     if q.device.type != "cuda" or any(t.device != q.device for t in ts):
         raise ValueError("mlstm_scan_bwd_kernel takes CUDA tensors on one "

@@ -37,11 +37,15 @@ The backward (`rmsnorm_bwd_kernel`, ``csrc/rmsnorm.cu``'s
 ``repro_rmsnorm_bwd``) computes in fp32, as the reference's jnp
 ``rmsnorm`` is differentiated: with ``r = 1/sqrt(mean(x²) + eps)``,
 ``dx = r·(dy∘s) − x·r³·mean(dy∘s∘x)`` in x's type and ``dscale`` the
-per-group sum of ``dy∘x·r`` in fp32, as per-block partial sums reduced
-in a fixed order (no atomics: repeated calls are bitwise equal).  Three
-launches a call, counted as one.  `RMSNormFn` is the autograd
-`Function` whose forward is the kernel and whose backward is this one;
-`kernels.ops.rmsnorm` takes it when an input requires grad.
+per-group sum of ``dy∘x·r`` in fp32.  Two launches a call: a block per
+chunk of `BWD_CHUNK` rows of one group reads x and dy once (by TMA bulk
+copies a few steps ahead, where a chunk takes several steps), on the
+forward's plan, several rows at a step, and writes dx and the chunk's
+column sums (row by row); then each group's chunk sums are added in chunk
+order.  No atomics in any sum: repeated calls are bitwise equal, and a
+folded cell's dscale is that of its own call.  `RMSNormFn` is the
+autograd `Function` whose forward is the kernel and whose backward is
+this one; `kernels.ops.rmsnorm` takes it when an input requires grad.
 
 `rmsnorm_plain` and `rmsnorm_bwd_plain` are the plain PyTorch versions
 (CPU tensors and tests).
@@ -192,7 +196,8 @@ def rmsnorm_kernel(x, scale, eps: float = 1e-5, cells: int = 1):
 
 rmsnorm_kernel.launches = 0
 
-BWD_CHUNK = 64   # rows a partial-sum block of the backward covers
+BWD_CHUNK = 64    # rows a block of the backward covers (one group's)
+BWD_LAUNCHES = 2  # kernel launches a backward call makes
 
 
 @functools.lru_cache(maxsize=1)
@@ -204,12 +209,32 @@ def _bwd_symbol():
     return fn
 
 
+@functools.lru_cache(maxsize=1)
+def _bwd_launches_symbol():
+    fn = build.load("rmsnorm").repro_rmsnorm_bwd_launches
+    fn.argtypes = []
+    fn.restype = ctypes.c_int64
+    return fn
+
+
+def bwd_kernel_launches() -> int:
+    """The kernel launches ``repro_rmsnorm_bwd`` has made in this process,
+    as its library counts them (each counted once its error check
+    passed): the difference across one call is the launches a call."""
+    return _bwd_launches_symbol()()
+
+
+def bwd_chunks(rows: int, group_rows: int) -> int:
+    """Blocks of the backward (chunks of `BWD_CHUNK` rows, none straddling
+    a group), and the rows of its partial-sum workspace."""
+    return rows // group_rows * -(-group_rows // BWD_CHUNK)
+
+
 def rmsnorm_bwd_kernel(x, scale, dy, eps: float = 1e-5, cells: int = 1):
     """The backward on the card: ``(dx, dscale)`` of `rmsnorm_kernel`'s
     output against ``dy`` (x's shape and type; contiguous), on the
     forward's plan (``cells`` as there).  ``dx`` is in x's type,
-    ``dscale`` fp32 in scale's shape.  One call (three launches) is one
-    counted launch."""
+    ``dscale`` fp32 in scale's shape.  Two launches, counted as one."""
     dtype, d, rows, group_rows = _checked(x, scale, "rmsnorm_bwd_kernel")
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device \
             or not dy.is_contiguous():
@@ -219,17 +244,16 @@ def rmsnorm_bwd_kernel(x, scale, dy, eps: float = 1e-5, cells: int = 1):
     dscale = torch.empty(scale.shape, dtype=torch.float32, device=x.device)
     if rows == 0:
         return dx, dscale.zero_()
-    groups = rows // group_rows
-    chunks = groups * -(-group_rows // BWD_CHUNK)
-    ws = torch.empty(rows + chunks * d, dtype=torch.float32, device=x.device)
+    part = torch.empty(bwd_chunks(rows, group_rows) * d, dtype=torch.float32,
+                       device=x.device)
     ptrs = (x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr())
     aligned = not (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) & 15
     code = _code(_plan_rows(rows, cells), d, dtype, x.element_size(),
                  aligned)
     index = x.device.index
     with device_scope(index):
-        err = _bwd_symbol()(*ptrs, dscale.data_ptr(), ws.data_ptr(), rows, d,
-                            group_rows, eps, code, raw_stream(index))
+        err = _bwd_symbol()(*ptrs, dscale.data_ptr(), part.data_ptr(), rows,
+                            d, group_rows, eps, code, raw_stream(index))
     if err != 0:
         raise RuntimeError(f"rmsnorm backward launch failed: CUDA error "
                            f"{err} at x{tuple(x.shape)} {x.dtype} plan "

@@ -849,6 +849,10 @@ def test_mlstm_scan_bwd_kernel_matches_plain(b, s, h, hd, dtype, gates):
             <= bar * float(w.float().abs().max())
     assert all(torch.equal(g, x)
                for g, x in zip(got, TMS.mlstm_scan_bwd_kernel(*ins)))
+    # the kernel launches of one call, as the kernel's library counts them
+    launched = TMS.bwd_kernel_launches()
+    TMS.mlstm_scan_bwd_kernel(*ins)
+    assert TMS.bwd_kernel_launches() - launched == TMS.BWD_LAUNCHES[path]
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, ig, fg)]
     before = TMS.mlstm_scan_bwd_kernel.launches
     TOPS.mlstm_scan(*leaves).backward(dh)
@@ -1163,6 +1167,10 @@ def test_rmsnorm_bwd_kernel_matches_plain(shape, dtype, groups):
     assert not bool(((ds - pds).abs() > 1e-4 * (1 + pds.abs())).any())
     dx2, ds2 = TRN.rmsnorm_bwd_kernel(x, scale, dy)
     assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+    # the kernel launches of one call, as the kernel's library counts them
+    launched = TRN.bwd_kernel_launches()
+    TRN.rmsnorm_bwd_kernel(x, scale, dy)
+    assert TRN.bwd_kernel_launches() - launched == TRN.BWD_LAUNCHES
 
 
 @pytest.mark.cuda
