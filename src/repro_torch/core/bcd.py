@@ -16,6 +16,7 @@ from repro_torch.core.convergence import ConvergenceModel
 from repro_torch.core.latency import LatencyModel
 from repro_torch.core.bs_opt import BSProblem, solve_bs
 from repro_torch.core.ms_opt import MSProblem
+from repro_torch.trace import count, span
 
 
 @dataclass
@@ -106,23 +107,27 @@ class HASFLOptimizer:
         history = [self.theta(b, cuts)]
         for _ in range(max_iter):
             # --- BS step (Proposition 1) --------------------------------
-            prob = self._bs_problem(cuts, b)
-            b_new = solve_bs(prob, b0=np.asarray(b, float))
-            # accept if it improves; also accept while infeasible (inf->inf)
-            # so the caps can grow across iterations.
-            if self.theta(b_new, cuts) <= history[-1] or not np.isfinite(history[-1]):
-                b = b_new
+            with span("policy.solve.bs"):
+                prob = self._bs_problem(cuts, b)
+                b_new = solve_bs(prob, b0=np.asarray(b, float))
+                # accept if it improves; also accept while infeasible
+                # (inf->inf) so the caps can grow across iterations.
+                if self.theta(b_new, cuts) <= history[-1] \
+                        or not np.isfinite(history[-1]):
+                    b = b_new
             # --- MS step (Dinkelbach, warm-started from current cuts) ---
-            ms = MSProblem(
-                self.profile, self.devices, self.sfl, self.conv,
-                np.asarray(b, float)
-            )
-            cuts_new = ms.solve(cuts0=np.asarray(cuts, int))
-            if self.theta(b, cuts_new) <= self.theta(b, cuts):
-                cuts = cuts_new
+            with span("policy.solve.ms"):
+                ms = MSProblem(
+                    self.profile, self.devices, self.sfl, self.conv,
+                    np.asarray(b, float)
+                )
+                cuts_new = ms.solve(cuts0=np.asarray(cuts, int))
+                if self.theta(b, cuts_new) <= self.theta(b, cuts):
+                    cuts = cuts_new
             history.append(self.theta(b, cuts))
             if abs(history[-2] - history[-1]) <= tol * max(1.0, history[-2]):
                 break
+        count("bcd_iterations", len(history) - 1)
         rl = self.lat.round_latency(b, cuts)
         l_c = int(np.max(cuts))
         return HASFLDecision(

@@ -24,6 +24,7 @@ import numpy as np
 from repro_torch.config import DeviceProfile, SFLConfig
 from repro_torch.core.profiles import LayerProfile
 from repro_torch.core.convergence import ConvergenceModel
+from repro_torch.trace import count
 
 
 @dataclass
@@ -149,6 +150,7 @@ class MSProblem:
                 best_cuts, best_theta = cuts0.copy(), self.theta(cuts0)
                 lam = self.num(cuts0) / self.den(cuts0)
         for _ in range(max_dinkelbach):
+            count("dinkelbach_iterations", 1)
             # parametric step: minimize Num - lam*Den over (cuts, L_c)
             cand_best, cand_val = None, float("inf")
             for l_c in range(1, l + 1):

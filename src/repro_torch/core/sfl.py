@@ -53,6 +53,11 @@ client-stacked ``stacked_loss``, whose per-client losses carry the MoE
 load-balance term, the legacy engine through its ``loss``; its eval is
 per token.  `make_hasfl_train_step` is the reference's SPMD HASFL step on
 one device, for every token family.
+
+The scheduler, each round's phases and the eval are marked by
+`repro_torch.trace.span`s (a flag check when no profiler runs), and each
+segment or per-round round counts its padded and useful rows
+(`count_rows`).
 """
 from __future__ import annotations
 
@@ -70,9 +75,22 @@ from repro_torch.core.profiles import LayerProfile
 from repro_torch.data.pipeline import DeviceClientStore
 from repro_torch.device import resolve
 from repro_torch.models.factory import Model
+from repro_torch.trace import count, span
 from repro_torch.training.optim import make_optimizer
 from repro_torch.utils.cells import by_cell
 from repro_torch.utils.tree import tree_leaves, tree_map
+
+
+def count_rows(rounds: int, pad: int, real, parts=None) -> None:
+    """Count ``rounds`` rounds' rows: every client's batch padded to ``pad``
+    rows is computed (``rows_computed``); of those, the real rows (``real``,
+    [N] a client each round) of the clients that the participation plan
+    ``parts`` ([rounds, N]; None: every client) keeps are useful
+    (``rows_useful``)."""
+    real = np.asarray(real)
+    count("rows_computed", rounds * real.size * pad)
+    count("rows_useful", rounds * real.sum() if parts is None
+          else ((np.asarray(parts) > 0) * real).sum())
 
 
 def pow2_bucket(n: int) -> int:
@@ -353,16 +371,19 @@ class SFLEdgeSimulator:
         leaves = _with_grad(stacked)
         cell = None if cells == 1 \
             else tree_leaves(leaves[0])[0].shape[0] // cells
-        losses = self.model.stacked_loss(leaves, batch, cell_size=cell)
-        losses.sum().backward()
+        with span("round.forward"):
+            losses = self.model.stacked_loss(leaves, batch, cell_size=cell)
+        with span("round.backward"):
+            losses.sum().backward()
         grads = tree_map(lambda a: a.grad, leaves)
         scale = None
         if self.sfl.clip_norm:
-            norm = by_cell(lambda *gs: torch.sqrt(sum(
-                torch.sum(torch.square(g.float()),
-                          dim=tuple(range(1, g.dim())))
-                for g in gs)), cell, *tree_leaves(grads))
-            scale = clip_scale_from_norm(norm, self.sfl.clip_norm)
+            with span("round.clip"):
+                norm = by_cell(lambda *gs: torch.sqrt(sum(
+                    torch.sum(torch.square(g.float()),
+                              dim=tuple(range(1, g.dim())))
+                    for g in gs)), cell, *tree_leaves(grads))
+                scale = clip_scale_from_norm(norm, self.sfl.clip_norm)
         return losses.detach(), grads, scale
 
     def _round(self, stacked, batch, masks, do_agg: bool, part=None,
@@ -370,11 +391,12 @@ class SFLEdgeSimulator:
         """One HASFL round over the stacked units; returns (the updated
         units, losses [N])."""
         losses, grads, scale = self._client_grads(stacked, batch, cells)
-        stacked = SP.hasfl_round_update(
-            stacked, grads, masks, do_agg, self.sfl.lr,
-            grad_scale=scale, impl=self._update_ops_impl,
-            participation=part, group=self._group,
-            edge_size=self._edge_size, cells=cells)
+        with span("round.update"):
+            stacked = SP.hasfl_round_update(
+                stacked, grads, masks, do_agg, self.sfl.lr,
+                grad_scale=scale, impl=self._update_ops_impl,
+                participation=part, group=self._group,
+                edge_size=self._edge_size, cells=cells)
         return stacked, losses
 
     def _run_segment(self, t0: int, idx, row_mask, masks, parts=None):
@@ -397,18 +419,24 @@ class SFLEdgeSimulator:
         clients on one leading axis of G·N rows, with ``masks`` ``[G,
         U]``; every cell's rounds are computed as by its own run."""
         interval = self.sfl.agg_interval
-        idx_d = torch.as_tensor(idx).to(self.device, torch.long)
-        mask_d = torch.as_tensor(row_mask).to(self.device)
-        parts_d = None if parts is None else \
-            torch.as_tensor(parts).to(self.device)
+        count_rows(idx.shape[0], idx.shape[2], np.asarray(row_mask).sum(1),
+                   parts)
+        with span("segment.upload"):
+            idx_d = torch.as_tensor(idx).to(self.device, torch.long)
+            mask_d = torch.as_tensor(row_mask).to(self.device)
+            parts_d = None if parts is None else \
+                torch.as_tensor(parts).to(self.device)
         losses = []
         t = t0
         for r in range(idx.shape[0]):
             t += 1
-            batch = DeviceClientStore.device_batch(arrays, idx_d[r], mask_d)
-            stacked, loss = self._round(
-                stacked, batch, masks, (t % interval) == 0,
-                None if parts_d is None else parts_d[r], cells)
+            with span("round", t):
+                with span("round.gather"):
+                    batch = DeviceClientStore.device_batch(arrays, idx_d[r],
+                                                           mask_d)
+                stacked, loss = self._round(
+                    stacked, batch, masks, (t % interval) == 0,
+                    None if parts_d is None else parts_d[r], cells)
             losses.append(loss)
         return stacked, torch.stack(losses)
 
@@ -418,12 +446,15 @@ class SFLEdgeSimulator:
         round's ``b_max``, stacked and uploaded once, then the stacked
         round body (`_round`).  Returns the losses [N] on the device."""
         b_max = int(np.max(b))
-        per = [self.sampler.sample(i, int(b[i]), pad_to=b_max)
-               for i in range(self.n)]
-        batch = {k: torch.as_tensor(np.stack([p[k] for p in per]))
-                 .to(self.device) for k in per[0]}
-        if part is not None:
-            part = torch.as_tensor(part).to(self.device)
+        count_rows(1, b_max, self._real_rows(b),
+                   None if part is None else [part])
+        with span("round.gather"):
+            per = [self.sampler.sample(i, int(b[i]), pad_to=b_max)
+                   for i in range(self.n)]
+            batch = {k: torch.as_tensor(np.stack([p[k] for p in per]))
+                     .to(self.device) for k in per[0]}
+            if part is not None:
+                part = torch.as_tensor(part).to(self.device)
         self._stacked, losses = self._round(
             self._stacked, batch, self._unit_masks(cuts), do_agg, part)
         return losses
@@ -449,9 +480,12 @@ class SFLEdgeSimulator:
         gamma = self.sfl.lr
         client_idx = [int(u) for u in np.flatnonzero(self._unit_masks(cuts))]
         b_max = int(np.max(b))
+        count_rows(1, b_max, self._real_rows(b),
+                   None if part is None else [part])
         losses, grads_all = [], []
         for i in range(self.n):
-            batch = self.sampler.sample(i, int(b[i]), pad_to=b_max)
+            with span("round.gather"):
+                batch = self.sampler.sample(i, int(b[i]), pad_to=b_max)
             (loss, _), g = self._grad_fn(self._client_units[i], batch)
             losses.append(loss)
             grads_all.append(g)
@@ -594,17 +628,20 @@ class SFLEdgeSimulator:
             self._record_policy(res, b, cuts)
 
         while t < rounds:
-            nxt = self._next_boundary(t, eval_every, reconf, rounds, ckpt)
-            masks = self._unit_masks(cuts)
-            b_pad = pow2_bucket(int(np.max(b)))
-            idx = self.store.segment_indices(nxt - t, b, b_pad)
-            row_mask = self.store.row_mask(b, b_pad)
-            parts = self._segment_participation(t, nxt, b, cuts, scenario)
+            with span("segment.plan"):
+                nxt = self._next_boundary(t, eval_every, reconf, rounds, ckpt)
+                masks = self._unit_masks(cuts)
+                b_pad = pow2_bucket(int(np.max(b)))
+                idx = self.store.segment_indices(nxt - t, b, b_pad)
+                row_mask = self.store.row_mask(b, b_pad)
+                parts = self._segment_participation(t, nxt, b, cuts,
+                                                    scenario)
             seg_losses = self._segment_fn(t, idx, row_mask, masks, parts)
 
             # clock: accumulate round-by-round on host (the reference's
             # float summation order)
-            clock = self._advance_clock(clock, t, nxt, b, cuts, scenario)
+            with span("segment.clock"):
+                clock = self._advance_clock(clock, t, nxt, b, cuts, scenario)
             t = nxt
 
             if self._bank is not None and t < rounds \
@@ -613,7 +650,8 @@ class SFLEdgeSimulator:
                 # departing cohort's state is already folded into the
                 # Eq. 7 broadcast, so the bank swaps pools/profiles and
                 # re-broadcasts the aggregate (DESIGN.md §15)
-                self._bank.rotate(self, t)
+                with span("mesh.rotate"):
+                    self._bank.rotate(self, t)
             b, cuts = self._maybe_reconfigure(
                 res, policy_fn, t, reconf, rounds, b, cuts)
             if t % eval_every == 0 or t == rounds:
@@ -645,7 +683,8 @@ class SFLEdgeSimulator:
             part, t_split, t_agg = self._fault_round(b, cuts)
             step = self._vectorized_round if self.vectorized \
                 else self._legacy_round
-            losses = step(b, cuts, do_agg, part)
+            with span("round", t):
+                losses = step(b, cuts, do_agg, part)
             clock += t_split
             if do_agg:
                 clock += t_agg
@@ -692,13 +731,15 @@ class SFLEdgeSimulator:
             self._record_policy(res, b, cuts)
 
         while t < rounds:
-            nxt = self._next_boundary(t, eval_every, reconf, rounds, ckpt)
-            masks = self._unit_masks(cuts)
-            b_eff = traffic.effective_batches(b)
-            b_pad = pow2_bucket(int(np.max(b_eff)))
-            idx = self.store.segment_indices(nxt - t, b_eff, b_pad)
-            row_mask = self.store.row_mask(b_eff, b_pad)
-            parts = traffic.plan_segment(self, scenario, t, nxt, b_eff, cuts)
+            with span("segment.plan"):
+                nxt = self._next_boundary(t, eval_every, reconf, rounds, ckpt)
+                masks = self._unit_masks(cuts)
+                b_eff = traffic.effective_batches(b)
+                b_pad = pow2_bucket(int(np.max(b_eff)))
+                idx = self.store.segment_indices(nxt - t, b_eff, b_pad)
+                row_mask = self.store.row_mask(b_eff, b_pad)
+                parts = traffic.plan_segment(self, scenario, t, nxt, b_eff,
+                                             cuts)
             seg_losses = self._segment_fn(t, idx, row_mask, masks, parts)
             t = nxt
 
@@ -730,6 +771,11 @@ class SFLEdgeSimulator:
         """The [U] client-specific unit mask of the decision's deepest cut."""
         l_c_units = int(np.max(self._unit_cuts(np.asarray(cuts))))
         return SP.client_unit_mask(self.cfg, len(self.units), l_c_units)
+
+    def _real_rows(self, b) -> np.ndarray:
+        """Each client's real (unpadded) rows a round: min(b_i, |pool_i|)."""
+        pools = [len(p) for p in self.sampler.client_indices]
+        return np.minimum(np.asarray(b, int), pools)
 
     def _record_policy(self, res: SimResult, b, cuts) -> None:
         res.b_history.append(np.asarray(b).copy())
@@ -776,8 +822,12 @@ class SFLEdgeSimulator:
         model and the train-loss mean to occupied slots — empty slots
         train a weight-0 dummy batch whose loss is meaningless.
         """
-        tl, ta = self._eval(self._aggregate_model(live), self.test_batch)
-        losses = losses.cpu().numpy()
+        with span("eval.aggregate"):
+            units = self._aggregate_model(live)
+        with span("eval.forward"):
+            tl, ta = self._eval(units, self.test_batch)
+        with span("eval.fetch"):
+            losses = losses.cpu().numpy()
         if live is not None and live.any():
             losses = losses[np.asarray(live, bool)]
         mean_loss = float(np.mean(losses))

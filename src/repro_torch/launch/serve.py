@@ -20,9 +20,9 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from repro_torch.device import resolve
+from repro_torch.trace import span
 
 # The full-width serving traffic of ``chip_smoke.py``'s serve phases and of
 # ``python -m repro_torch.trace --serve``: ``batch`` prompts of ``prompt``
@@ -89,7 +89,7 @@ def serve(cfg, params, tokens, gen: int, device=None) -> ServeResult:
     batch = {"tokens": toks, **stub_inputs(cfg, b, s, device)}
     _sync(device)
     t0 = time.perf_counter()
-    with record_function("serve.prefill"):
+    with span("serve.prefill"):
         logits, cache = model.prefill(params, batch, cache_len=s + gen)
         _sync(device)
     t_prefill = time.perf_counter() - t0
@@ -97,7 +97,7 @@ def serve(cfg, params, tokens, gen: int, device=None) -> ServeResult:
     tok = logits[:, 0].argmax(dim=-1)
     out = [tok]
     t0 = time.perf_counter()
-    with record_function("serve.decode"):
+    with span("serve.decode"):
         for i in range(gen):
             step = {"tokens": tok[:, None],
                     "positions": torch.full((b,), s + i, dtype=torch.int32,

@@ -32,6 +32,7 @@ from repro_torch.core import baselines
 from repro_torch.core.bcd import HASFLOptimizer
 from repro_torch.core.convergence import estimate_constants
 from repro_torch.core.profiles import LayerProfile
+from repro_torch.trace import count, span
 from repro_torch.utils.tree import tree_leaves
 
 
@@ -94,20 +95,25 @@ def estimate_profile_constants(
     for _ in range(n_batches):
         idx = rng.choice(n_total, size=take, replace=False)
         batch = {k: np.asarray(v)[idx] for k, v in arrays.items()}
-        (_, _), grads = sim._grad_fn(units, batch)
-        grad_samples.append([_flat_grad(g) for g in grads])
+        with span("policy.estimate.grad"):
+            (_, _), grads = sim._grad_fn(units, batch)
+        with span("policy.estimate.to_host"):
+            grad_samples.append([_flat_grad(g) for g in grads])
+        count("estimate_bytes_to_host", sum(
+            x.numel() * x.element_size() for x in tree_leaves(grads)))
 
-    per_unit = estimate_constants(grad_samples)
-    prof = sim.profile
-    n_layers = prof.n_layers
-    spans = unit_layer_spans(sim.cfg, n_layers, len(units))
-    g_sq = np.zeros(n_layers)
-    sigma_sq = np.zeros(n_layers)
-    w = np.maximum(prof.params, 1.0)
-    for u, (lo, hi) in enumerate(spans):
-        share = w[lo:hi] / w[lo:hi].sum()
-        g_sq[lo:hi] += per_unit["g_sq"][u] * share
-        sigma_sq[lo:hi] += per_unit["sigma_sq"][u] * share
+    with span("policy.estimate.stats"):
+        per_unit = estimate_constants(grad_samples)
+        prof = sim.profile
+        n_layers = prof.n_layers
+        spans = unit_layer_spans(sim.cfg, n_layers, len(units))
+        g_sq = np.zeros(n_layers)
+        sigma_sq = np.zeros(n_layers)
+        w = np.maximum(prof.params, 1.0)
+        for u, (lo, hi) in enumerate(spans):
+            share = w[lo:hi] / w[lo:hi].sum()
+            g_sq[lo:hi] += per_unit["g_sq"][u] * share
+            sigma_sq[lo:hi] += per_unit["sigma_sq"][u] * share
     return {"g_sq": g_sq, "sigma_sq": sigma_sq}
 
 
@@ -179,7 +185,8 @@ class HASFLController:
 
     def __call__(self, sim, rng):
         if self.estimate:
-            self._update_constants(sim)
+            with span("policy.estimate", self.decisions):
+                self._update_constants(sim)
         if self._opt is None:
             self._opt = HASFLOptimizer(self.profile, sim.devices, self.sfl)
         else:
@@ -187,7 +194,9 @@ class HASFLController:
         b0 = cuts0 = None
         if self._prev is not None:
             b0, cuts0 = self._prev
-        d = self._opt.solve(b0=b0, cuts0=cuts0, max_iter=self.solve_iters)
+        with span("policy.solve", self.decisions):
+            d = self._opt.solve(b0=b0, cuts0=cuts0,
+                                max_iter=self.solve_iters)
         self._prev = (d.b.copy(), d.cuts.copy())
         self.decisions += 1
         return d.b, d.cuts
