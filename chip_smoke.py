@@ -269,6 +269,18 @@ nothing of the reference package.  Phases, each printing one JSON line:
    decode step (the long_500k combo), each combo's FLOPs, bytes,
    roofline terms, model-FLOPs share and predicted per-device bytes
    beside the phase's measured seconds and peak.
+31. ``grad_moments``: the HASFL estimate's per-unit gradient moments
+   (``csrc/grad_moments.cu``) at VGG-16's decision — three fp32 samples
+   of its 32 leaves in 16 units — bitwise the kernel's order emulated on
+   the host (`grad_moments_plain`) and bitwise repeatable, within 1e-12
+   of the host path (`_flat_grad` copies, `estimate_constants`); timed
+   as the wrapper's call (CUDA events, its table's upload included), as
+   the two launches alone (`device_ms`, from a CUDA graph, and by kernel
+   under ``split``), beside the bytes bound, the host path's seconds
+   (``plain_s``) and the straightforward `torch` fp64 ops on the card
+   (``library_ms``); then the kernel and `torch` at smollm-135m's 32
+   units (bf16 weights, fp32 norms), within 1e-12 of each other.  The
+   ``train`` phase's HASFL controller takes its moments through it.
 
 ``grid_cross`` also folds token grids (`TOKEN_GRIDS`: smollm-tiny fp32
 and bf16, reduced dbrx fp32), each cell bitwise its own run on the card;
@@ -565,7 +577,7 @@ def phase_build():
     t0 = time.perf_counter()
     sources = ["batched_matmul", "clip_sgd", "flash_attention",
                "flash_attention_bwd", "rmsnorm", "mlstm_scan",
-               "mlstm_scan_bwd"]
+               "mlstm_scan_bwd", "grad_moments"]
     build.build(sources)
     seconds = time.perf_counter() - t0
     ptxas = {name: _ptxas_lines(build.BUILD_LOGS.get(name, ""))
@@ -1570,7 +1582,108 @@ def phase_train():
           f"({spec.rounds})")
     check(launches["clip_sgd_ext"] == 0,
           "train: the flat path launched the external-mean update")
+    check(launches["grad_moments"] > 0,
+          "train: the controller's estimate never launched its moments")
     return out
+
+
+def _moments_library(samples):
+    """The ``[U, 2]`` moments by straightforward `torch` fp64 ops on the
+    card: each unit's samples concatenated, widened and stacked."""
+    import torch
+    from repro_torch.utils.tree import tree_leaves
+
+    out = []
+    for u in range(len(samples[0])):
+        x = torch.stack([torch.cat([t.reshape(-1) for t in tree_leaves(s[u])])
+                         .double() for s in samples])
+        out.append(torch.stack([(x * x).sum(1).mean(),
+                                ((x - x.mean(0)) ** 2).sum(1).mean()]))
+    return torch.stack(out)
+
+
+def phase_grad_moments():
+    import numpy as np
+    import torch
+    from repro_torch.core.convergence import estimate_constants
+    from repro_torch.core.split import to_units
+    from repro_torch.config import get_config
+    from repro_torch.kernels import grad_moments as GM
+    from repro_torch.kernels.launch import raw_stream
+    from repro_torch.models.factory import build_model
+    from repro_torch.scenarios.controller import _flat_grad
+    from repro_torch.timing import graph_ms, launch_split
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    def rel(a, b):
+        return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+
+    # three fp32 gradient samples of VGG-16's 16 units (bias, weight)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sizes = vgg16_leaf_sizes()
+    samples = [[[torch.randn(d, device="cuda", generator=gen) * 1e-2
+                 for d in sizes[i:i + 2]] for i in range(0, len(sizes), 2)]
+               for _ in range(3)]
+    before = GM.grad_moments_kernel.launches
+    got = GM.grad_moments_kernel(samples)
+    again = GM.grad_moments_kernel(samples)
+    torch.cuda.synchronize()
+    check(GM.grad_moments_kernel.launches == before + 2 * GM.LAUNCHES,
+          "grad_moments: not two launches a call")
+    got, again = got.cpu().numpy(), again.cpu().numpy()
+    check(np.array_equal(got, again), "grad_moments: not bitwise repeatable")
+    check(np.array_equal(got, GM.grad_moments_plain(samples)),
+          "grad_moments: not the emulated order bitwise")
+    t0 = time.perf_counter()
+    est = estimate_constants([[_flat_grad(u) for u in s] for s in samples])
+    plain_s = time.perf_counter() - t0
+    want = np.stack([est["g_sq"], est["sigma_sq"]], axis=1)
+    err = rel(got, want)
+    check(err <= 1e-12, f"grad_moments: {err} from the host path")
+    units = GM.unit_leaves(samples)
+    words, entries, chunks = GM.table(units)
+    tab = torch.from_numpy(words).cuda()
+    partials = torch.empty(chunks * 6, dtype=torch.float64, device="cuda")
+    out = torch.empty((len(units), 2), dtype=torch.float64, device="cuda")
+    fn = GM.symbol()
+
+    def launches():
+        fn(tab.data_ptr(), entries, tab.data_ptr() + 8 * entries
+           * GM.ENTRY_WORDS, len(units), chunks, 3, partials.data_ptr(),
+           out.data_ptr(), raw_stream(0))
+
+    elements = sum(t.numel() for s in samples[:1] for u in s for t in u)
+    res = {"phase": "grad_moments", "units": len(units), "leaves": entries,
+           "elements": elements, "chunks": chunks, "max_rel_err": err,
+           "ms": time_ms(lambda: GM.grad_moments_kernel(samples), reps=20),
+           "device_ms": graph_ms(launches, calls=10) / 10,
+           "split": launch_split(launches),
+           "bound_ms": 3 * 4 * elements / 3.35e12 * 1e3,
+           "plain_s": plain_s,
+           "library_ms": time_ms(lambda: _moments_library(samples), reps=5)}
+    lib = _moments_library(samples).cpu().numpy()
+    res["library_rel_err"] = rel(lib, want)
+    del samples, tab, partials, out
+    cfg = get_config("smollm-135m")
+    shapes = to_units(cfg, build_model(cfg).init(
+        torch.Generator().manual_seed(0), "meta"))[0]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    lm = [[tree_map(lambda t: (torch.randn(t.shape, device="cuda",
+                                           generator=gen) * 1e-3)
+                    .to(t.dtype), u) for u in shapes] for _ in range(3)]
+    got = GM.grad_moments_kernel(lm).cpu().numpy()
+    lib = _moments_library(lm).cpu().numpy()
+    err = rel(got, lib)
+    check(err <= 1e-12, f"grad_moments smollm-135m: {err} from torch fp64")
+    elements = sum(t.numel() for t in tree_leaves(lm[0]))
+    item = sum(t.numel() * t.element_size() for t in tree_leaves(lm[0]))
+    res["smollm_135m"] = {
+        "units": len(shapes), "elements": elements, "max_rel_err": err,
+        "ms": time_ms(lambda: GM.grad_moments_kernel(lm), reps=5),
+        "bound_ms": 3 * item / 3.35e12 * 1e3,
+        "library_ms": time_ms(lambda: _moments_library(lm), reps=2)}
+    emit(res)
+    return res
 
 
 def _allreduce_ms(group, leaves=None) -> float:
@@ -5787,6 +5900,7 @@ def main(argv=None) -> int:
     detail = {"gpu": smi}
     gemm, clip, ext, flash, norm, mlstm = phase_kernels(detail)
     train = phase_train()
+    phase_grad_moments()
     mesh = phase_mesh()
     phase_cross_device()
     phase_mesh_cross()

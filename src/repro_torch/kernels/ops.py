@@ -23,6 +23,7 @@ import torch
 from repro_torch.kernels import batched_conv as BC
 from repro_torch.kernels import clip_sgd as CS
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import grad_moments as GM
 from repro_torch.kernels import meta as META
 from repro_torch.kernels import mlstm_scan as MS
 from repro_torch.kernels import rmsnorm as RN
@@ -162,6 +163,7 @@ KERNELS = {
     "rmsnorm_bwd": RN.rmsnorm_bwd_kernel,
     "mlstm_scan": MS.mlstm_scan_kernel,
     "mlstm_scan_bwd": MS.mlstm_scan_bwd_kernel,
+    "grad_moments": GM.grad_moments_kernel,
 }
 
 

@@ -15,9 +15,11 @@ re-decides (b, cuts) against the environment as it is *now*:
   the fixed-BS / fixed-MS / fixed-uniform classics) through the *same*
   trace stream and boundary schedule, so comparisons are paired.
 
-All host-side numpy: decisions are identical across the three simulator
-round engines, preserving the ulp-exact tri-engine equivalence even
-under scenario-driven mid-run reconfiguration (tests/test_scenarios.py).
+Host-side numpy on the CPU: decisions are identical across the three
+simulator round engines, preserving the ulp-exact tri-engine equivalence
+even under scenario-driven mid-run reconfiguration
+(tests/test_scenarios.py).  On the card the estimate's gradient moments
+are taken there (`kernels.grad_moments`); the rest stays host numpy.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from repro_torch.core import baselines
 from repro_torch.core.bcd import HASFLOptimizer
 from repro_torch.core.convergence import estimate_constants
 from repro_torch.core.profiles import LayerProfile
+from repro_torch.kernels.grad_moments import grad_moments_kernel
 from repro_torch.trace import count, span
 from repro_torch.utils.tree import tree_leaves
 
@@ -80,10 +83,15 @@ def estimate_profile_constants(
     Draws ``n_batches`` minibatches from the full training pool (its own
     RNG — the simulator's authoritative sampling stream is untouched),
     computes gradients of the current aggregated model w̄ per unit, and
-    feeds the per-unit flattened gradients to
-    `convergence.estimate_constants`; each unit's moments are then spread
-    over its profile-layer span proportionally to the per-layer parameter
+    takes each unit's moments; each unit's moments are then spread over
+    its profile-layer span proportionally to the per-layer parameter
     counts (the same weighting the priors use).
+
+    Gradients on the CPU go to the host as fp64 numpy copies, and
+    `convergence.estimate_constants` takes the moments there.  Gradients on
+    the card stay there: `kernels.grad_moments` takes the moments in one
+    pass over the samples (fp64, the same sums in another order), and only
+    the ``[units, 2]`` moments cross to the host.
     """
     rng = rng or np.random.default_rng(0)
     units = sim._aggregate_model()
@@ -92,18 +100,30 @@ def estimate_profile_constants(
     take = min(batch_size, n_total)
 
     grad_samples = []
+    on_card = False
     for _ in range(n_batches):
         idx = rng.choice(n_total, size=take, replace=False)
         batch = {k: np.asarray(v)[idx] for k, v in arrays.items()}
         with span("policy.estimate.grad"):
             (_, _), grads = sim._grad_fn(units, batch)
+        on_card = tree_leaves(grads)[0].is_cuda
+        if on_card:
+            grad_samples.append(grads)
+            continue
         with span("policy.estimate.to_host"):
             grad_samples.append([_flat_grad(g) for g in grads])
         count("estimate_bytes_to_host", sum(
             x.numel() * x.element_size() for x in tree_leaves(grads)))
 
     with span("policy.estimate.stats"):
-        per_unit = estimate_constants(grad_samples)
+        if on_card:
+            moments = grad_moments_kernel(grad_samples)
+            with span("policy.estimate.to_host"):
+                moments = moments.cpu().numpy()
+            count("estimate_bytes_to_host", moments.nbytes)
+            per_unit = {"g_sq": moments[:, 0], "sigma_sq": moments[:, 1]}
+        else:
+            per_unit = estimate_constants(grad_samples)
         prof = sim.profile
         n_layers = prof.n_layers
         spans = unit_layer_spans(sim.cfg, n_layers, len(units))

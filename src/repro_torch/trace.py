@@ -14,7 +14,10 @@ runs; under ``torch.profiler`` it is a host range on the profiler's clock
 side copy of it) and never syncs the card.  `count` keeps counters that
 the program bumps once a segment or a policy call: ``rows_computed`` and
 ``rows_useful`` (padded against real rows), ``bcd_iterations``,
-``dinkelbach_iterations`` and ``estimate_bytes_to_host``.  `profiled`
+``dinkelbach_iterations`` and ``estimate_bytes_to_host`` (the bytes the
+estimate copies to the host: every gradient sample where the gradients are
+on the CPU, only the ``[units, 2]`` fp64 moments where they are on the
+card).  `profiled`
 holds what was counted, and each span's calls and host seconds, while a
 profile recorded.  `SpanTrace` reduces a profile to a table by span.
 

@@ -336,7 +336,8 @@ def test_cpu_tensors_take_the_plain_versions():
     assert TOPS.launch_counts() == {
         "batched_matmul": 0, "clip_sgd": 0, "clip_sgd_ext": 0,
         "flash_attention": 0, "flash_attention_bwd": 0, "rmsnorm": 0,
-        "rmsnorm_bwd": 0, "mlstm_scan": 0, "mlstm_scan_bwd": 0}
+        "rmsnorm_bwd": 0, "mlstm_scan": 0, "mlstm_scan_bwd": 0,
+        "grad_moments": 0}
 
 
 def test_kernel_launchers_refuse_cpu_tensors():

@@ -12,7 +12,10 @@ taken in another order (1e-5 relative); the conv and both updates take
 the reference's own bars (2e-5 forward, 2e-4 gradients, 2e-6 update), as
 do the token-model kernels (flash attention 2e-5 fp32 / 2e-2 bf16,
 RMSNorm 2e-2, mLSTM scan 2e-4 fp32 / 3e-2 bf16).  The case lists are
-shared with the CPU parity tests in `test_torch_kernels.py`.
+shared with the CPU parity tests in `test_torch_kernels.py`.  The HASFL
+estimate's gradient moments are bitwise their emulated order
+(`grad_moments_plain`) and within 1e-12 of the host path's numpy
+(`estimate_constants`): the same fp64 sums taken in another order.
 """
 import numpy as np
 import pytest
@@ -22,6 +25,7 @@ from repro_torch.clip_sgd_ablation import vgg16_leaf_sizes
 from repro_torch.kernels import batched_conv as TBC
 from repro_torch.kernels import clip_sgd as TCS
 from repro_torch.kernels import flash_attention as TFA
+from repro_torch.kernels import grad_moments as TGM
 from repro_torch.kernels import mlstm_scan as TMS
 from repro_torch.kernels import ops as TOPS
 from repro_torch.kernels import rmsnorm as TRN
@@ -1227,3 +1231,158 @@ def test_clip_sgd_leaves_kernel_takes_bf16_leaves(n, part):
         np.testing.assert_allclose(g.float().cpu().numpy(),
                                    wv.to(dt).float().cpu().numpy(),
                                    rtol=2 ** -7, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the HASFL estimate's per-unit gradient moments (csrc/grad_moments.cu)
+# against the host path's numpy, and the controller on either path
+# ---------------------------------------------------------------------------
+
+F32, BF16 = torch.float32, torch.bfloat16
+_VGG16 = vgg16_leaf_sizes()
+GRAD_MOMENT_CASES = {
+    # unit after unit, its leaves as (elements, dtype, offset into a
+    # buffer: misaligned for the 16-byte vectors where not 0)
+    "fp32": [[(4096, F32, 0), (64, F32, 0)], [(20000, F32, 0)]],
+    "bf16": [[(9000 * 8, BF16, 0), (576, F32, 0)], [(576, BF16, 0)],
+             [(24576, BF16, 0)]],
+    "ragged": [[(10, F32, 0), (8195, F32, 0)], [(8199, BF16, 0),
+                                                (7, BF16, 0)]],
+    "misaligned": [[(4096, F32, 1), (16384, BF16, 3)], [(1, F32, 0)]],
+    "one_element": [[(1, F32, 0)], [(1, BF16, 0)]],
+    "vgg16": [[(d, F32, 0) for d in _VGG16[i:i + 2]]
+              for i in range(0, len(_VGG16), 2)],
+    # 300 leaves in one pair of launches: the table lives in device
+    # memory, so a launch is not held to a table passed by value
+    # (clip_sgd's `CAPACITY` of 64)
+    "many_leaves": [[(37 * (u + 1), F32, 0), (128, BF16, 0), (5, F32, 0)]
+                    for u in range(100)],
+}
+
+
+def _grad_samples(spec, k, seed, zero=False):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for _ in range(k):
+        units = []
+        for u, unit in enumerate(spec):
+            leaves = []
+            for i, (n, dtype, offset) in enumerate(unit):
+                x = torch.randn(n + offset, device="cuda", generator=gen) \
+                    * 10.0 ** ((u + i) % 5 - 2)
+                x = torch.zeros_like(x) if zero else x
+                leaves.append(x.to(dtype)[offset:])
+            units.append(leaves)
+        out.append(units)
+    return out
+
+
+def _host_moments(samples):
+    from repro_torch.core.convergence import estimate_constants
+    from repro_torch.scenarios.controller import _flat_grad
+
+    est = estimate_constants([[_flat_grad(u) for u in s] for s in samples])
+    return np.stack([est["g_sq"], est["sigma_sq"]], axis=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,k", [(c, 3) for c in sorted(
+    GRAD_MOMENT_CASES)] + [("bf16", 2), ("ragged", 4), ("fp32", 1)])
+def test_grad_moments_kernel_matches_the_host_path(case, k):
+    _need_card()
+    samples = _grad_samples(GRAD_MOMENT_CASES[case], k, seed=len(case) + k)
+    before = TGM.grad_moments_kernel.launches
+    got = TGM.grad_moments_kernel(samples)
+    again = TGM.grad_moments_kernel(samples)
+    torch.cuda.synchronize()
+    assert TGM.grad_moments_kernel.launches == before + 2 * TGM.LAUNCHES
+    got, again = got.cpu().numpy(), again.cpu().numpy()
+    assert np.array_equal(got.view(np.int64), again.view(np.int64))
+    assert np.array_equal(got, TGM.grad_moments_plain(samples))
+    want = _host_moments(samples)
+    assert np.all(np.abs(got - want) <= 1e-12 * np.abs(want))
+    assert (want[:, 0] > 0).all() and (want[:, 1] > 0).all() == (k > 1)
+
+
+@pytest.mark.cuda
+def test_grad_moments_kernel_of_a_zero_gradient_is_zero():
+    _need_card()
+    samples = _grad_samples(GRAD_MOMENT_CASES["vgg16"], 3, 0, zero=True)
+    got = TGM.grad_moments_kernel(samples).cpu().numpy()
+    assert got.shape == (16, 2) and not got.any()
+
+
+@pytest.mark.cuda
+def test_grad_moments_kernel_refuses_mixed_samples():
+    _need_card()
+    a = _grad_samples(GRAD_MOMENT_CASES["fp32"], 2, 0)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        TGM.grad_moments_kernel([a[0], [[t.cpu() for t in u] for u in a[1]]])
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        TGM.grad_moments_kernel([a[0], [[t.double() for t in u]
+                                        for u in a[1]]])
+
+
+@pytest.mark.cuda
+def test_controller_estimate_on_the_card_matches_the_host_path(monkeypatch):
+    """A small VGG's HASFL controller on the card (the kernel) beside one
+    fed the same three gradient samples copied to the host (numpy), over
+    the decisions of a 6-round run: each decision's per-layer G²/σ² within
+    1e-12, the blended constants too, (b, cuts) bitwise, and only the
+    ``[units, 2]`` fp64 moments copied to the host."""
+    _need_card()
+    from repro_torch import trace as T
+    from repro_torch.api import Session
+    from repro_torch.scenarios import controller as C
+    from repro_torch.utils.tree import tree_map
+
+    spec = _dynamic_spec()
+    sess = Session(spec)
+    sim = sess.sim
+    kernel, estimate = C.grad_moments_kernel, C.estimate_profile_constants
+    seen, ests = [], []
+
+    def spy_kernel(samples):
+        seen.append(samples)
+        return kernel(samples)
+
+    def spy_estimate(*args, **kw):
+        ests.append(estimate(*args, **kw))
+        return ests[-1]
+
+    monkeypatch.setattr(C, "grad_moments_kernel", spy_kernel)
+    monkeypatch.setattr(C, "estimate_profile_constants", spy_estimate)
+    card = C.HASFLController(sess.profile, sess.sfl, seed=5)
+    host = C.HASFLController(sess.profile, sess.sfl, seed=5)
+    n_units = len(sim.units)
+    decisions = []
+
+    def both(sim, rng):
+        before = T.counts().get("estimate_bytes_to_host", 0)
+        b, cuts = card(sim, rng)
+        sent = T.counts()["estimate_bytes_to_host"] - before
+        on_host = iter([[tree_map(lambda t: t.detach().cpu(), u) for u in s]
+                        for s in seen.pop()])
+        sim._grad_fn = lambda units, batch: ((None, None), next(on_host))
+        try:
+            hb, hcuts = host(sim, rng)
+        finally:
+            del sim._grad_fn
+        decisions.append((sent, (b, cuts), (hb, hcuts), ests[-2], ests[-1],
+                          card.profile.g_sq.copy(), host.profile.g_sq.copy(),
+                          card.profile.sigma_sq.copy(),
+                          host.profile.sigma_sq.copy()))
+        return b, cuts
+
+    sim.run(both, rounds=spec.rounds, eval_every=spec.eval_every,
+            reconfigure_every=spec.reconfigure_every)
+    assert len(decisions) >= 3 and not seen
+    for sent, (b, cuts), (hb, hcuts), e_card, e_host, *blended in decisions:
+        assert sent == n_units * 2 * 8
+        assert np.array_equal(b, hb) and np.array_equal(cuts, hcuts)
+        for key in ("g_sq", "sigma_sq"):
+            assert np.all(np.abs(e_card[key] - e_host[key])
+                          <= 1e-12 * np.abs(e_host[key]))
+        gc, gh, sc, sh = blended
+        assert np.all(np.abs(gc - gh) <= 1e-12 * np.abs(gh))
+        assert np.all(np.abs(sc - sh) <= 1e-12 * np.abs(sh))
