@@ -1,13 +1,14 @@
 """A cell of the benchmark, found by name, and its first rounds.
 
 A cell (an entry of ``workloads`` in ``BENCHMARK.json``) names a
-configuration, ``configs/<config>.json`` (the model's sizes and its
-source), and a traffic mix, ``traffic/<traffic>.json`` (the cohort, the
-data, the policy and the SFL settings of the run); the limits of its
-output check are in ``workloads/<cell>.json``.  `build` assembles the
-program's `Session` from them with the initial units the benchmark made;
-`FirstRounds` records the program's readings of the run's first rounds,
-through the first Eq. 7 round (`checked_rounds`),
+configuration, ``configs/<config>.json`` (the model's sizes, its source
+and its plain reference, ``reference/<reference>.py``: see
+`reference.contract`), and a traffic mix, ``traffic/<traffic>.json``
+(the cohort, the data, the policy and the SFL settings of the run); the
+limits of its output check are in ``workloads/<cell>.json``.  `build`
+assembles the program's `Session` from them with the initial units the
+benchmark made; `FirstRounds` records the program's readings of the run's
+first rounds, through the first Eq. 7 round (`checked_rounds`),
 `reference.rounds.first_rounds` works out the reference's, and `compare`
 and `verdict` hold the two against the cell's limits.  The losses and the
 change are compared over the first `EARLY` rounds, before training
@@ -19,13 +20,14 @@ from __future__ import annotations
 
 import json
 import math
-from dataclasses import dataclass, fields
+from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
 
+from simbench.reference import contract
 from simbench.reference import params as RP
-from simbench.reference.hasfl.config import ModelConfig, SFLConfig
+from simbench.reference.hasfl.config import SFLConfig
 from simbench.reference.host import check_traffic
 from simbench.reference.rounds import EARLY
 
@@ -49,26 +51,43 @@ class Cell:
     config: dict           # configs/<config>.json
     traffic: dict          # traffic/<traffic>.json
     check: dict            # workloads/<cell>.json
+    config_path: Path      # the configuration's file
+    ref: object            # its reference module (`reference.contract`)
 
     @property
-    def arch(self) -> ModelConfig:
-        """The configuration's sizes as the reference's model config."""
-        known = {f.name for f in fields(ModelConfig)}
-        kw = {k: (tuple(v) if isinstance(v, list) else v)
-              for k, v in self.config["model"].items() if k in known}
-        return ModelConfig(**kw)
+    def arch(self):
+        """The configuration's ``model`` as its reference module's
+        architecture (a key the module does not read raises)."""
+        try:
+            return self.ref.make_arch(self.config["model"])
+        except (TypeError, ValueError) as e:
+            raise ValueError(f"{self.config_path}: {e}") from None
 
 
-def find_cell(bench: dict, name: str, root: Path = ROOT) -> Cell:
+def find_cell(bench: dict, name: str, root: Path = None) -> Cell:
+    """The cell ``name`` of ``bench``, its files found under ``root``
+    (by default the checkout's) by the names in its entry, and its
+    configuration's sizes read by the configuration's reference module."""
+    root = ROOT if root is None else root
     for w in bench["workloads"]:
         if w["name"] == name:
-            return Cell(
-                name=name, chips=int(w["chips"]),
-                config=_json(root / "simbench" / "configs"
-                             / f"{w['config']}.json"),
+            path = root / "simbench" / "configs" / f"{w['config']}.json"
+            config = _json(path)
+            if "reference" not in config:
+                raise KeyError(f"{path} names no \"reference\" module")
+            try:
+                ref = contract.load(config["reference"],
+                                    root / "simbench" / "reference")
+            except (FileNotFoundError, ValueError) as e:
+                raise type(e)(f"{path}: {e}") from None
+            cell = Cell(
+                name=name, chips=int(w["chips"]), config=config,
                 traffic=_json(root / "simbench" / "traffic"
                               / f"{w['traffic']}.json"),
-                check=_json(root / "simbench" / "workloads" / f"{name}.json"))
+                check=_json(root / "simbench" / "workloads" / f"{name}.json"),
+                config_path=path, ref=ref)
+            cell.arch           # a model key the module does not read raises
+            return cell
     raise KeyError(f"no workload {name!r} in BENCHMARK.json")
 
 
@@ -123,7 +142,7 @@ def build(cell: Cell, seed: int, rounds: int, device=None):
     from repro_torch.utils.tree import tree_leaves
 
     sess = Session(spec_for(cell, seed, rounds), device=device)
-    units0 = RP.make_units(cell.arch, seed, sess.device)
+    units0 = RP.make_units(cell.ref, cell.arch, seed, sess.device)
     prog = tree_leaves(sess.sim._stacked)
     mine = RP.leaves(units0)
     if len(prog) != len(mine):

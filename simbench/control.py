@@ -47,7 +47,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         if args.no_program:
             cell = C.find_cell(bench, args.workload)
-            units0 = make_units(cell.arch, seed, "cuda")
+            units0 = make_units(cell.ref, cell.arch, seed, "cuda")
             prog = None
         else:
             run = Run(bench, args.workload, seed)
@@ -57,18 +57,18 @@ def main(argv=None) -> int:
             run.free()
         device = leaves(units0)[0].device
         names = leaf_names(units0)
-        host = HostPlane(cell.arch, cell.traffic, seed)
+        host = HostPlane(cell.ref, cell.arch, cell.traffic, seed)
         t_ref = time.perf_counter()
-        ref = first_rounds(cell.arch, cell.traffic, seed, units0, device,
-                           host=host)
+        ref = first_rounds(cell.ref, cell.arch, cell.traffic, seed, units0,
+                           device, host=host)
         t_ref = time.perf_counter() - t_ref
         if prog is not None:
             rows.append({"seed": seed, "side": "program",
                          **C.compare(prog, ref, names)})
             print(json.dumps(rows[-1]), flush=True)
         for v in args.variants:
-            alt = first_rounds(cell.arch, cell.traffic, seed, units0,
-                               device, variant=v, host=host)
+            alt = first_rounds(cell.ref, cell.arch, cell.traffic, seed,
+                               units0, device, variant=v, host=host)
             rows.append({"seed": seed, "side": v, **C.compare(alt, ref, names)})
             print(json.dumps(rows[-1]), flush=True)
         print(f"control: seed {seed} {time.perf_counter() - t0:.1f} s, "

@@ -50,6 +50,7 @@ class Ctx:
     """What the metric readers read (`simbench/metrics/<name>.py`)."""
     arch: object
     traffic: dict
+    ref: object = None          # the configuration's reference module
     setup_s: float = 0.0
     window_s: float = 0.0
     rounds: int = 0
@@ -255,7 +256,7 @@ def run_cell(bench: dict, cell_name: str, seed: int, seconds: float,
     prog = run.first_rounds()
     window = run.window(seconds, trace)
     res = rec.state["res"]
-    ctx = Ctx(arch=cell.arch, traffic=cell.traffic,
+    ctx = Ctx(arch=cell.arch, traffic=cell.traffic, ref=cell.ref,
               setup_s=window.T0 - t_start, window_s=window.T1 - window.T0,
               rounds=window.t1 - window.t0, peak_bytes=window.peak,
               policy_s=run.spans.seconds("policy", window.T0, window.T1),
@@ -272,7 +273,7 @@ def run_cell(bench: dict, cell_name: str, seed: int, seconds: float,
     memory_peak = max(window.peak_before, window.peak)
     run.free()
     units0 = run.units0
-    ref = first_rounds(cell.arch, cell.traffic, seed, units0,
+    ref = first_rounds(cell.ref, cell.arch, cell.traffic, seed, units0,
                        leaves(units0)[0].device, rounds=rec.rounds)
     readings = C.compare(prog, ref)
     correct, checks = C.verdict(readings, cell.check["limits"])

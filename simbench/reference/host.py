@@ -118,27 +118,18 @@ def parse_fixed(policy: str):
 
 
 class HostPlane:
-    """Data, partition, devices and draws of one run (``arch`` a frozen
-    `hasfl.config.ModelConfig`, ``traffic`` the cell's traffic dict)."""
+    """Data, partition, devices and draws of one run (``ref`` the
+    configuration's reference module, ``arch`` its architecture,
+    ``traffic`` the cell's traffic dict)."""
 
-    def __init__(self, arch, traffic: dict, seed: int):
+    def __init__(self, ref, arch, traffic: dict, seed: int):
         check_traffic(traffic)
+        self.ref = ref
         self.arch = arch
         self.traffic = traffic
         self.seed = int(seed)
-        n = traffic["n_clients"]
-        n_train, n_test = traffic["n_train"], traffic["n_test"]
-        if arch.is_cnn:
-            (xtr, ytr), _ = make_cifar_like(arch.n_classes, n_train, n_test,
-                                            arch.image_size, seed=self.seed)
-            self.train = {"images": xtr, "labels": ytr}
-            labels = ytr
-        else:
-            tokens, labels = make_lm_data(arch.vocab_size, n_train + n_test,
-                                          traffic.get("seq_len", SEQ_LEN),
-                                          seed=self.seed)
-            self.train = {"tokens": tokens[:n_train],
-                          "labels": labels[:n_train]}
+        n, n_train = traffic["n_clients"], traffic["n_train"]
+        self.train, labels = ref.train_data(arch, traffic, self.seed)
         rng = np.random.default_rng(self.seed)
         if traffic["partition"] == "iid":
             self.pools = partition_iid(n_train, n, rng)
@@ -166,20 +157,23 @@ class HostPlane:
             raise NotImplementedError(self.traffic["policy"])
         profile = copy.deepcopy(model_profile(self.arch))
         if self.traffic.get("estimate", True):
-            _blend_estimate(profile, self.arch.is_cnn, self.train, grad_fn,
-                            units, np.random.default_rng(self.seed))
+            spans = self.ref.unit_layer_spans(self.arch, len(units),
+                                              profile.n_layers)
+            _blend_estimate(profile, spans, self.train, grad_fn, units,
+                            np.random.default_rng(self.seed))
         d = HASFLOptimizer(profile, self.devices, self.sfl).solve(
             b0=None, cuts0=None, max_iter=4)
         return np.asarray(d.b), np.asarray(d.cuts)
 
 
-def _blend_estimate(profile, is_cnn: bool, arrays, grad_fn, units, est_rng,
+def _blend_estimate(profile, spans, arrays, grad_fn, units, est_rng,
                     n_batches: int = 3, batch_size: int = 16,
                     mix: float = 0.5) -> None:
     """The controller's online G²/σ² step: per-unit gradient moments of
     the aggregated model over ``n_batches`` host batches, spread over each
-    unit's layers by parameter count, rescaled to the prior's total mass
-    and blended into ``profile`` (in place)."""
+    unit's layers (``spans``, the unit's ``(lo, hi)`` of the profile's) by
+    parameter count, rescaled to the prior's total mass and blended into
+    ``profile`` (in place)."""
     g_total = float(profile.g_sq.sum())
     s_total = float(profile.sigma_sq.sum())
     n_total = len(next(iter(arrays.values())))
@@ -193,7 +187,6 @@ def _blend_estimate(profile, is_cnn: bool, arrays, grad_fn, units, est_rng,
                         for leaves in grad_fn(units, batch)])
     per_unit = estimate_constants(samples)
     n_layers = profile.n_layers
-    spans = _unit_layer_spans(is_cnn, len(units), n_layers)
     g_sq = np.zeros(n_layers)
     sigma_sq = np.zeros(n_layers)
     w = np.maximum(profile.params, 1.0)
@@ -205,20 +198,6 @@ def _blend_estimate(profile, is_cnn: bool, arrays, grad_fn, units, est_rng,
     s_new = _rescaled(sigma_sq, s_total)
     profile.g_sq = (1 - mix) * profile.g_sq + mix * g_new
     profile.sigma_sq = (1 - mix) * profile.sigma_sq + mix * s_new
-
-
-def _unit_layer_spans(is_cnn: bool, n_units: int, n_layers: int) -> list:
-    if is_cnn:                         # one unit a layer
-        return [(u, u + 1) for u in range(n_units)]
-    reps = n_units - 2
-    period = max(1, n_layers // max(reps, 1))
-    spans = [(0, 1)]
-    for r in range(reps):
-        lo = min(r * period, n_layers - 1)
-        hi = n_layers if r == reps - 1 else min((r + 1) * period, n_layers)
-        spans.append((lo, max(hi, lo + 1)))
-    spans.append((n_layers - 1, n_layers))
-    return spans
 
 
 def _rescaled(est, prior_total: float):

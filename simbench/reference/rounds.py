@@ -3,12 +3,13 @@
 Given the cell's architecture and traffic, the seed and the initial units
 the benchmark made, `first_rounds` redoes what the simulator's first
 rounds must do: the first boundary's decision (`host.HostPlane`), each
-round's draws, every client's loss and gradient on its own batch
-(`vgg` or `decoder`), the per-client clip to global norm ``clip_norm``,
+round's draws, every client's loss and gradient on its own batch (the
+configuration's reference module ``ref``, `contract`), the per-client
+clip to global norm ``clip_norm``,
 and the HASFL update: per-client SGD on every unit, then the client mean
 (Eq. 4) on server-common units every round and on client-specific units
 every ``agg_interval`` rounds (Eq. 7).  The client-specific units are
-those before the deepest cut of the decision.
+those the decision's cuts keep on the clients (``ref.client_specific``).
 
 ``variant`` puts something other than the reference in the program's
 place: ``"tf32"`` (fp32 products on the tensor cores' TF32; off the card,
@@ -28,7 +29,6 @@ import math
 import numpy as np
 import torch
 
-from simbench.reference import decoder, vgg
 from simbench.reference.host import HostPlane
 from simbench.reference.params import leaves
 
@@ -72,7 +72,7 @@ def precision(variant):
          torch.backends.cudnn.allow_tf32) = keep
 
 
-def _batch(host, idx, device, variant, arch):
+def _batch(host, idx, device, variant, classes: int):
     out = {k: torch.as_tensor(np.asarray(v)[idx]).to(device)
            for k, v in host.train.items()}
     if variant == "half":
@@ -80,7 +80,6 @@ def _batch(host, idx, device, variant, arch):
         out = {k: v[:keep] for k, v in out.items()}
     if variant == "label":
         lab = out["labels"].clone()
-        classes = arch.n_classes if arch.is_cnn else arch.vocab_size
         lab[0] = (lab[0] + 1) % classes
         out["labels"] = lab
     return out
@@ -112,12 +111,7 @@ def _rebuild(unit, new_leaves):
     return walk(unit)
 
 
-def unit_cut(arch, cut_layer: int) -> int:
-    return int(cut_layer) if arch.is_cnn else \
-        min(arch.n_layers, max(1, int(cut_layer)))
-
-
-def first_rounds(arch, traffic: dict, seed: int, units0: list, device,
+def first_rounds(ref, arch, traffic: dict, seed: int, units0: list, device,
                  rounds=None, variant=None, host=None) -> dict:
     """The reference's readings of rounds 1..``rounds`` (by default
     ``agg_interval``, the last the first Eq. 7 round): the decision, the
@@ -128,9 +122,8 @@ def first_rounds(arch, traffic: dict, seed: int, units0: list, device,
     all clients).  ``host`` reuses a `HostPlane` built for this seed."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}")
-    host = host or HostPlane(arch, traffic, seed)
+    host = host or HostPlane(ref, arch, traffic, seed)
     rng_state = host.rng.bit_generator.state
-    model = vgg if arch.is_cnn else decoder
     quant = fp8_round if variant == "fp8" else None
     if variant == "tf32" and torch.device(device).type != "cuda":
         quant = tf32_round
@@ -140,7 +133,7 @@ def first_rounds(arch, traffic: dict, seed: int, units0: list, device,
     early = min(EARLY, rounds)
 
     def model_loss(tree, batch):
-        return model.loss(tree, batch, arch, quant)
+        return ref.loss(tree, batch, arch, quant)
 
     def estimate_grads(units, batch):
         b = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
@@ -150,10 +143,8 @@ def first_rounds(arch, traffic: dict, seed: int, units0: list, device,
     try:
         with precision(variant):
             b, cuts = host.decision(estimate_grads, units0)
-            l_c = max(unit_cut(arch, c) for c in cuts)
-            n_units = len(units0)
-            client_specific = [u < l_c + (0 if arch.is_cnn else 1)
-                               for u in range(n_units)]
+            client_specific = ref.client_specific(arch, cuts, len(units0))
+            classes = ref.n_labels(arch)
             p0 = [[x.detach() for x in leaves(u)] for u in units0]
             params = [[list(u) for u in p0] for _ in range(n)]
             out = {"b": np.asarray(b), "cuts": np.asarray(cuts),
@@ -166,7 +157,7 @@ def first_rounds(arch, traffic: dict, seed: int, units0: list, device,
                     tree = [_rebuild(u, w) for u, w in zip(units0, params[i])]
                     loss, g, s = _grads(
                         model_loss, tree,
-                        _batch(host, draws[i], device, variant, arch),
+                        _batch(host, draws[i], device, variant, classes),
                         sfl.clip_norm)
                     losses.append(float(loss))
                     grads.append(g)

@@ -18,38 +18,34 @@ BENCH = C.load_benchmark()
 CELLS = [w["name"] for w in BENCH["workloads"]]
 
 
-def _tiny_fp32() -> str:
-    """smollm-tiny in fp32, registered with the program under its own name.
-    In bf16 the program's plain update (the CPU's path) rounds each
+def _register(name: str, program_arch: str, model: dict) -> None:
+    """Register the small model with the program under its own name, as
+    its program architecture with the small sizes.  smollm-tiny runs in
+    fp32: in bf16 the program's plain update (the CPU's path) rounds each
     client's step before the Eq. 4/7 mean, where its kernel on the card
     and the reference round once, so only the card checks the bf16 cell."""
     import dataclasses
 
     from repro_torch import config as RC
 
-    name = "smollm-tiny-f32"
-    RC.register(dataclasses.replace(RC.get_config("smollm-tiny"),
-                                    arch_id=name, dtype="float32"))
-    return name
+    if name == program_arch:
+        return
+    RC.register(dataclasses.replace(
+        RC.get_config(program_arch),
+        **{k: (tuple(v) if isinstance(v, list) else v)
+           for k, v in model.items()}))
 
 
 def small(cell):
-    """The cell at a size the CPU runs in seconds: vgg9-cifar-small or
-    smollm-tiny (fp32), a few clients, an eval every 4 rounds, I = 2."""
-    if cell.arch.is_cnn:
-        cell.config["arch_id"] = "vgg9-cifar-small"
-        cell.config["model"].update(
-            arch_id="vgg9-cifar-small", conv_channels=[16, 16, 32, 32, 64, 64],
-            fc_dims=[128])
-        cell.traffic.update(n_clients=4, n_train=400, n_test=50)
-    else:
-        name = _tiny_fp32()
-        cell.config["arch_id"] = name
-        cell.config["model"].update(
-            arch_id=name, n_layers=2, d_model=64, n_heads=2, n_kv_heads=1,
-            d_ff=256, vocab_size=256, head_dim=32, dtype="float32")
-        cell.traffic.update(n_clients=2, n_train=64, n_test=8, seq_len=16,
-                            policy="fixed(b=4,cut=1)")
+    """The cell at a size the CPU runs in seconds, its reference module's
+    ``SMALL`` (vgg9-cifar-small, smollm-tiny in fp32, a few clients), an
+    eval every 4 rounds, I = 2."""
+    size = cell.ref.SMALL
+    name = size["model"]["arch_id"]
+    _register(name, size["program_arch"], size["model"])
+    cell.config["arch_id"] = name
+    cell.config["model"].update(size["model"])
+    cell.traffic.update(size["traffic"])
     cell.traffic["eval_every"] = 4
     cell.traffic["sfl"] = dict(cell.traffic["sfl"], agg_interval=2)
 
@@ -129,9 +125,9 @@ def test_control_is_not_correct(name):
     small(cell)
     from simbench.reference.params import make_units
 
-    units0 = make_units(cell.arch, 9, "cpu")
-    ref = first_rounds(cell.arch, cell.traffic, 9, units0, "cpu")
-    alt = first_rounds(cell.arch, cell.traffic, 9, units0, "cpu",
+    units0 = make_units(cell.ref, cell.arch, 9, "cpu")
+    ref = first_rounds(cell.ref, cell.arch, cell.traffic, 9, units0, "cpu")
+    alt = first_rounds(cell.ref, cell.arch, cell.traffic, 9, units0, "cpu",
                        variant=cell.check["control"])
     ok, rows = C.verdict(C.compare(alt, ref), cell.check["limits"])
     assert not ok, rows
